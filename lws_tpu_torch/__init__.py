@@ -1,0 +1,16 @@
+"""PyTorch/CUDA port of lws_tpu's compute plane, for one NVIDIA H100.
+
+The JAX package `lws_tpu` is the reference and stays unchanged; this
+package is its counterpart, module by module (models/, ops/, serving/). It
+imports torch, numpy and the standard library only.
+
+Entry points (`Llama`, `init_params`, `PagedBatchEngine`) run on `cuda`
+unless the caller passes `device="cpu"`; with no GPU and no explicit CPU
+device they raise. The attention kernels are hand-written CUDA C++ for
+sm_90a (csrc/), built by nvcc at first use (ops/_ext.py); on CPU tensors
+the ops compute their plain PyTorch versions.
+"""
+
+from lws_tpu_torch._device import resolve_device
+
+__all__ = ["resolve_device"]
