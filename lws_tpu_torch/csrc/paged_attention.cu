@@ -2,21 +2,25 @@
 // pool, for Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernel lws_tpu/ops/paged_attention.py:
-// paged_decode_attention (body _kernel), bf16-pool branch:
-//   q [B,1,H,128] bf16; k/v pools [L, NB, 16, Hkv, 128] bf16 (passed whole);
-//   table [B, MB] int32 (slot -> pool blocks); pos [B] int32 (each slot's
-//   current write position); layer -> out [B,1,H,128] bf16.
+// paged_decode_attention (body _kernel), both branches:
+//   q [B,1,H,128] bf16; k/v pools [L, NB, 16, Hkv, 128] (passed whole), bf16,
+//   or int8 with f32 scales [L, NB, 16, Hkv] (quant=True); table [B, MB] int32
+//   (slot -> pool blocks); pos [B] int32 (each slot's current write
+//   position); layer -> out [B,1,H,128] bf16.
 // Keys at logical positions <= pos[b] are attended; everything is read in
 // place from the pool at ((layer*NB + blk)*16 + t)*Hkv + h)*128, so no
 // per-layer slice or gathered view is ever built.
 //
 // What bounds it: bytes. A decode step reads every live K/V row once and does
-// ~2 flops per byte, far below the ~295 flop/byte at which the H100's tensor
-// cores, not its memory, would be the limit. The TPU kernel walks one slot's
-// blocks in order on one core; on the H100 a few dozen (slot, kv head) pairs
-// would leave most of the 132 SMs idle, and one CTA walking a long sequence
-// is bound by latency, not bandwidth. So the sequence is split:
-//   * pass 1 (paged_decode_split): one CTA per (slot, kv head, split of
+// ~2 flops per byte (~4 for int8), far below the ~295 flop/byte at which the
+// H100's tensor cores, not its memory, would be the limit. An int8 row with
+// its scale is 132 bytes per kv head against 256 in bf16, so the int8 bound
+// is about half the bf16 one. The TPU kernel walks one slot's blocks in order
+// on one core; on the H100 a few dozen (slot, kv head) pairs would leave most
+// of the 132 SMs idle, and one CTA walking a long sequence is bound by
+// latency, not bandwidth. So the sequence is split:
+//   * pass 1 (paged_decode_split for bf16, decode_split_int8<PagedAddr> of
+//     decode_common.cuh for int8): one CTA per (slot, kv head, split of
 //     `blocks_per_split` table entries). Its G = H/Hkv query heads are one
 //     warp each and share every K/V block, staged in shared memory by cp.async
 //     (16-byte copies, kStages blocks in flight). Only live blocks
@@ -24,39 +28,18 @@
 //     inside the last one, only tokens <= pos are used. Each warp keeps an
 //     online softmax in f32 (running max m, sum l, a 4-wide accumulator per
 //     lane) and writes its unnormalised (acc, m, l) for the split;
-//   * pass 2 (paged_decode_combine): one CTA per (slot, query head) merges the
+//   * pass 2 (decode_combine): one CTA per (slot, query head) merges the
 //     splits with weights exp(m_s - max m) and writes acc / l as bf16.
 // Splits past a slot's live range write l = 0 and are skipped by pass 2.
 // Block 0 is the null block: inactive slots' table rows are all 0 and their
 // pos is frozen, so they read block 0 harmlessly; an entry outside [0, NB)
 // also reads block 0.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "decode_common.cuh"
 
 namespace {
 
-typedef __nv_bfloat16 bf16;
-
-constexpr int kHD = 128;     // head dim (the flagship's; checked by the wrapper)
-constexpr int kBS = 16;      // tokens per pool block (the engine's; checked by the wrapper)
-constexpr int kStages = 4;   // K/V blocks in flight per CTA
-constexpr float kNegInf = -1e30f;
-
-__device__ __forceinline__ void cp_async16(void* smem_dst, const void* gmem_src) {
-  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem_dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem_src));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
+using namespace lws_decode;
 
 // Pass 1. Grid (B, Hkv, splits), 32*G threads. part_acc [B,Hkv,splits,G,128]
 // and part_ml [B,Hkv,splits,G,2] (m, l) in f32.
@@ -197,35 +180,6 @@ __global__ void paged_decode_split(const bf16* __restrict__ q, const bf16* __res
   }
 }
 
-// Pass 2. Grid (B, H), kHD threads: merge the splits of one query head.
-__global__ void paged_decode_combine(const float* __restrict__ part_acc,
-                                     const float* __restrict__ part_ml, bf16* __restrict__ out,
-                                     int H, int Hkv, int splits) {
-  const int b = blockIdx.x;
-  const int hq = blockIdx.y;
-  const int G = H / Hkv;
-  const int h = hq / G;
-  const int g = hq % G;
-  const int d = threadIdx.x;
-  const size_t base = ((size_t)b * Hkv + h) * splits;  // split s is part (base + s) * G + g
-  float m_max = kNegInf;
-  for (int s = 0; s < splits; ++s) {
-    const size_t part = (base + s) * G + g;
-    if (part_ml[part * 2 + 1] > 0.f) m_max = fmaxf(m_max, part_ml[part * 2]);
-  }
-  float num = 0.f, den = 0.f;
-  for (int s = 0; s < splits; ++s) {
-    const size_t part = (base + s) * G + g;
-    const float l = part_ml[part * 2 + 1];
-    if (l > 0.f) {
-      const float w = __expf(part_ml[part * 2] - m_max);
-      num += w * part_acc[part * kHD + d];
-      den += w * l;
-    }
-  }
-  out[((size_t)b * H + hq) * kHD + d] = __float2bfloat16(num / den);
-}
-
 constexpr size_t kSplitSmem = 2 * kStages * (size_t)kBS * kHD * sizeof(bf16);  // 32 KB
 
 }  // namespace
@@ -251,9 +205,23 @@ int lws_paged_decode_attention(const void* q, const void* k_pool, const void* v_
       static_cast<const int*>(pos), layer, pa, pm, H, Hkv, NB, MB, blocks_per_split, scale);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  paged_decode_combine<<<dim3(B, H), kHD, 0, st>>>(pa, pm, static_cast<bf16*>(out), H, Hkv,
-                                                    splits);
+  lws_decode::decode_combine<<<dim3(B, H), kHD, 0, st>>>(pa, pm, static_cast<bf16*>(out), H,
+                                                        Hkv, splits);
   return (int)cudaGetLastError();
+}
+
+// The int8 pool: k/v [L,NB,16,Hkv,128] contiguous int8 with k_scale/v_scale
+// [L,NB,16,Hkv] contiguous f32; everything else as above.
+int lws_paged_decode_attention_int8(const void* q, const void* k_pool, const void* k_scale,
+                                    const void* v_pool, const void* v_scale,
+                                    const void* table, const void* pos, int layer, void* out,
+                                    void* part_acc, void* part_ml, int B, int H, int Hkv,
+                                    int NB, int MB, int splits, int blocks_per_split,
+                                    float scale, void* stream) {
+  const lws_decode::PagedAddr addr{static_cast<const int*>(table), MB, NB, layer};
+  return lws_decode::launch_decode_int8(q, k_pool, k_scale, v_pool, v_scale, addr, pos, 0, out,
+                                        part_acc, part_ml, B, H, Hkv, splits,
+                                        blocks_per_split, scale, stream);
 }
 
 const char* lws_cuda_error_string(int err) {

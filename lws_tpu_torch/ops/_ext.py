@@ -2,8 +2,9 @@
 
 Each source `lws_tpu_torch/csrc/<name>.cu` exports plain C functions. At
 first use it is compiled by nvcc for sm_90a into its own shared library,
-`lws_tpu_torch/_build/<name>-<digest>.so` (the digest covers the source and
-the flags, so an edited source rebuilds), and loaded with ctypes. No PyTorch
+`lws_tpu_torch/_build/<name>-<digest>.so` (the digest covers the source, the
+shared `csrc/*.cuh` headers and the flags, so an edit rebuilds), and loaded
+with ctypes. No PyTorch
 header is compiled: a source with a plain C interface builds in seconds,
 where one that includes torch/extension.h takes minutes. Importing this
 module needs no nvcc; `build()` and `load()` do, and raise without it.
@@ -64,6 +65,8 @@ def _nvcc() -> str:
 
 def _library_path(name: str) -> Path:
     h = hashlib.sha256(source_path(name).read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):  # shared headers any source may include
+        h.update(header.read_bytes())
     h.update("\0".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 

@@ -1,7 +1,9 @@
 """Paged decode attention over the whole KV block pool: the CUDA kernel
-(csrc/paged_attention.cu) and its plain PyTorch version.
+(csrc/paged_attention.cu) and its plain PyTorch version, for a bf16 pool
+(`paged_decode_attention`) and an int8 pool with per-(token, kv head) f32
+scales (`paged_decode_attention_int8`).
 
-Counterpart of lws_tpu/ops/paged_attention.py (bf16-pool branch). Same
+Counterpart of lws_tpu/ops/paged_attention.py (both branches). Same
 contract as `cached_attention` with S=1: for slot b, the keys at logical
 positions <= pos_b[b] of the sequence the block-table row table[b] maps
 are attended. The pool is passed whole with a layer index, never sliced.
@@ -19,6 +21,15 @@ from lws_tpu_torch.ops.attention import HEAD_DIM, NEG_INF
 _SIGNATURES = {
     "lws_paged_decode_attention": [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # q k_pool v_pool
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,  # table pos layer out
+        ctypes.c_void_p, ctypes.c_void_p,  # split partials: acc, (m, l)
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B H Hkv NB
+        ctypes.c_int, ctypes.c_int, ctypes.c_int,  # MB splits blocks_per_split
+        ctypes.c_float, ctypes.c_void_p,  # scale stream
+    ],
+    "lws_paged_decode_attention_int8": [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # q k_pool k_scale
+        ctypes.c_void_p, ctypes.c_void_p,  # v_pool v_scale
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,  # table pos layer out
         ctypes.c_void_p, ctypes.c_void_p,  # split partials: acc, (m, l)
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B H Hkv NB
@@ -63,43 +74,88 @@ def paged_decode_attention_reference(q, k_pool, v_pool, block_table, pos_b,
     return cached_attention(q, k_view, v_view, pos_b)
 
 
-def _launch_kernel(q, k_pool, v_pool, block_table, pos_b, layer_idx: int) -> torch.Tensor:
+def dequantize_kv(q: torch.Tensor, scale: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """int8 K/V [..., hd] with scales [...] -> values in `dtype`
+    (lws_tpu/models/llama.py:_dequantize_kv)."""
+    return (q.float() * scale[..., None]).to(dtype)
+
+
+def paged_decode_attention_int8_reference(q, k_pool, k_scale, v_pool, v_scale, block_table,
+                                          pos_b, layer_idx: int) -> torch.Tensor:
+    """The plain version over an int8 pool: gather each slot's view and its
+    scales, dequantize to q's dtype, then dense cached attention (the XLA
+    path of lws_tpu/models/llama.py:931-941)."""
+    B = q.shape[0]
+    Hkv, hd = k_pool.shape[3], k_pool.shape[4]
+    idx = block_table.long()
+    k_view = dequantize_kv(k_pool[layer_idx][idx], k_scale[layer_idx][idx], q.dtype)
+    v_view = dequantize_kv(v_pool[layer_idx][idx], v_scale[layer_idx][idx], q.dtype)
+    return cached_attention(q, k_view.reshape(B, -1, Hkv, hd), v_view.reshape(B, -1, Hkv, hd),
+                            pos_b)
+
+
+def _check_inputs(what: str, q, k_pool, v_pool, block_table, pos_b, layer_idx: int,
+                  pool_dtype: torch.dtype, scales=()) -> None:
     dev = q.device
-    if not all(t.device == dev for t in (k_pool, v_pool, block_table, pos_b)):
-        raise ValueError("paged_decode_attention: all inputs must be on one CUDA device")
-    if not (q.dtype == k_pool.dtype == v_pool.dtype == torch.bfloat16):
-        raise TypeError("paged_decode_attention: bf16 q and pools only "
+    if not all(t.device == dev for t in (k_pool, v_pool, block_table, pos_b, *scales)):
+        raise ValueError(f"{what}: all inputs must be on one CUDA device")
+    if q.dtype != torch.bfloat16 or k_pool.dtype != pool_dtype or v_pool.dtype != pool_dtype:
+        raise TypeError(f"{what}: bf16 q and {pool_dtype} pools only "
                         f"(got {q.dtype}/{k_pool.dtype}/{v_pool.dtype})")
+    if any(s.dtype != torch.float32 for s in scales):
+        raise TypeError(f"{what}: f32 scales only")
     if block_table.dtype != torch.int32 or pos_b.dtype != torch.int32:
-        raise TypeError("paged_decode_attention: int32 block_table and pos_b")
+        raise TypeError(f"{what}: int32 block_table and pos_b")
     if q.dim() != 4 or q.shape[1] != 1:
-        raise ValueError(f"paged_decode_attention: q must be [B,1,H,hd], got {tuple(q.shape)}")
+        raise ValueError(f"{what}: q must be [B,1,H,hd], got {tuple(q.shape)}")
     B, _, H, hd = q.shape
     if k_pool.dim() != 5 or k_pool.shape != v_pool.shape:
-        raise ValueError("paged_decode_attention: pools must be [L,NB,bs,Hkv,hd] and equal")
+        raise ValueError(f"{what}: pools must be [L,NB,bs,Hkv,hd] and equal")
     L, NB, bs, Hkv, hd_pool = k_pool.shape
+    if any(s.shape != k_pool.shape[:4] for s in scales):
+        raise ValueError(f"{what}: scales must be [L,NB,bs,Hkv] = {tuple(k_pool.shape[:4])}")
     if hd != HEAD_DIM or hd_pool != HEAD_DIM:
-        raise ValueError(f"paged_decode_attention: head dim {HEAD_DIM} only, got {hd}/{hd_pool}")
+        raise ValueError(f"{what}: head dim {HEAD_DIM} only, got {hd}/{hd_pool}")
     if Hkv < 1 or H % Hkv or H // Hkv > 32:
-        raise ValueError(f"paged_decode_attention: need Hkv | H and H/Hkv <= 32 (H={H}, Hkv={Hkv})")
+        raise ValueError(f"{what}: need Hkv | H and H/Hkv <= 32 (H={H}, Hkv={Hkv})")
     if block_table.dim() != 2 or block_table.shape[0] != B or pos_b.shape != (B,):
-        raise ValueError("paged_decode_attention: block_table [B, max_blocks], pos_b [B]")
+        raise ValueError(f"{what}: block_table [B, max_blocks], pos_b [B]")
     if bs != BLOCK_SIZE:
-        raise ValueError(f"paged_decode_attention: block size {BLOCK_SIZE} only, got {bs}")
+        raise ValueError(f"{what}: block size {BLOCK_SIZE} only, got {bs}")
     if not 0 <= layer_idx < L:
-        raise ValueError(f"paged_decode_attention: layer {layer_idx} outside [0, {L})")
-    if not all(t.is_contiguous() for t in (q, k_pool, v_pool, block_table, pos_b)):
-        raise ValueError("paged_decode_attention: inputs must be contiguous")
+        raise ValueError(f"{what}: layer {layer_idx} outside [0, {L})")
+    if not all(t.is_contiguous() for t in (q, k_pool, v_pool, block_table, pos_b, *scales)):
+        raise ValueError(f"{what}: inputs must be contiguous")
+
+
+def split_plan(dev: torch.device, rows: int, blocks: int) -> tuple[int, int]:
+    """(splits, blocks per split) for `rows` (slot, kv head) pairs of up to
+    `blocks` 16-token blocks each, so the first pass has about CTAS_PER_SM
+    CTAs per SM."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    splits = min(blocks, max(1, -(-CTAS_PER_SM * sms // rows)))
+    per_split = -(-blocks // splits)
+    return -(-blocks // per_split), per_split
+
+
+def split_scratch(q, Hkv: int, splits: int):
+    B, _, H, hd = q.shape
+    n = B * Hkv * splits * (H // Hkv)
+    return (torch.empty(n * hd, dtype=torch.float32, device=q.device),
+            torch.empty(n * 2, dtype=torch.float32, device=q.device))
+
+
+def _launch_kernel(q, k_pool, v_pool, block_table, pos_b, layer_idx: int) -> torch.Tensor:
+    _check_inputs("paged_decode_attention", q, k_pool, v_pool, block_table, pos_b, layer_idx,
+                  torch.bfloat16)
+    dev = q.device
+    B, _, H, hd = q.shape
+    NB, Hkv = k_pool.shape[1], k_pool.shape[3]
     # Split each slot's table row so the first pass fills the card: the
     # live length is device data, so the split is sized from max_blocks.
     MB = block_table.shape[1]
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    splits = min(MB, max(1, -(-CTAS_PER_SM * sms // (B * Hkv))))
-    per_split = -(-MB // splits)
-    splits = -(-MB // per_split)
-    G = H // Hkv
-    part_acc = torch.empty(B * Hkv * splits * G * hd, dtype=torch.float32, device=dev)
-    part_ml = torch.empty(B * Hkv * splits * G * 2, dtype=torch.float32, device=dev)
+    splits, per_split = split_plan(dev, B * Hkv, MB)
+    part_acc, part_ml = split_scratch(q, Hkv, splits)
     out = torch.empty_like(q)
     lib = _ext.load("paged_attention", _SIGNATURES)
     with torch.cuda.device(dev):
@@ -112,6 +168,31 @@ def _launch_kernel(q, k_pool, v_pool, block_table, pos_b, layer_idx: int) -> tor
         )
     _ext.check(lib, rc, "paged_decode_attention")
     paged_decode_attention.launches += 1
+    return out
+
+
+def _launch_kernel_int8(q, k_pool, k_scale, v_pool, v_scale, block_table, pos_b,
+                        layer_idx: int) -> torch.Tensor:
+    _check_inputs("paged_decode_attention_int8", q, k_pool, v_pool, block_table, pos_b,
+                  layer_idx, torch.int8, (k_scale, v_scale))
+    dev = q.device
+    B, _, H, hd = q.shape
+    NB, Hkv = k_pool.shape[1], k_pool.shape[3]
+    MB = block_table.shape[1]
+    splits, per_split = split_plan(dev, B * Hkv, MB)
+    part_acc, part_ml = split_scratch(q, Hkv, splits)
+    out = torch.empty_like(q)
+    lib = _ext.load("paged_attention", _SIGNATURES)
+    with torch.cuda.device(dev):
+        rc = lib.lws_paged_decode_attention_int8(
+            q.data_ptr(), k_pool.data_ptr(), k_scale.data_ptr(), v_pool.data_ptr(),
+            v_scale.data_ptr(), block_table.data_ptr(), pos_b.data_ptr(), layer_idx,
+            out.data_ptr(), part_acc.data_ptr(), part_ml.data_ptr(),
+            B, H, Hkv, NB, MB, splits, per_split, float(hd) ** -0.5,
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _ext.check(lib, rc, "paged_decode_attention_int8")
+    paged_decode_attention_int8.launches += 1
     return out
 
 
@@ -133,3 +214,27 @@ def paged_decode_attention(
 
 
 paged_decode_attention.launches = 0  # kernel launches since the caller last set it to 0
+
+
+def paged_decode_attention_int8(
+    q: torch.Tensor,            # [B, 1, H, hd]
+    k_pool: torch.Tensor,       # [L, num_blocks, bs, Hkv, hd] int8, whole
+    k_scale: torch.Tensor,      # [L, num_blocks, bs, Hkv] f32
+    v_pool: torch.Tensor,       # same as k_pool
+    v_scale: torch.Tensor,      # same as k_scale
+    block_table: torch.Tensor,  # [B, max_blocks] int32
+    pos_b: torch.Tensor,        # [B] int32
+    layer_idx: int,
+) -> torch.Tensor:
+    """[B, 1, H, hd] in q's dtype over an int8 pool, dequantized in the
+    kernel. CUDA tensors launch the kernel (bf16 q, hd 128, block size 16)
+    and raise on anything it does not take; CPU tensors compute the plain
+    version."""
+    if q.is_cuda:
+        return _launch_kernel_int8(q, k_pool, k_scale, v_pool, v_scale, block_table, pos_b,
+                                   int(layer_idx))
+    return paged_decode_attention_int8_reference(q, k_pool, k_scale, v_pool, v_scale,
+                                                 block_table, pos_b, int(layer_idx))
+
+
+paged_decode_attention_int8.launches = 0  # kernel launches since the caller last set it to 0

@@ -22,8 +22,12 @@ running tokens) is updated in place in stream order; the host keeps the
 truth for allocation, budgets and results.
 
 On CUDA every prefill runs the flash kernel and every decode step the
-paged-decode kernel; a build or launch failure raises. There is no fallback
-path. Left out of this slice: mesh/TP, prefix cache and its host and remote
+paged-decode kernel (its int8 entry over an int8 pool when cfg.kv_quant);
+with quantized weights the products of at most 256 rows run the int8_matmul
+kernel. A build or launch failure raises. There is no fallback path. With
+cfg.kv_quant the pool holds int8 K/V with per-(token, kv head) scales, and
+admission scatters the prefill cache's int8 values and scales into it
+unchanged. Left out of this slice: mesh/TP, prefix cache and its host and remote
 tiers, chunked admission, speculative decoding, donation knobs, telemetry.
 """
 
@@ -186,8 +190,9 @@ class PagedBatchEngine:
         cache = init_cache(self.cfg, 1, prompt.shape[1], self.device)
         return forward_prefill(self.params, prompt, cache, last_pos=last_pos)
 
-    def _insert(self, slot_k, slot_v, block_ids, slot: int, plen: int, first) -> None:
-        paged_insert(self.cache, slot_k, slot_v, block_ids)
+    def _insert(self, slot_k, slot_v, block_ids, slot: int, plen: int, first,
+                k_scale=None, v_scale=None) -> None:
+        paged_insert(self.cache, slot_k, slot_v, block_ids, k_scale, v_scale)
         self.pos_b[slot] = plen
         self.tokens[slot] = first
 
@@ -291,7 +296,10 @@ class PagedBatchEngine:
         )
         first = self._sample_first_token(logits, gen, slot, temperature, top_k, top_p)
         prefill_ids = torch.tensor(blocks[: bucket // self.block_size], device=self.device)
-        self._insert(slot_cache.k[:, 0], slot_cache.v[:, 0], prefill_ids, slot, plen, first)
+        scales = ((slot_cache.k_scale[:, 0], slot_cache.v_scale[:, 0])
+                  if self.cfg.kv_quant else ())
+        self._insert(slot_cache.k[:, 0], slot_cache.v[:, 0], prefill_ids, slot, plen, first,
+                     *scales)
         return self._finish_admission(req, first)
 
     def _release(self, req: PagedRequest) -> None:

@@ -7,16 +7,27 @@ has only PyTorch; the repository's conftest imports jax, so run it with
     python -m pytest --noconftest -m gpu tests/test_torch_kernels_gpu.py
 
 Tolerance: atol = rtol = 2e-2 on bf16 outputs (bf16 keeps 8 bits; the
-kernels keep f32 scores where the plain versions round them to bf16)."""
+kernels keep f32 scores where the plain versions round them to bf16). The
+int8_matmul kernel's outputs are compared at 2e-2 of the output's magnitude:
+kernel and plain version both sum in f32 and round once to bf16, in
+different orders."""
 
 import numpy as np
 import pytest
 import torch
 
+from lws_tpu_torch.models import flagship as tflagship
 from lws_tpu_torch.models import llama as tl
 from lws_tpu_torch.ops.attention import flash_attention, reference_attention
+from lws_tpu_torch.ops.int8_attention import (
+    int8_decode_attention,
+    int8_decode_attention_reference,
+)
+from lws_tpu_torch.ops.int8_matmul import int8_matmul, int8_matmul_reference
 from lws_tpu_torch.ops.paged_attention import (
     paged_decode_attention,
+    paged_decode_attention_int8,
+    paged_decode_attention_int8_reference,
     paged_decode_attention_reference,
 )
 
@@ -117,3 +128,157 @@ def test_decode_and_prefill_logits_kernel_vs_plain_small_model(dev):
     dk, _ = tl.forward_decode_paged(model, tok, pool, table, pos)
     dp, _ = tl.forward_decode_paged(model, tok, pool2, table, pos, plain=True)
     assert ((dk - dp).abs().max() / dp.abs().max()).item() < 5e-2
+
+
+# ---------------------------------------------------------------------------
+# int8 kernels
+
+
+def int8s(g, *shape, dev):
+    return torch.randint(-127, 128, shape, generator=g, device=dev, dtype=torch.int8)
+
+
+@pytest.mark.parametrize("m,D,F", [(1, 512, 256), (8, 4096, 1024), (24, 1024, 512),
+                                   (256, 4096, 4096), (8, 14336, 4096), (3, 1000, 200),
+                                   (17, 136, 77), (100, 520, 1000), (64, 4096, 128256)])
+def test_int8_matmul_kernel_matches_plain(dev, m, D, F):
+    """Flagship and small shapes, single and split D, and ragged D and F
+    (D not a multiple of 16 takes the byte loads; F not of 64 the guarded
+    stores)."""
+    g = torch.Generator(device=dev).manual_seed(m + D + F)
+    x = randn(g, m, D, dev=dev)
+    q = int8s(g, F, D, dev=dev)
+    scale = torch.rand(F, generator=g, device=dev) * D**-0.5 / 73.3
+    before = int8_matmul.launches
+    got = int8_matmul(x, q, scale)
+    want = int8_matmul_reference(x, q, scale)
+    torch.cuda.synchronize()
+    assert int8_matmul.launches == before + 1 and got.shape == (m, F)
+    mag = want.float().abs().max().item()
+    torch.testing.assert_close(got.float(), want.float(), atol=TOL * mag, rtol=TOL)
+
+
+def test_int8_matmul_leading_dims_and_unaligned_x(dev):
+    g = torch.Generator(device=dev).manual_seed(5)
+    x = randn(g, 2, 3, 520, dev=dev)
+    q, scale = int8s(g, 96, 520, dev=dev), torch.rand(96, generator=g, device=dev)
+    got = int8_matmul(x, q, scale)
+    assert got.shape == (2, 3, 96)
+    torch.testing.assert_close(got.float(), int8_matmul_reference(x, q, scale).float(),
+                               atol=TOL * 50, rtol=TOL)
+    flat = randn(g, 2 * 520 + 1, dev=dev)[1:].view(2, 520)  # 2-byte aligned, contiguous
+    torch.testing.assert_close(int8_matmul(flat, q, scale).float(),
+                               int8_matmul_reference(flat, q, scale).float(), atol=TOL * 50,
+                               rtol=TOL)
+
+
+def _int8_paged_case(dev, B, H, Hkv, L, NB, MB, pos, seed=0):
+    q, k_pool, v_pool, table, pos_t = _paged_case(dev, B, H, Hkv, L, NB, 16, MB, pos, seed)
+    kq, ks = tl._quantize_kv(k_pool)
+    vq, vs = tl._quantize_kv(v_pool)
+    return q, kq, ks, vq, vs, table, pos_t
+
+
+@pytest.mark.parametrize("H,Hkv", [(32, 8), (4, 4), (8, 2)])
+def test_paged_int8_kernel_matches_plain_scrambled(dev, H, Hkv):
+    MB = 8
+    pos = [0, 15, 16, 31, 77, MB * 16 - 1]
+    case = _int8_paged_case(dev, len(pos), H, Hkv, 3, len(pos) * MB + 1, MB, pos)
+    before = paged_decode_attention_int8.launches
+    for layer in range(3):
+        got = paged_decode_attention_int8(*case, layer)
+        want = paged_decode_attention_int8_reference(*case, layer)
+        torch.testing.assert_close(got.float(), want.float(), atol=TOL, rtol=TOL)
+    assert paged_decode_attention_int8.launches == before + 3
+
+
+def test_paged_int8_kernel_null_and_stale_rows(dev):
+    q, kq, ks, vq, vs, table, pos = _int8_paged_case(dev, 3, 32, 8, 2, 13, 4, [40, 5, 20], 1)
+    table[1] = 0
+    table[2, 2:] = table[0, :2]
+    got = paged_decode_attention_int8(q, kq, ks, vq, vs, table, pos, 1)
+    want = paged_decode_attention_int8_reference(q, kq, ks, vq, vs, table, pos, 1)
+    torch.testing.assert_close(got.float(), want.float(), atol=TOL, rtol=TOL)
+    ks[:, table[0, :2].long()] = 1e3  # scribble on slot 0's blocks
+    again = paged_decode_attention_int8(q, kq, ks, vq, vs, table, pos, 1)
+    torch.testing.assert_close(again[1:], got[1:], atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("T,pos", [(2048, [0, 15, 16, 2047, 517, 1000, 31, 1500]),
+                                   (2048, 1000), (50, [0, 16, 49]), (40, 39), (64, 5000)])
+def test_int8_decode_kernel_matches_plain(dev, T, pos):
+    """Mixed per-row and scalar positions, block edges, a cache length that
+    is not a multiple of 16, and a position past the cache (every key)."""
+    B = len(pos) if isinstance(pos, list) else 3
+    g = torch.Generator(device=dev).manual_seed(T)
+    q = randn(g, B, 1, 32, 128, dev=dev)
+    kq, ks = tl._quantize_kv(randn(g, B, T, 8, 128, dev=dev))
+    vq, vs = tl._quantize_kv(randn(g, B, T, 8, 128, dev=dev))
+    p = torch.tensor(pos, dtype=torch.int32, device=dev) if isinstance(pos, list) else pos
+    before = int8_decode_attention.launches
+    got = int8_decode_attention(q, kq, ks, vq, vs, p)
+    want = int8_decode_attention_reference(q, kq, ks, vq, vs, p)
+    torch.cuda.synchronize()
+    assert int8_decode_attention.launches == before + 1
+    torch.testing.assert_close(got.float(), want.float(), atol=TOL, rtol=TOL)
+
+
+def test_int8_kernels_raise_on_what_they_do_not_take(dev):
+    x = torch.zeros(4, 512, device=dev)  # f32 x: no silent fallback
+    q, s = torch.zeros(256, 512, dtype=torch.int8, device=dev), torch.ones(256, device=dev)
+    with pytest.raises(TypeError):
+        int8_matmul(x, q, s)
+    with pytest.raises(ValueError):  # more rows than the kernel takes
+        int8_matmul(torch.zeros(257, 512, dtype=torch.bfloat16, device=dev), q, s)
+    with pytest.raises(ValueError):  # D mismatch
+        int8_matmul(torch.zeros(4, 256, dtype=torch.bfloat16, device=dev), q, s)
+    qa = torch.zeros(2, 1, 8, 128, dtype=torch.bfloat16, device=dev)
+    kv = torch.zeros(2, 32, 2, 128, dtype=torch.int8, device=dev)
+    sc = torch.ones(2, 32, 2, device=dev)
+    with pytest.raises(TypeError):
+        int8_decode_attention(qa, kv.float(), sc, kv, sc, 3)
+    with pytest.raises(ValueError):
+        int8_decode_attention(qa, kv, sc[:, :16], kv, sc, 3)
+    pool = torch.zeros(1, 3, 16, 2, 128, dtype=torch.int8, device=dev)
+    psc = torch.ones(1, 3, 16, 2, device=dev)
+    table = torch.zeros(2, 2, dtype=torch.int32, device=dev)
+    pos = torch.zeros(2, dtype=torch.int32, device=dev)
+    with pytest.raises(TypeError):
+        paged_decode_attention_int8(qa, pool, psc.half(), pool, psc, table, pos, 0)
+    with pytest.raises(ValueError):
+        paged_decode_attention_int8(qa, pool, psc, pool, psc, table, pos, 1)
+
+
+@pytest.mark.parametrize("kv_quant", [False, True])
+def test_int8_model_logits_kernel_vs_plain(dev, kv_quant):
+    """A small int8-weight model: prefill, a paged decode step and a dense
+    cached step, kernel path against the plain path (plain=True)."""
+    cfg = tl.LlamaConfig(vocab_size=512, d_model=512, n_layers=2, n_heads=4, n_kv_heads=2,
+                         d_ff=1024, max_seq_len=256, param_dtype=torch.bfloat16,
+                         kv_quant=kv_quant)
+    model = tflagship.init_quantized_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                                            device=dev)
+    tokens = torch.randint(1, 512, (1, 64), device=dev)
+    before = int8_matmul.launches
+    ck = tl.init_cache(cfg, 1, 80, dev)
+    lk, ck = tl.forward_prefill(model, tokens, ck, last_pos=50)
+    lp, cp = tl.forward_prefill(model, tokens, tl.init_cache(cfg, 1, 80, dev), last_pos=50,
+                                plain=True)
+    assert int8_matmul.launches == before + 7 * cfg.n_layers + 1
+    assert ((lk - lp).abs().max() / lp.abs().max()).item() < 5e-2
+    scales = (ck.k_scale[:, 0, :64], ck.v_scale[:, 0, :64]) if kv_quant else ()
+    pool = tl.init_paged_cache(cfg, 6, 16, dev)
+    tl.paged_insert(pool, ck.k[:, 0, :64], ck.v[:, 0, :64], torch.arange(1, 5, device=dev),
+                    *scales)
+    pool2 = tl.PagedKVCache(*(None if a is None else a.clone()
+                              for a in (pool.k, pool.v, pool.k_scale, pool.v_scale)))
+    table = torch.tensor([[1, 2, 3, 4, 0, 0, 0, 0]], dtype=torch.int32, device=dev)
+    pos = torch.tensor([51], dtype=torch.int32, device=dev)
+    tok = lk.argmax(-1).to(torch.int32)
+    dk, _ = tl.forward_decode_paged(model, tok, pool, table, pos)
+    dp, _ = tl.forward_decode_paged(model, tok, pool2, table, pos, plain=True)
+    assert ((dk - dp).abs().max() / dp.abs().max()).item() < 5e-2
+    ck.pos = cp.pos = 51
+    wk, _ = tl.forward_with_cache(model, tok[:, None], ck)
+    wp, _ = tl.forward_with_cache(model, tok[:, None], cp, plain=True)
+    assert ((wk - wp).abs().max() / wp.abs().max()).item() < 5e-2

@@ -149,7 +149,7 @@ def test_weight_bridge_refuses_a_dtype_mismatch():
                         "cpu")
 
 
-@pytest.mark.parametrize("feature", [{"kv_quant": True}, {"n_experts": 4}])
+@pytest.mark.parametrize("feature", [{"context_parallel": True}, {"n_experts": 4}])
 def test_config_bridge_refuses_unported_features(feature):
     with pytest.raises(ValueError, match="not ported"):
         config_from_jax(small_jax_config(**feature))
