@@ -13,17 +13,19 @@ no result line):
      every CUDA source in lws_tpu_torch/csrc/ for sm_90a, one nvcc per source,
      started together;
   2. the flash prefill kernel against reference_attention at the flagship's
-     attention shapes (B=1, H=32, Hkv=8, D=128, bf16, causal) for several S,
-     with times of the kernel, the plain version and, as a yardstick only,
+     attention shapes (H=32, Hkv=8, D=128, bf16, causal): B=1 at several S
+     (the paged engines' prefills) and B=8, S=512 (the dense engine's), with
+     times of the kernel, the plain version and, as a yardstick only,
      torch's scaled_dot_product_attention;
   3. the paged-decode kernel against its plain version (gather + dense
      attention) on the flagship pool (32 layers, block 16) with a scrambled
      table, block-boundary positions, a null row and a nonzero layer: the
      bf16 pool, then the int8 pool with its scales (gather + dequantize);
-  4. the int8_matmul kernel against its plain version at m = 1, 8 and 256
-     rows for the flagship's five product shapes, with the bf16 F.linear of
-     the same shape timed beside it as a yardstick (the product the bf16
-     flagship runs); the int8 dense-cache decode kernel against its plain
+  4. the int8_matmul kernel against its plain version at m = 1, 8, 128 and
+     256 rows for the flagship's five product shapes, with the bf16 F.linear
+     of the same shape timed beside it as a yardstick (the product the bf16
+     flagship runs) and, at 128 and 256 rows, the dequantizing route that
+     larger prefills take; the int8 dense-cache decode kernel against its plain
      version at B=8, T=2048 with mixed and scalar positions. Kernels are
      timed with the L2 cache scrubbed between launches;
   5. the bf16 paged engine at full width: flagship_config("full") in bf16 from
@@ -35,7 +37,8 @@ no result line):
   6. the int8 paged engine: the bf16 model is freed, then
      flagship_config("full", kv_quant=True) with init_quantized_params (int8
      weights, int8 KV) serves the same requests the same way;
-  7. the dense Engine on the same int8 model: one batch of 8 prompts of 512
+  7. the dense Engine on the same int8 model: its batched prefill and one
+     decode step held to the plain path, then one batch of 8 prompts of 512
      tokens, 64 new tokens each.
 Every engine path is driven with all kernels' launch counts set to 0 just
 before it and read just after, and the counts are checked exactly. The last
@@ -115,18 +118,20 @@ def phase_flash(torch, dev, cfg) -> dict:
     H, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     g = torch.Generator(device=dev).manual_seed(1)
     record, worst = None, 0.0
-    for S in (16, 128, 1000, 1024, 2048):
-        q = torch.randn(1, S, H, D, generator=g, device=dev, dtype=torch.bfloat16)
-        k = torch.randn(1, S, Hkv, D, generator=g, device=dev, dtype=torch.bfloat16)
-        v = torch.randn(1, S, Hkv, D, generator=g, device=dev, dtype=torch.bfloat16)
+    # (B, S): the paged engines' one-request prefills at their buckets and
+    # edges, and the dense engine's batched prefill (8 prompts of 512).
+    for B, S in ((1, 16), (1, 128), (1, 1000), (1, 1024), (1, 2048), (SLOTS, 512)):
+        q = torch.randn(B, S, H, D, generator=g, device=dev, dtype=torch.bfloat16)
+        k = torch.randn(B, S, Hkv, D, generator=g, device=dev, dtype=torch.bfloat16)
+        v = torch.randn(B, S, Hkv, D, generator=g, device=dev, dtype=torch.bfloat16)
         out = flash_attention(q, k, v, causal=True)
         ref = reference_attention(q, k, v, causal=True)
         torch.cuda.synchronize()
-        check(bool(torch.isfinite(out).all()), f"flash S={S}: non-finite output")
+        check(bool(torch.isfinite(out).all()), f"flash B={B} S={S}: non-finite output")
         err = (out.float() - ref.float()).abs().max().item()
         worst = max(worst, err)
         check(torch.allclose(out.float(), ref.float(), atol=FLASH_TOL, rtol=FLASH_TOL),
-              f"flash S={S}: max abs err {err} beyond atol=rtol={FLASH_TOL}")
+              f"flash B={B} S={S}: max abs err {err} beyond atol=rtol={FLASH_TOL}")
         ms = time_cuda(torch, lambda: flash_attention(q, k, v, causal=True))
         plain_ms = time_cuda(torch, lambda: reference_attention(q, k, v, causal=True))
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
@@ -137,13 +142,13 @@ def phase_flash(torch, dev, cfg) -> dict:
             kx, vx = (t.repeat_interleave(H // Hkv, dim=1) for t in (kt, vt))
             lib = lambda: F.scaled_dot_product_attention(qt, kx, vx, is_causal=True)
         library_ms = time_cuda(torch, lib)
-        flops = 4 * H * D * S * (S + 1) / 2  # QK^T and PV over the causal half
+        flops = B * 4 * H * D * S * (S + 1) / 2  # QK^T and PV over the causal half
         nbytes = 2 * (q.numel() * 2 + k.numel() + v.numel())  # q, k, v in; o out
         bound_ms, bound_by = bound(flops, nbytes)
-        print(f"flash S={S:5d}: max_abs_err={err:.3e} kernel={ms:.4f} ms plain={plain_ms:.4f} ms "
-              f"sdpa={library_ms:.4f} ms bound={bound_ms:.4f} ms ({bound_by}) "
-              f"roofline={bound_ms / ms:.1%}")
-        if S == 1024:  # the bucket of the longest prompt on the main path
+        print(f"flash B={B} S={S:5d}: max_abs_err={err:.3e} kernel={ms:.4f} ms "
+              f"plain={plain_ms:.4f} ms sdpa={library_ms:.4f} ms bound={bound_ms:.4f} ms "
+              f"({bound_by}) roofline={bound_ms / ms:.1%}")
+        if (B, S) == (1, 1024):  # the bucket of the longest paged prompt on the main path
             record = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                       "bound_by": bound_by, "library_ms": library_ms}
     record["max_abs_err"] = worst
@@ -237,11 +242,15 @@ def phase_int8_matmul(torch, dev, cfg) -> dict:
     g = torch.Generator(device=dev).manual_seed(3)
     flush = scrubber(torch, dev)
     record, worst, step = None, 0.0, {"ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0}
+    # One prefill's 7L products at the buckets that take the kernel (128 and
+    # 256 rows): the kernel, the dequantizing route that quant.matmul takes
+    # above 256 rows, and the bf16 F.linear yardstick.
+    prefill = {m: {"kernel": 0.0, "dequant": 0.0, "bf16": 0.0} for m in (128, 256)}
     for (D, Fo), count in product_shapes(cfg).items():
         q = torch.randint(-127, 128, (Fo, D), generator=g, device=dev, dtype=torch.int8)
         scale = torch.rand(Fo, generator=g, device=dev) * D**-0.5 / 73.3
         w_bf16 = q.to(torch.bfloat16)  # the yardstick's weight, made untimed
-        for m in (1, 8, 256):
+        for m in (1, 8, 128, 256):
             x = torch.randn(m, D, generator=g, device=dev, dtype=torch.bfloat16)
             out = int8_matmul(x, q, scale)
             ref = int8_matmul_reference(x, q, scale)
@@ -258,9 +267,17 @@ def phase_int8_matmul(torch, dev, cfg) -> dict:
             library_ms = time_cuda(torch, lambda: F.linear(x, w_bf16), flush=flush)
             nbytes = m * D * 2 + Fo * D + Fo * 4 + m * Fo * 2
             bound_ms, bound_by = bound(2 * m * D * Fo, nbytes)
+            dequant = ""
+            if m in prefill and (D, Fo) != (cfg.d_model, cfg.vocab_size):
+                dequant_ms = time_cuda(
+                    torch, lambda: F.linear(x, q.to(torch.bfloat16)) * scale.to(torch.bfloat16),
+                    flush=flush)
+                dequant = f" dequant route={dequant_ms:.4f} ms"
+                for key, t in (("kernel", ms), ("dequant", dequant_ms), ("bf16", library_ms)):
+                    prefill[m][key] += count * t
             print(f"int8_matmul m={m:3d} (D,F)=({D},{Fo}): rel err {err / mag:.2e} "
-                  f"kernel={ms:.4f} ms plain={plain_ms:.4f} ms bf16 F.linear={library_ms:.4f} ms "
-                  f"bound={bound_ms:.4f} ms ({bound_by}) roofline={bound_ms / ms:.1%}")
+                  f"kernel={ms:.4f} ms plain={plain_ms:.4f} ms bf16 F.linear={library_ms:.4f} ms"
+                  f"{dequant} bound={bound_ms:.4f} ms ({bound_by}) roofline={bound_ms / ms:.1%}")
             if m == 8:
                 step["ms"] += count * ms
                 step["bound_ms"] += count * bound_ms
@@ -272,6 +289,10 @@ def phase_int8_matmul(torch, dev, cfg) -> dict:
     print(f"int8_matmul: one decode step's products at m=8 (7 per layer x {cfg.n_layers} + "
           f"lm_head): {step['ms']:.3f} ms (bound {step['bound_ms']:.3f} ms, "
           f"{step['bound_ms'] / step['ms']:.1%}; bf16 F.linear {step['library_ms']:.3f} ms)")
+    for m, t in prefill.items():
+        print(f"int8_matmul: one prefill's 7 x {cfg.n_layers} products at m={m}: kernel "
+              f"{t['kernel']:.3f} ms, dequantizing route {t['dequant']:.3f} ms, bf16 F.linear "
+              f"{t['bf16']:.3f} ms")
     record["max_abs_err"] = worst  # relative to max |plain| (outputs reach ~1e2)
     return record
 
@@ -350,6 +371,15 @@ def weight_bytes_per_step(cfg, model) -> int:
     return quantized_bytes(model) - table
 
 
+def bucket_of(n: int) -> int:
+    """The paged engine's prefill length for an n-token prompt: a power of
+    two, at least one block."""
+    bucket = BLOCK
+    while bucket < n:
+        bucket *= 2
+    return min(bucket, MAX_LEN)
+
+
 def engine_bounds(cfg, weight_bytes: int, lens, new_tokens: int,
                   batched: bool = False) -> tuple[float, float]:
     """The least the card could take for an engine phase's work: (the
@@ -366,9 +396,7 @@ def engine_bounds(cfg, weight_bytes: int, lens, new_tokens: int,
     prod_params = cfg.n_params() - 2 * V * D
     prefill = []
     for n in lens:
-        bucket = BLOCK
-        while bucket < n:
-            bucket *= 2
+        bucket = bucket_of(n)
         prefill.append(2 * prod_params * bucket + 2 * V * D
                        + L * 4 * H * hd * bucket * (bucket + 1) / 2)
     prefill_s = bound(sum(prefill), weight_bytes)[0] / 1e3 if batched else \
@@ -452,12 +480,14 @@ def serve_paged(torch, dev, cfg, model, prompts, what: str) -> tuple:
     steps0 = engine.stats["decode_steps"]
     reset_counts()
     ttfts, rates = [], []
+    by_bucket = {}  # prefill bucket -> TTFTs of its prompts over the rounds
     for r in range(ROUNDS):
         ttft, ids = [], []
         for p in prompts:  # submit returns once the first token is on the host
             t0 = time.perf_counter()
             rid = engine.submit(p, NEW_TOKENS)
             ttft.append(time.perf_counter() - t0)
+            by_bucket.setdefault(bucket_of(len(p)), []).append(ttft[-1])
             check(rid is not None, f"{what}: engine refused a request with free slots and blocks")
             ids.append(rid)
         t0 = time.perf_counter()
@@ -486,6 +516,9 @@ def serve_paged(torch, dev, cfg, model, prompts, what: str) -> tuple:
           f"(bound {rate_bound:.1f} tok/s, {statistics.median(rates) / rate_bound:.1%} of it); "
           f"{steps} decode steps; parameters {quantized_bytes(model) / 1e9:.2f} GB; "
           f"peak memory {peak / 1e9:.2f} GB")
+    print(f"{what}: median TTFT by prefill bucket: " + ", ".join(
+        f"{b}: {statistics.median(ts) * 1e3:.1f} ms ({len(ts)} admissions)"
+        for b, ts in sorted(by_bucket.items())))
     check(steps > 0, f"{what}: no decode step ran")
     return launches, steps, engine
 
@@ -531,7 +564,7 @@ def path_int8_paged(torch, dev, cfg, prompts) -> tuple:
     check_logits_paths(torch, dev, cfg, model, np.random.default_rng(0), "int8 engine")
     launches, steps, engine = serve_paged(torch, dev, cfg, model, prompts, "int8 engine")
     L, admissions = cfg.n_layers, ROUNDS * SLOTS
-    small = ROUNDS * sum(1 for p in prompts if len(p) <= 256)  # buckets <= 256 rows
+    small = ROUNDS * sum(1 for p in prompts if bucket_of(len(p)) <= 256)
     check_launches("int8 engine", launches, {
         "flash_attention": L * admissions,
         "paged_decode_attention_int8": L * steps,
@@ -543,7 +576,7 @@ def path_int8_paged(torch, dev, cfg, prompts) -> tuple:
 
 
 def path_int8_dense(torch, dev, cfg, model) -> dict:
-    from lws_tpu_torch.models.llama import KVCache, forward_with_cache
+    from lws_tpu_torch.models.llama import KVCache, forward_prefill, forward_with_cache
     from lws_tpu_torch.serving.engine import Engine
 
     V, L, plen = cfg.vocab_size, cfg.n_layers, 512
@@ -551,8 +584,23 @@ def path_int8_dense(torch, dev, cfg, model) -> dict:
     rng = np.random.default_rng(3)
     engine.generate(rng.integers(1, V, (SLOTS, 32)).astype(np.int32), 4)  # warm-up
     prompt = rng.integers(1, V, (SLOTS, plen)).astype(np.int32)
-    # One decode step after the prefill, kernel path vs plain path.
-    tok, ck = engine.prefill(prompt)
+    # The batched prefill as Engine.prefill runs it (flash at B=8, S=512),
+    # kernel path vs plain path, each into a fresh cache.
+    toks = torch.from_numpy(prompt).to(dev).long()
+    lk, ck = forward_prefill(model, toks, engine.new_cache())
+    reset_counts()
+    lp, cp = forward_prefill(model, toks, engine.new_cache(), plain=True)
+    torch.cuda.synchronize()
+    check(not any(read_counts().values()), f"dense engine: the plain prefill launched {read_counts()}")
+    check(tuple(lk.shape) == (SLOTS, V) and bool(torch.isfinite(lk).all()), "dense prefill logits")
+    rel = ((lk - lp).abs().max() / lp.abs().max()).item()
+    agree = (lk.argmax(-1) == lp.argmax(-1)).float().mean().item()
+    kv_diff = (ck.k[:, :, :plen] != cp.k[:, :, :plen]).float().mean().item()
+    print(f"dense engine: batched prefill logits kernel vs plain: max rel err {rel:.3e} "
+          f"(first-token agreement {agree:.0%}); int8 K cache values that differ {kv_diff:.3%}")
+    check(rel <= LOGITS_REL_TOL, f"dense engine: prefill logits rel err {rel} > {LOGITS_REL_TOL}")
+    # One decode step from the kernel path's cache, kernel path vs plain path.
+    tok = lk.argmax(-1).to(torch.int32)
     cp = KVCache(ck.k.clone(), ck.v.clone(), ck.pos, ck.k_scale.clone(), ck.v_scale.clone())
     lk, _ = forward_with_cache(model, tok[:, None], ck)
     reset_counts()

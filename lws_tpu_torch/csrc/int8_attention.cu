@@ -35,9 +35,10 @@ int lws_int8_decode_attention(const void* q, const void* k, const void* k_scale,
                               int T, int H, int Hkv, int splits, int blocks_per_split,
                               float scale, void* stream) {
   const lws_decode::DenseAddr addr{T};
-  return lws_decode::launch_decode_int8(q, k, k_scale, v, v_scale, addr, pos, pos_all, out,
-                                        part_acc, part_ml, B, H, Hkv, splits,
-                                        blocks_per_split, scale, stream);
+  return lws_decode::launch_decode<lws_decode::Int8Rows>(q, k, k_scale, v, v_scale, addr, pos,
+                                                         pos_all, out, part_acc, part_ml, B, H,
+                                                         Hkv, splits, blocks_per_split, scale,
+                                                         stream);
 }
 
 const char* lws_cuda_error_string(int err) {

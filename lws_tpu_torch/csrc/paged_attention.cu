@@ -19,8 +19,8 @@
 // on one core; on the H100 a few dozen (slot, kv head) pairs would leave most
 // of the 132 SMs idle, and one CTA walking a long sequence is bound by
 // latency, not bandwidth. So the sequence is split:
-//   * pass 1 (paged_decode_split for bf16, decode_split_int8<PagedAddr> of
-//     decode_common.cuh for int8): one CTA per (slot, kv head, split of
+//   * pass 1 (decode_split<Bf16Rows or Int8Rows, PagedAddr> of
+//     decode_common.cuh): one CTA per (slot, kv head, split of
 //     `blocks_per_split` table entries). Its G = H/Hkv query heads are one
 //     warp each and share every K/V block, staged in shared memory by cp.async
 //     (16-byte copies, kStages blocks in flight). Only live blocks
@@ -37,153 +37,6 @@
 
 #include "decode_common.cuh"
 
-namespace {
-
-using namespace lws_decode;
-
-// Pass 1. Grid (B, Hkv, splits), 32*G threads. part_acc [B,Hkv,splits,G,128]
-// and part_ml [B,Hkv,splits,G,2] (m, l) in f32.
-__global__ void paged_decode_split(const bf16* __restrict__ q, const bf16* __restrict__ k_pool,
-                                   const bf16* __restrict__ v_pool,
-                                   const int* __restrict__ table, const int* __restrict__ pos,
-                                   int layer, float* __restrict__ part_acc,
-                                   float* __restrict__ part_ml, int H, int Hkv, int NB, int MB,
-                                   int blocks_per_split, float scale) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  constexpr int kTile = kBS * kHD;  // elements of one block's rows for one kv head
-  const int b = blockIdx.x;
-  const int h = blockIdx.y;
-  const int split = blockIdx.z;
-  const int splits = gridDim.z;
-  const int G = H / Hkv;
-  const int tid = threadIdx.x;
-  const int nthreads = blockDim.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  bf16* sK = reinterpret_cast<bf16*>(smem);  // [kStages][kBS][kHD]
-  bf16* sV = sK + kStages * kTile;           // [kStages][kBS][kHD]
-
-  const int p = pos[b];
-  const int n_live = min(p / kBS + 1, MB);
-  const int j0 = split * blocks_per_split;
-  const int j1 = min(j0 + blocks_per_split, n_live);
-  const size_t part = (((size_t)b * Hkv + h) * splits + split) * G + warp;
-  if (j0 >= j1) {  // nothing live in this split
-    if (lane == 0) {
-      part_ml[part * 2] = kNegInf;
-      part_ml[part * 2 + 1] = 0.f;
-    }
-    return;
-  }
-
-  // This warp's query head; lane l holds q[4l .. 4l+3] * scale in f32.
-  const int hq = h * G + warp;
-  float qv[4];
-  {
-    const __nv_bfloat162* qr =
-        reinterpret_cast<const __nv_bfloat162*>(q + ((size_t)b * H + hq) * kHD + lane * 4);
-    const float2 q01 = __bfloat1622float2(qr[0]);
-    const float2 q23 = __bfloat1622float2(qr[1]);
-    qv[0] = q01.x * scale;
-    qv[1] = q01.y * scale;
-    qv[2] = q23.x * scale;
-    qv[3] = q23.y * scale;
-  }
-
-  const int* trow = table + (size_t)b * MB;
-  const size_t tok_stride = (size_t)Hkv * kHD;
-  const size_t blk_stride = (size_t)kBS * tok_stride;
-  const bf16* k_layer = k_pool + (size_t)layer * NB * blk_stride + (size_t)h * kHD;
-  const bf16* v_layer = v_pool + (size_t)layer * NB * blk_stride + (size_t)h * kHD;
-
-  // Stage table entry j (if in this split's live range) into ring slot
-  // (j - j0) % kStages. Always commits a group, empty past the range, so the
-  // wait count stays uniform.
-  auto issue = [&](int j) {
-    if (j < j1) {
-      int blk = trow[j];
-      blk = (blk >= 0 && blk < NB) ? blk : 0;
-      const bf16* kb = k_layer + (size_t)blk * blk_stride;
-      const bf16* vb = v_layer + (size_t)blk * blk_stride;
-      bf16* dk = sK + ((j - j0) % kStages) * kTile;
-      bf16* dv = sV + ((j - j0) % kStages) * kTile;
-      for (int i = tid; i < kBS * (kHD / 8); i += nthreads) {
-        const int t = i / (kHD / 8);
-        const int c = (i % (kHD / 8)) * 8;
-        cp_async16(dk + t * kHD + c, kb + t * tok_stride + c);
-        cp_async16(dv + t * kHD + c, vb + t * tok_stride + c);
-      }
-    }
-    cp_async_commit();
-  };
-#pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) issue(j0 + s);
-
-  float m = kNegInf, l = 0.f;
-  float acc[4] = {0.f, 0.f, 0.f, 0.f};
-  for (int j = j0; j < j1; ++j) {
-    issue(j + kStages - 1);  // refills the ring slot block j-1 used (freed by the last barrier)
-    cp_async_wait<kStages - 1>();
-    __syncthreads();  // block j has landed for every thread's copies
-    const bf16* ks = sK + ((j - j0) % kStages) * kTile;
-    const bf16* vs = sV + ((j - j0) % kStages) * kTile;
-    const int n_tok = min(kBS, p - j * kBS + 1);  // tokens <= pos in this block
-
-    // kBS independent dot products; the butterflies interleave, so the warp
-    // pays shuffle throughput, not kBS x 5 shuffle latencies. Every lane ends
-    // with every score.
-    float s[kBS];
-#pragma unroll
-    for (int t = 0; t < kBS; ++t) {
-      const __nv_bfloat162* kr = reinterpret_cast<const __nv_bfloat162*>(ks + t * kHD + lane * 4);
-      const float2 k01 = __bfloat1622float2(kr[0]);
-      const float2 k23 = __bfloat1622float2(kr[1]);
-      s[t] = qv[0] * k01.x + qv[1] * k01.y + qv[2] * k23.x + qv[3] * k23.y;
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-#pragma unroll
-      for (int t = 0; t < kBS; ++t) s[t] += __shfl_xor_sync(0xffffffffu, s[t], off);
-    }
-    float blk_max = kNegInf;
-#pragma unroll
-    for (int t = 0; t < kBS; ++t) {
-      s[t] = t < n_tok ? s[t] : kNegInf;
-      blk_max = fmaxf(blk_max, s[t]);
-    }
-    const float m_new = fmaxf(m, blk_max);
-    const float alpha = __expf(m - m_new);  // first block: exp(-1e30 - m) = 0
-    l *= alpha;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) acc[i] *= alpha;
-#pragma unroll
-    for (int t = 0; t < kBS; ++t) {
-      const float pt = t < n_tok ? __expf(s[t] - m_new) : 0.f;
-      l += pt;
-      const __nv_bfloat162* vr = reinterpret_cast<const __nv_bfloat162*>(vs + t * kHD + lane * 4);
-      const float2 v01 = __bfloat1622float2(vr[0]);
-      const float2 v23 = __bfloat1622float2(vr[1]);
-      acc[0] += pt * v01.x;
-      acc[1] += pt * v01.y;
-      acc[2] += pt * v23.x;
-      acc[3] += pt * v23.y;
-    }
-    m = m_new;
-    __syncthreads();  // this ring slot is free for reuse
-  }
-  cp_async_wait<0>();
-
-  reinterpret_cast<float4*>(part_acc + part * kHD)[lane] = make_float4(acc[0], acc[1], acc[2], acc[3]);
-  if (lane == 0) {
-    part_ml[part * 2] = m;
-    part_ml[part * 2 + 1] = l;
-  }
-}
-
-constexpr size_t kSplitSmem = 2 * kStages * (size_t)kBS * kHD * sizeof(bf16);  // 32 KB
-
-}  // namespace
-
 extern "C" {
 
 // q/out [B,1,H,128], pools [L,NB,16,Hkv,128] contiguous bf16; table [B,MB]
@@ -196,18 +49,10 @@ int lws_paged_decode_attention(const void* q, const void* k_pool, const void* v_
                                void* part_acc, void* part_ml, int B, int H, int Hkv, int NB,
                                int MB, int splits, int blocks_per_split, float scale,
                                void* stream) {
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  float* pa = static_cast<float*>(part_acc);
-  float* pm = static_cast<float*>(part_ml);
-  paged_decode_split<<<dim3(B, Hkv, splits), 32 * (H / Hkv), kSplitSmem, st>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k_pool),
-      static_cast<const bf16*>(v_pool), static_cast<const int*>(table),
-      static_cast<const int*>(pos), layer, pa, pm, H, Hkv, NB, MB, blocks_per_split, scale);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  lws_decode::decode_combine<<<dim3(B, H), kHD, 0, st>>>(pa, pm, static_cast<bf16*>(out), H,
-                                                        Hkv, splits);
-  return (int)cudaGetLastError();
+  const lws_decode::PagedAddr addr{static_cast<const int*>(table), MB, NB, layer};
+  return lws_decode::launch_decode<lws_decode::Bf16Rows>(
+      q, k_pool, nullptr, v_pool, nullptr, addr, pos, 0, out, part_acc, part_ml, B, H, Hkv,
+      splits, blocks_per_split, scale, stream);
 }
 
 // The int8 pool: k/v [L,NB,16,Hkv,128] contiguous int8 with k_scale/v_scale
@@ -219,9 +64,9 @@ int lws_paged_decode_attention_int8(const void* q, const void* k_pool, const voi
                                     int NB, int MB, int splits, int blocks_per_split,
                                     float scale, void* stream) {
   const lws_decode::PagedAddr addr{static_cast<const int*>(table), MB, NB, layer};
-  return lws_decode::launch_decode_int8(q, k_pool, k_scale, v_pool, v_scale, addr, pos, 0, out,
-                                        part_acc, part_ml, B, H, Hkv, splits,
-                                        blocks_per_split, scale, stream);
+  return lws_decode::launch_decode<lws_decode::Int8Rows>(
+      q, k_pool, k_scale, v_pool, v_scale, addr, pos, 0, out, part_acc, part_ml, B, H, Hkv,
+      splits, blocks_per_split, scale, stream);
 }
 
 const char* lws_cuda_error_string(int err) {

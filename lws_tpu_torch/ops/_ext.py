@@ -25,6 +25,8 @@ import threading
 from pathlib import Path
 from typing import Iterable
 
+import torch
+
 _PKG = Path(__file__).resolve().parent.parent
 CSRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
@@ -39,8 +41,21 @@ NVCC_FLAGS = (
     "-fPIC",
 )
 
+CTAS_PER_SM = 4  # split kernels aim their first pass at this many CTAs per SM
+
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
+
+
+def split_plan(dev, base_ctas: int, blocks: int) -> tuple[int, int]:
+    """(splits, blocks per split) for a kernel whose first pass has
+    `base_ctas` CTAs before splitting and up to `blocks` blocks of work
+    along the split axis each, so that the split grid has about CTAS_PER_SM
+    CTAs per SM; every split but the last holds `blocks per split`."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    splits = min(blocks, max(1, -(-CTAS_PER_SM * sms // base_ctas)))
+    per_split = -(-blocks // splits)
+    return -(-blocks // per_split), per_split
 
 
 def source_path(name: str) -> Path:

@@ -17,10 +17,9 @@ from lws_tpu_torch.ops import _ext
 from lws_tpu_torch.ops.attention import HEAD_DIM
 from lws_tpu_torch.ops.paged_attention import (
     BLOCK_SIZE,
-    split_scratch,
     cached_attention,
     dequantize_kv,
-    split_plan,
+    split_scratch,
 )
 
 _SIGNATURES = {
@@ -75,7 +74,7 @@ def _launch_kernel(q, k, k_scale, v, v_scale, pos) -> torch.Tensor:
     if not per_row:  # one live length for every row: split only the live blocks
         pos = int(pos)
         blocks = min(blocks, max(pos, 0) // BLOCK_SIZE + 1)
-    splits, per_split = split_plan(dev, B * Hkv, blocks)
+    splits, per_split = _ext.split_plan(dev, B * Hkv, blocks)
     part_acc, part_ml = split_scratch(q, Hkv, splits)
     out = torch.empty_like(q)
     lib = _ext.load("int8_attention", _SIGNATURES)

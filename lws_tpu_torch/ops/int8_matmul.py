@@ -29,7 +29,6 @@ _SIGNATURES = {
 }
 MAX_ROWS = 256   # lws_tpu/ops/int8_matmul.py _TM_MAX: the decode-shaped products
 _BN, _BK = 64, 128  # the kernel's channel tile and contraction stage
-CTAS_PER_SM = 4  # split D until the first pass has about this many CTAs per SM
 
 
 def int8_matmul_reference(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
@@ -57,12 +56,9 @@ def _launch_kernel(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> tor
         raise ValueError(f"int8_matmul: 1 <= rows <= {MAX_ROWS} and nonempty D, F "
                          f"(got rows={M}, D={D}, F={F})")
     bm = 16 if M <= 16 else 64
-    base = -(-M // bm) * -(-F // _BN)
-    k_blocks = -(-D // _BK)
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    splits = min(k_blocks, max(1, -(-CTAS_PER_SM * sms // base)))
-    k_chunk = -(-k_blocks // splits) * _BK
-    splits = -(-D // k_chunk)
+    # Split D until the first pass fills the card.
+    splits, per_split = _ext.split_plan(dev, -(-M // bm) * -(-F // _BN), -(-D // _BK))
+    k_chunk = per_split * _BK
     out = torch.empty(*lead, F, dtype=x.dtype, device=dev)
     partial = torch.empty(splits * M * F if splits > 1 else 0, dtype=torch.float32, device=dev)
     vec_x = int(D % 8 == 0 and x.data_ptr() % 16 == 0)

@@ -38,7 +38,6 @@ _SIGNATURES = {
     ],
 }
 BLOCK_SIZE = 16  # the kernel's compiled pool block size
-CTAS_PER_SM = 4  # sequence splits aim at this many first-pass CTAs per SM
 
 
 def cached_attention(q: torch.Tensor, cache_k: torch.Tensor, cache_v: torch.Tensor,
@@ -128,16 +127,6 @@ def _check_inputs(what: str, q, k_pool, v_pool, block_table, pos_b, layer_idx: i
         raise ValueError(f"{what}: inputs must be contiguous")
 
 
-def split_plan(dev: torch.device, rows: int, blocks: int) -> tuple[int, int]:
-    """(splits, blocks per split) for `rows` (slot, kv head) pairs of up to
-    `blocks` 16-token blocks each, so the first pass has about CTAS_PER_SM
-    CTAs per SM."""
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    splits = min(blocks, max(1, -(-CTAS_PER_SM * sms // rows)))
-    per_split = -(-blocks // splits)
-    return -(-blocks // per_split), per_split
-
-
 def split_scratch(q, Hkv: int, splits: int):
     B, _, H, hd = q.shape
     n = B * Hkv * splits * (H // Hkv)
@@ -145,54 +134,35 @@ def split_scratch(q, Hkv: int, splits: int):
             torch.empty(n * 2, dtype=torch.float32, device=q.device))
 
 
-def _launch_kernel(q, k_pool, v_pool, block_table, pos_b, layer_idx: int) -> torch.Tensor:
-    _check_inputs("paged_decode_attention", q, k_pool, v_pool, block_table, pos_b, layer_idx,
-                  torch.bfloat16)
+def _launch_kernel(q, k_pool, v_pool, block_table, pos_b, layer_idx: int,
+                   scales=None) -> torch.Tensor:
+    """Launch the bf16 entry point, or with `scales` (k_scale, v_scale) the
+    int8 one; both run the same split pass (csrc/decode_common.cuh)."""
+    quant = scales is not None
+    what = "paged_decode_attention_int8" if quant else "paged_decode_attention"
+    _check_inputs(what, q, k_pool, v_pool, block_table, pos_b, layer_idx,
+                  torch.int8 if quant else torch.bfloat16, scales or ())
     dev = q.device
     B, _, H, hd = q.shape
     NB, Hkv = k_pool.shape[1], k_pool.shape[3]
     # Split each slot's table row so the first pass fills the card: the
     # live length is device data, so the split is sized from max_blocks.
     MB = block_table.shape[1]
-    splits, per_split = split_plan(dev, B * Hkv, MB)
+    splits, per_split = _ext.split_plan(dev, B * Hkv, MB)
     part_acc, part_ml = split_scratch(q, Hkv, splits)
     out = torch.empty_like(q)
     lib = _ext.load("paged_attention", _SIGNATURES)
+    pools = ((k_pool.data_ptr(), scales[0].data_ptr(), v_pool.data_ptr(), scales[1].data_ptr())
+             if quant else (k_pool.data_ptr(), v_pool.data_ptr()))
     with torch.cuda.device(dev):
-        rc = lib.lws_paged_decode_attention(
-            q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-            block_table.data_ptr(), pos_b.data_ptr(), layer_idx, out.data_ptr(),
-            part_acc.data_ptr(), part_ml.data_ptr(),
-            B, H, Hkv, NB, MB, splits, per_split, float(hd) ** -0.5,
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
-    _ext.check(lib, rc, "paged_decode_attention")
-    paged_decode_attention.launches += 1
-    return out
-
-
-def _launch_kernel_int8(q, k_pool, k_scale, v_pool, v_scale, block_table, pos_b,
-                        layer_idx: int) -> torch.Tensor:
-    _check_inputs("paged_decode_attention_int8", q, k_pool, v_pool, block_table, pos_b,
-                  layer_idx, torch.int8, (k_scale, v_scale))
-    dev = q.device
-    B, _, H, hd = q.shape
-    NB, Hkv = k_pool.shape[1], k_pool.shape[3]
-    MB = block_table.shape[1]
-    splits, per_split = split_plan(dev, B * Hkv, MB)
-    part_acc, part_ml = split_scratch(q, Hkv, splits)
-    out = torch.empty_like(q)
-    lib = _ext.load("paged_attention", _SIGNATURES)
-    with torch.cuda.device(dev):
-        rc = lib.lws_paged_decode_attention_int8(
-            q.data_ptr(), k_pool.data_ptr(), k_scale.data_ptr(), v_pool.data_ptr(),
-            v_scale.data_ptr(), block_table.data_ptr(), pos_b.data_ptr(), layer_idx,
+        rc = getattr(lib, "lws_" + what)(
+            q.data_ptr(), *pools, block_table.data_ptr(), pos_b.data_ptr(), layer_idx,
             out.data_ptr(), part_acc.data_ptr(), part_ml.data_ptr(),
             B, H, Hkv, NB, MB, splits, per_split, float(hd) ** -0.5,
             torch.cuda.current_stream(dev).cuda_stream,
         )
-    _ext.check(lib, rc, "paged_decode_attention_int8")
-    paged_decode_attention_int8.launches += 1
+    _ext.check(lib, rc, what)
+    (paged_decode_attention_int8 if quant else paged_decode_attention).launches += 1
     return out
 
 
@@ -231,8 +201,8 @@ def paged_decode_attention_int8(
     and raise on anything it does not take; CPU tensors compute the plain
     version."""
     if q.is_cuda:
-        return _launch_kernel_int8(q, k_pool, k_scale, v_pool, v_scale, block_table, pos_b,
-                                   int(layer_idx))
+        return _launch_kernel(q, k_pool, v_pool, block_table, pos_b, int(layer_idx),
+                              (k_scale, v_scale))
     return paged_decode_attention_int8_reference(q, k_pool, k_scale, v_pool, v_scale,
                                                  block_table, pos_b, int(layer_idx))
 

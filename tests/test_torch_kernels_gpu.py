@@ -140,7 +140,8 @@ def int8s(g, *shape, dev):
 
 @pytest.mark.parametrize("m,D,F", [(1, 512, 256), (8, 4096, 1024), (24, 1024, 512),
                                    (256, 4096, 4096), (8, 14336, 4096), (3, 1000, 200),
-                                   (17, 136, 77), (100, 520, 1000), (64, 4096, 128256)])
+                                   (17, 136, 77), (100, 520, 1000), (64, 4096, 128256),
+                                   (128, 4096, 14336)])
 def test_int8_matmul_kernel_matches_plain(dev, m, D, F):
     """Flagship and small shapes, single and split D, and ragged D and F
     (D not a multiple of 16 takes the byte loads; F not of 64 the guarded
