@@ -14,7 +14,8 @@ no result line):
      started together;
   2. the flash prefill kernel against reference_attention at the flagship's
      attention shapes (H=32, Hkv=8, D=128, bf16, causal): B=1 at several S
-     (the paged engines' prefills) and B=8, S=512 (the dense engine's), with
+     (the paged engines' prefills, and S = 127, 129, 257 for ragged 128-row
+     q tiles) and B=8, S=512 (the dense engine's), with
      times of the kernel, the plain version and, as a yardstick only,
      torch's scaled_dot_product_attention;
   3. the paged-decode kernel against its plain version (gather + dense
@@ -22,12 +23,15 @@ no result line):
      table, block-boundary positions, a null row and a nonzero layer: the
      bf16 pool, then the int8 pool with its scales (gather + dequantize);
   4. the int8_matmul kernel against its plain version at m = 1, 8, 128 and
-     256 rows for the flagship's five product shapes, with the bf16 F.linear
-     of the same shape timed beside it as a yardstick (the product the bf16
-     flagship runs) and, at 128 and 256 rows, the dequantizing route that
-     larger prefills take; the int8 dense-cache decode kernel against its plain
-     version at B=8, T=2048 with mixed and scalar positions. Kernels are
-     timed with the L2 cache scrubbed between launches;
+     256 rows for the flagship's five product shapes, with two yardsticks
+     timed beside it: torch._weight_int8pack_mm (PyTorch's own W8A16 call,
+     held to the plain version first; a shape it refuses is printed) and the
+     bf16 F.linear of the same shape (the product the bf16 flagship runs);
+     at 128 and 256 rows also the dequantizing route that larger prefills
+     take; the int8 dense-cache decode kernel against its plain
+     version at B=8, T=2048 with mixed and scalar positions. Decode-shaped
+     kernels are timed with the L2 cache scrubbed (a 256 MB read) between
+     launches;
   5. the bf16 paged engine at full width: flagship_config("full") in bf16 from
      a seeded torch.Generator. Kernel-path prefill and decode-step logits are
      held to the plain path's on the same weights; then
@@ -120,7 +124,10 @@ def phase_flash(torch, dev, cfg) -> dict:
     record, worst = None, 0.0
     # (B, S): the paged engines' one-request prefills at their buckets and
     # edges, and the dense engine's batched prefill (8 prompts of 512).
-    for B, S in ((1, 16), (1, 128), (1, 1000), (1, 1024), (1, 2048), (SLOTS, 512)):
+    # S = 127, 129 and 257 put a ragged q tile on each side of the kernel's
+    # 128-row tile edges.
+    for B, S in ((1, 16), (1, 127), (1, 128), (1, 129), (1, 257), (1, 1000), (1, 1024),
+                 (1, 2048), (SLOTS, 512)):
         q = torch.randn(B, S, H, D, generator=g, device=dev, dtype=torch.bfloat16)
         k = torch.randn(B, S, Hkv, D, generator=g, device=dev, dtype=torch.bfloat16)
         v = torch.randn(B, S, Hkv, D, generator=g, device=dev, dtype=torch.bfloat16)
@@ -156,10 +163,14 @@ def phase_flash(torch, dev, cfg) -> dict:
 
 
 def scrubber(torch, dev):
-    """An untimed L2 flush (256 MB written) for time_cuda: a decode-step
-    kernel finds its inputs cold, since the other layers' weights and K/V
-    pass through the 50 MB cache between two launches on one layer."""
-    return torch.empty(256 << 20, dtype=torch.uint8, device=dev).zero_
+    """An untimed L2 flush (256 MB read) for time_cuda: a decode-step kernel
+    finds its inputs cold, since the other layers' weights and K/V pass
+    through the 50 MB cache between two launches on one layer. It reads, so
+    L2 is left holding clean lines, as those reads leave it: a written
+    buffer would leave up to 50 MB of dirty lines whose write-back the timed
+    kernel would pay."""
+    buf = torch.zeros(64 << 20, dtype=torch.int32, device=dev)
+    return buf.sum
 
 
 def phase_paged(torch, dev, cfg, quant: bool) -> dict:
@@ -234,6 +245,26 @@ def product_shapes(cfg) -> dict:
     return {(d, d): 2 * L, (d, kv): 2 * L, (d, f): 2 * L, (f, d): L, (d, V): 1}
 
 
+def int8pack_yardstick(torch, x, q, scale, ref, tol):
+    """torch._weight_int8pack_mm(x, q, scale in bf16), PyTorch's own W8A16
+    call, as a timing yardstick only (the port never calls it): a callable
+    once its output is held to the plain version at `tol` of max |plain|
+    (the bf16-rounded scale is within it), or the reason it cannot run."""
+    scale16 = scale.to(torch.bfloat16)
+    fn = lambda: torch._weight_int8pack_mm(x, q, scale16)
+    try:
+        out = fn()
+        torch.cuda.synchronize()
+    except (RuntimeError, NotImplementedError) as e:  # a shape or dtype it refuses
+        return None, str(e).splitlines()[0][:160]
+    mag = ref.float().abs().max().item()
+    err = (out.float() - ref.float()).abs().max().item()
+    check(torch.allclose(out.float(), ref.float(), atol=tol * mag, rtol=tol),
+          f"_weight_int8pack_mm {tuple(x.shape)}x{tuple(q.shape)}: max abs err {err} "
+          f"(max |plain| {mag})")
+    return fn, None
+
+
 def phase_int8_matmul(torch, dev, cfg) -> dict:
     import torch.nn.functional as F
 
@@ -241,11 +272,14 @@ def phase_int8_matmul(torch, dev, cfg) -> dict:
 
     g = torch.Generator(device=dev).manual_seed(3)
     flush = scrubber(torch, dev)
-    record, worst, step = None, 0.0, {"ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0}
+    record, worst = None, 0.0
+    step = {"ms": 0.0, "bound_ms": 0.0, "bf16": 0.0, "int8pack": 0.0}
     # One prefill's 7L products at the buckets that take the kernel (128 and
     # 256 rows): the kernel, the dequantizing route that quant.matmul takes
-    # above 256 rows, and the bf16 F.linear yardstick.
-    prefill = {m: {"kernel": 0.0, "dequant": 0.0, "bf16": 0.0} for m in (128, 256)}
+    # above 256 rows, _weight_int8pack_mm and the bf16 F.linear yardstick.
+    prefill = {m: {"kernel": 0.0, "dequant": 0.0, "int8pack": 0.0, "bf16": 0.0}
+               for m in (128, 256)}
+    refused = []
     for (D, Fo), count in product_shapes(cfg).items():
         q = torch.randint(-127, 128, (Fo, D), generator=g, device=dev, dtype=torch.int8)
         scale = torch.rand(Fo, generator=g, device=dev) * D**-0.5 / 73.3
@@ -261,38 +295,52 @@ def phase_int8_matmul(torch, dev, cfg) -> dict:
             worst = max(worst, err / mag)
             check(torch.allclose(out.float(), ref.float(), atol=MATMUL_TOL * mag, rtol=MATMUL_TOL),
                   f"int8_matmul m={m} ({D},{Fo}): max abs err {err} (max |plain| {mag})")
+            pack_fn, why = int8pack_yardstick(torch, x, q, scale, ref, MATMUL_TOL)
             ms = time_cuda(torch, lambda: int8_matmul(x, q, scale), flush=flush)
             plain_ms = time_cuda(torch, lambda: int8_matmul_reference(x, q, scale), reps=5,
                                  warmup=1, flush=flush)
-            library_ms = time_cuda(torch, lambda: F.linear(x, w_bf16), flush=flush)
+            bf16_ms = time_cuda(torch, lambda: F.linear(x, w_bf16), flush=flush)
+            # A slow reference kernel (up to ~0.3 s a call): few reps, like the plain version.
+            pack_ms = time_cuda(torch, pack_fn, reps=3, warmup=1, flush=flush) if pack_fn else None
+            if why:
+                refused.append(f"m={m} ({D},{Fo}): {why}")
             nbytes = m * D * 2 + Fo * D + Fo * 4 + m * Fo * 2
             bound_ms, bound_by = bound(2 * m * D * Fo, nbytes)
+            pack = f"{pack_ms:.4f} ms" if pack_ms is not None else "refused"
             dequant = ""
             if m in prefill and (D, Fo) != (cfg.d_model, cfg.vocab_size):
                 dequant_ms = time_cuda(
                     torch, lambda: F.linear(x, q.to(torch.bfloat16)) * scale.to(torch.bfloat16),
                     flush=flush)
                 dequant = f" dequant route={dequant_ms:.4f} ms"
-                for key, t in (("kernel", ms), ("dequant", dequant_ms), ("bf16", library_ms)):
-                    prefill[m][key] += count * t
+                for key, t in (("kernel", ms), ("dequant", dequant_ms), ("int8pack", pack_ms),
+                               ("bf16", bf16_ms)):
+                    prefill[m][key] = None if t is None or prefill[m][key] is None \
+                        else prefill[m][key] + count * t
             print(f"int8_matmul m={m:3d} (D,F)=({D},{Fo}): rel err {err / mag:.2e} "
-                  f"kernel={ms:.4f} ms plain={plain_ms:.4f} ms bf16 F.linear={library_ms:.4f} ms"
-                  f"{dequant} bound={bound_ms:.4f} ms ({bound_by}) roofline={bound_ms / ms:.1%}")
+                  f"kernel={ms:.4f} ms plain={plain_ms:.4f} ms int8pack={pack} "
+                  f"bf16 F.linear={bf16_ms:.4f} ms{dequant} bound={bound_ms:.4f} ms "
+                  f"({bound_by}) roofline={bound_ms / ms:.1%}")
             if m == 8:
-                step["ms"] += count * ms
-                step["bound_ms"] += count * bound_ms
-                step["library_ms"] += count * library_ms
+                for key, t in (("ms", ms), ("bound_ms", bound_ms), ("bf16", bf16_ms),
+                               ("int8pack", pack_ms)):
+                    step[key] = None if t is None or step[key] is None else step[key] + count * t
                 if (D, Fo) == (cfg.d_model, cfg.d_ff):  # w_gate / w_up: the largest per layer
                     record = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                              "bound_by": bound_by, "library_ms": library_ms}
+                              "bound_by": bound_by, "library_ms": pack_ms,
+                              "library": "torch._weight_int8pack_mm", "bf16_linear_ms": bf16_ms}
         del q, w_bf16
+    fmt = lambda t: "refused" if t is None else f"{t:.3f} ms"
     print(f"int8_matmul: one decode step's products at m=8 (7 per layer x {cfg.n_layers} + "
           f"lm_head): {step['ms']:.3f} ms (bound {step['bound_ms']:.3f} ms, "
-          f"{step['bound_ms'] / step['ms']:.1%}; bf16 F.linear {step['library_ms']:.3f} ms)")
+          f"{step['bound_ms'] / step['ms']:.1%}; int8pack {fmt(step['int8pack'])}; "
+          f"bf16 F.linear {fmt(step['bf16'])})")
     for m, t in prefill.items():
         print(f"int8_matmul: one prefill's 7 x {cfg.n_layers} products at m={m}: kernel "
-              f"{t['kernel']:.3f} ms, dequantizing route {t['dequant']:.3f} ms, bf16 F.linear "
-              f"{t['bf16']:.3f} ms")
+              f"{fmt(t['kernel'])}, dequantizing route {fmt(t['dequant'])}, int8pack "
+              f"{fmt(t['int8pack'])}, bf16 F.linear {fmt(t['bf16'])}")
+    for r in refused:
+        print(f"int8_matmul: torch._weight_int8pack_mm refused {r}")
     record["max_abs_err"] = worst  # relative to max |plain| (outputs reach ~1e2)
     return record
 

@@ -1,5 +1,5 @@
 // Shared pieces of the decode-attention kernels (one query token per slot):
-// cp.async helpers, the split pass and the split-combining pass. Included by
+// the split pass and the split-combining pass. Included by
 // paged_attention.cu (block-pool addressing, bf16 and int8 pools) and
 // int8_attention.cu (dense-cache addressing); each stays its own library
 // with its own C entry points. ops/_ext.py hashes this header into both
@@ -32,7 +32,14 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "sm90_common.cuh"
+
 namespace lws_decode {
+
+using lws_sm90::cp_async16;
+using lws_sm90::cp_async4;
+using lws_sm90::cp_async_commit;
+using lws_sm90::cp_async_wait;
 
 typedef __nv_bfloat16 bf16;
 
@@ -40,25 +47,6 @@ constexpr int kHD = 128;     // head dim (the flagship's; checked by the wrapper
 constexpr int kBS = 16;      // tokens per block (the engine's pool block size)
 constexpr int kStages = 4;   // blocks in flight per CTA
 constexpr float kNegInf = -1e30f;
-
-__device__ __forceinline__ void cp_async16(void* smem_dst, const void* gmem_src) {
-  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem_dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem_src));
-}
-
-__device__ __forceinline__ void cp_async4(void* smem_dst, const void* gmem_src) {
-  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem_dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(gmem_src));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
 
 // bf16 K/V rows, used as stored.
 struct Bf16Rows {

@@ -7,221 +7,252 @@
 //
 // What bounds it: at prefill lengths (S >= 128) the work is operations
 // (4*S*Skv*D per head, halved by causality) against a few MB of input, so
-// the tensor cores are the limit. This first version feeds them with WMMA
-// bf16 16x16x16 fragments (f32 accumulation) from shared-memory tiles:
-//   * one CTA of 4 warps per (q tile of 64 rows, head, batch); each warp owns
-//     16 query rows;
-//   * per 64-key tile: S = Q.K^T (WMMA) -> shared f32 scores -> masked online
-//     softmax in f32 (2 lanes per row) -> P in bf16 -> O += P.V (WMMA), with O
-//     kept as an f32 tile in shared memory so the per-row rescale by
-//     exp(m_old - m_new) is plain scalar code;
-//   * causal CTAs stop at the tile holding their last query row (the
-//     diagonal), as the Pallas kernel's `upper` bound does;
-//   * keys >= Skv and (causal) keys after the query are masked to -1e30, so
-//     ragged S/Skv need no padding in device memory; query rows >= S are
-//     computed on zero rows and never stored.
-// The softmax scale D**-0.5 multiplies the f32 product q.k, which equals
-// the Pallas kernel's (q * scale).k in exact arithmetic and keeps q exact as
-// a bf16 MMA operand. wgmma, TMA and warp specialisation are left for a later
-// version.
+// the tensor cores are the limit, and what keeps them waiting is everything
+// around the products: shared-memory round trips of the scores and of the
+// output accumulator, synchronous loads, and the softmax's scalar code. The
+// design is FlashAttention-2's, with mma.sync:
+//   * one CTA of 8 warps per (q tile of 128 rows, head, batch); each warp owns
+//     16 query rows. Q . K^T and P . V are mma.sync.m16n8k16 bf16 products
+//     with f32 accumulation, their operands read by ldmatrix (.trans for V)
+//     from row-padded shared tiles (a 272-byte pitch keeps ldmatrix free of
+//     bank conflicts);
+//   * S, P and O stay in registers: the score accumulator of one 64-key tile
+//     becomes, packed to bf16, the A operand of P . V (the accumulator and
+//     A-operand layouts agree), the row max and row sum reduce over the 4
+//     lanes of a quad by two shuffles, and O is rescaled in registers. The
+//     softmax runs in base 2 with D**-0.5 * log2(e) folded into one FMA
+//     per score;
+//   * K/V tiles pass through a 2-stage cp.async ring: tile j+1 is in flight
+//     while tile j is computed, with one barrier per tile;
+//   * only a tile that holds the diagonal (causal) or the ragged end of Skv
+//     computes the mask; a warp whose rows all precede a tile's first key, or
+//     lie past S, skips the tile's products;
+//   * causal CTAs stop at the tile holding their last query row, as the
+//     Pallas kernel's `upper` bound does, and the grid issues the longest
+//     q tiles (the last ones) first, so the short ones fill the tail;
+//   * keys >= Skv (zero-filled, never read from device memory) and, when
+//     causal, keys after the query are masked, so ragged S/Skv need no
+//     padding in device memory; query rows >= S are never stored.
+// 104 KB of shared memory per CTA: two CTAs (16 warps) per SM. The G query
+// heads of one kv head are neighbouring CTAs, so their K/V tiles come from
+// L2; wgmma, TMA and warp specialisation (FlashAttention-3) are left for a
+// later version.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <mma.h>
-#include <stdint.h>
+#include "sm90_common.cuh"
 
 namespace {
 
-using namespace nvcuda;
+using namespace lws_sm90;
 typedef __nv_bfloat16 bf16;
 
 constexpr int kD = 128;        // head dim (the flagship's; checked by the wrapper)
-constexpr int kBQ = 64;        // query rows per CTA
+constexpr int kBQ = 128;       // query rows per CTA
 constexpr int kBK = 64;        // keys per tile
 constexpr int kWarps = kBQ / 16;
 constexpr int kThreads = kWarps * 32;
-constexpr int kLdQ = kD + 8;   // bf16 pitch of the Q/K/V tiles (pads off bank conflicts)
-constexpr int kLdS = kBK + 4;  // f32 pitch of the score tile
-constexpr int kLdP = kBK + 8;  // bf16 pitch of the probability tile
-constexpr int kLdO = kD + 4;   // f32 pitch of the output accumulator
+constexpr int kPitch = kD + 8;  // bf16 pitch of the shared tiles (272 bytes)
 constexpr float kNegInf = -1e30f;
+constexpr float kLog2e = 1.4426950408889634f;
 
-constexpr size_t kOffQ = 0;
-constexpr size_t kOffK = kOffQ + sizeof(bf16) * kBQ * kLdQ;
-constexpr size_t kOffV = kOffK + sizeof(bf16) * kBK * kLdQ;
-constexpr size_t kOffS = kOffV + sizeof(bf16) * kBK * kLdQ;
-constexpr size_t kOffP = kOffS + sizeof(float) * kBQ * kLdS;
-constexpr size_t kOffO = kOffP + sizeof(bf16) * kBQ * kLdP;
-constexpr size_t kOffM = kOffO + sizeof(float) * kBQ * kLdO;
-constexpr size_t kOffL = kOffM + sizeof(float) * kBQ;
-constexpr size_t kSmemBytes = kOffL + sizeof(float) * kBQ;
+constexpr int kTileQ = kBQ * kPitch;  // elements
+constexpr int kTileKV = kBK * kPitch;
+constexpr size_t kSmemBytes = sizeof(bf16) * (kTileQ + 4 * kTileKV);  // Q, 2 x (K, V)
 
-// Rows [row0, row0 + nrows) of a [rows_valid, kD] matrix whose rows are
-// `row_stride` elements apart, into a kLdQ-pitched tile; rows past
-// rows_valid read as zeros. 16-byte vector loads.
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, int row0, int nrows,
-                                          size_t row_stride, int rows_valid) {
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Rows [row0, row0 + ROWS) of a [rows_valid, kD] matrix whose rows are
+// `row_stride` elements apart into a kPitch-pitched tile, by 16-byte
+// cp.async copies; rows past rows_valid are zero-filled.
+template <int ROWS>
+__device__ __forceinline__ void load_rows(bf16* dst, const bf16* src, int row0, size_t row_stride,
+                                          int rows_valid) {
   constexpr int kVecs = kD / 8;
-  for (int i = threadIdx.x; i < nrows * kVecs; i += kThreads) {
+#pragma unroll
+  for (int i = threadIdx.x; i < ROWS * kVecs; i += kThreads) {
     const int r = i / kVecs;
     const int c = (i % kVecs) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < rows_valid) {
-      val = *reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) * row_stride + c);
-    }
-    *reinterpret_cast<uint4*>(dst + r * kLdQ + c) = val;
+    const bool ok = row0 + r < rows_valid;
+    cp_async16(dst + r * kPitch + c, ok ? src + (size_t)(row0 + r) * row_stride + c : src,
+               ok ? 16 : 0);
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 2)
 flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, bf16* __restrict__ o, int S, int Skv,
-                 int H, int Hkv, int causal, float scale) {
+                 const bf16* __restrict__ v, bf16* __restrict__ o, int B, int S, int Skv,
+                 int H, int Hkv, int causal, float scale_log2) {
   extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem + kOffQ);
-  bf16* sK = reinterpret_cast<bf16*>(smem + kOffK);
-  bf16* sV = reinterpret_cast<bf16*>(smem + kOffV);
-  float* sS = reinterpret_cast<float*>(smem + kOffS);
-  bf16* sP = reinterpret_cast<bf16*>(smem + kOffP);
-  float* sO = reinterpret_cast<float*>(smem + kOffO);
-  float* sM = reinterpret_cast<float*>(smem + kOffM);
-  float* sL = reinterpret_cast<float*>(smem + kOffL);
+  bf16* sQ = reinterpret_cast<bf16*>(smem);
+  bf16* sK = sQ + kTileQ;        // 2 stages
+  bf16* sV = sK + 2 * kTileKV;   // 2 stages
 
-  const int q0 = blockIdx.x * kBQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
+  const int n_qtiles = (S + kBQ - 1) / kBQ;
+  const int bh = blockIdx.x % (B * H);
+  const int qt = n_qtiles - 1 - blockIdx.x / (B * H);  // the longest q tiles first
+  const int b = bh / H;
+  const int h = bh % H;
   const int hk = h / (H / Hkv);
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
+  const int q0 = qt * kBQ;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;  // row within the warp's 8-row half
+  const int t = lane & 3;   // lane within the quad
 
   const bf16* qb = q + ((size_t)b * S * H + h) * kD;       // row s at qb + s*H*kD
   const bf16* kb = k + ((size_t)b * Skv * Hkv + hk) * kD;  // row s at kb + s*Hkv*kD
   const bf16* vb = v + ((size_t)b * Skv * Hkv + hk) * kD;
-
-  load_tile(sQ, qb, q0, kBQ, (size_t)H * kD, S);
-  for (int i = tid; i < kBQ * kLdO; i += kThreads) sO[i] = 0.f;
-  if (tid < kBQ) {
-    sM[tid] = kNegInf;
-    sL[tid] = 0.f;
-  }
+  const size_t kv_stride = (size_t)Hkv * kD;
 
   const int q_last = min(q0 + kBQ, S) - 1;  // last real query row of this tile
   int n_tiles = (Skv + kBK - 1) / kBK;
   if (causal) n_tiles = min(n_tiles, q_last / kBK + 1);  // stop at the diagonal
 
-  float* sSw = sS + warp * 16 * kLdS;
-  bf16* sPw = sP + warp * 16 * kLdP;
-  float* sOw = sO + warp * 16 * kLdO;
-  const bf16* sQw = sQ + warp * 16 * kLdQ;
+  load_rows<kBQ>(sQ, qb, q0, (size_t)H * kD, S);
+  load_rows<kBK>(sK, kb, 0, kv_stride, Skv);
+  load_rows<kBK>(sV, vb, 0, kv_stride, Skv);
+  cp_async_commit();
+
+  const int w_row0 = q0 + warp * 16;  // this warp's first query row
+  const bool live = w_row0 < S;
+  const int qr0 = w_row0 + g;         // the rows of accumulator regs 0-1 and 2-3
+  const int qr1 = qr0 + 8;
+  const bf16* sQw = sQ + warp * 16 * kPitch;
+
+  float acc[kD / 8][4];
+#pragma unroll
+  for (int n = 0; n < kD / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;  // l: this lane's share of the row sum
 
   for (int j = 0; j < n_tiles; ++j) {
+    cp_async_wait<0>();
+    __syncthreads();  // tile j is in; every warp is done with tile j-1's stage
+    if (j + 1 < n_tiles) {
+      const int st = (j + 1) & 1;
+      load_rows<kBK>(sK + st * kTileKV, kb, (j + 1) * kBK, kv_stride, Skv);
+      load_rows<kBK>(sV + st * kTileKV, vb, (j + 1) * kBK, kv_stride, Skv);
+    }
+    cp_async_commit();
     const int k0 = j * kBK;
-    __syncthreads();  // every warp is done with the previous K/V tile (and Q/O init)
-    load_tile(sK, kb, k0, kBK, (size_t)Hkv * kD, Skv);
-    load_tile(sV, vb, k0, kBK, (size_t)Hkv * kD, Skv);
-    __syncthreads();
+    if (!live || (causal && k0 > w_row0 + 15)) continue;  // no key of this tile is attended
+    const bf16* cK = sK + (j & 1) * kTileKV;
+    const bf16* cV = sV + (j & 1) * kTileKV;
 
-    // Scores for this warp's 16 rows: [16, kBK] = Q_w [16, kD] . K^T [kD, kBK].
-    {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[kBK / 16];
+    // Scores: [16, 64] = Q_w [16, 128] . K^T, eight 8-key accumulator tiles.
+    float s[kBK / 8][4];
 #pragma unroll
-      for (int n = 0; n < kBK / 16; ++n) wmma::fill_fragment(acc[n], 0.f);
+    for (int n = 0; n < kBK / 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
 #pragma unroll
-      for (int kk = 0; kk < kD; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-        wmma::load_matrix_sync(a, sQw + kk, kLdQ);
+    for (int kk = 0; kk < kD / 16; ++kk) {
+      uint32_t a[4];
+      ldmatrix_x4(a, sQw + (lane & 15) * kPitch + kk * 16 + (lane >> 4) * 8);
 #pragma unroll
-        for (int n = 0; n < kBK / 16; ++n) {
-          // K stored [key][d] row-major is K^T [d][key] column-major.
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> bk;
-          wmma::load_matrix_sync(bk, sK + n * 16 * kLdQ + kk, kLdQ);
-          wmma::mma_sync(acc[n], a, bk, acc[n]);
+      for (int np = 0; np < kBK / 16; ++np) {
+        uint32_t bk[4];  // keys 16np..+15 x d 16kk..+15: b0, b1 of two key tiles
+        ldmatrix_x4(bk, cK + (np * 16 + (lane & 7) + ((lane >> 4) << 3)) * kPitch + kk * 16 +
+                            ((lane >> 3) & 1) * 8);
+        mma_bf16(s[2 * np], a, bk[0], bk[1]);
+        mma_bf16(s[2 * np + 1], a, bk[2], bk[3]);
+      }
+    }
+
+    // Masked online softmax in base 2. The raw scores are masked and their
+    // row max taken; the scale D**-0.5 * log2(e) enters once, in the max and
+    // in one FMA per score before exp2.
+    if (k0 + kBK > Skv || (causal && k0 + kBK - 1 > w_row0)) {
+#pragma unroll
+      for (int n = 0; n < kBK / 8; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int kp = k0 + n * 8 + 2 * t + (e & 1);
+          if (kp >= Skv || (causal && kp > (e < 2 ? qr0 : qr1))) s[n][e] = kNegInf;
         }
       }
-#pragma unroll
-      for (int n = 0; n < kBK / 16; ++n) {
-        wmma::store_matrix_sync(sSw + n * 16, acc[n], kLdS, wmma::mem_row_major);
-      }
     }
-    __syncwarp();
+    float mx0 = kNegInf, mx1 = kNegInf;
+#pragma unroll
+    for (int n = 0; n < kBK / 8; ++n) {
+      mx0 = fmaxf(mx0, fmaxf(s[n][0], s[n][1]));
+      mx1 = fmaxf(mx1, fmaxf(s[n][2], s[n][3]));
+    }
+#pragma unroll
+    for (int off = 1; off <= 2; off <<= 1) {
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+    }
+    const float mn0 = fmaxf(m0, mx0 * scale_log2), mn1 = fmaxf(m1, mx1 * scale_log2);
+    const float alpha0 = fast_exp2(m0 - mn0), alpha1 = fast_exp2(m1 - mn1);  // first tile: 0
+    m0 = mn0;
+    m1 = mn1;
+    float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+    for (int n = 0; n < kBK / 8; ++n) {
+      s[n][0] = fast_exp2(fmaf(s[n][0], scale_log2, -mn0));
+      s[n][1] = fast_exp2(fmaf(s[n][1], scale_log2, -mn0));
+      s[n][2] = fast_exp2(fmaf(s[n][2], scale_log2, -mn1));
+      s[n][3] = fast_exp2(fmaf(s[n][3], scale_log2, -mn1));
+      sum0 += s[n][0] + s[n][1];
+      sum1 += s[n][2] + s[n][3];
+    }
+    l0 = l0 * alpha0 + sum0;
+    l1 = l1 * alpha1 + sum1;
+#pragma unroll
+    for (int n = 0; n < kD / 8; ++n) {
+      acc[n][0] *= alpha0;
+      acc[n][1] *= alpha0;
+      acc[n][2] *= alpha1;
+      acc[n][3] *= alpha1;
+    }
 
-    // Masked online softmax, two lanes per row (each takes half the keys).
-    {
-      const int r = lane >> 1;
-      const int half = lane & 1;
-      const int row = warp * 16 + r;
-      const int qpos = q0 + row;
-      float* srow = sSw + r * kLdS;
-      float mx = kNegInf;
-      for (int c = half * (kBK / 2); c < (half + 1) * (kBK / 2); ++c) {
-        const int kpos = k0 + c;
-        const bool ok = kpos < Skv && (!causal || kpos <= qpos);
-        const float s = ok ? srow[c] * scale : kNegInf;
-        srow[c] = s;
-        mx = fmaxf(mx, s);
-      }
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      const float m_old = sM[row];
-      const float m_new = fmaxf(m_old, mx);
-      const float alpha = __expf(m_old - m_new);  // first tile: exp(-1e30 - m) = 0
-      float sum = 0.f;
-      bf16* prow = sPw + r * kLdP;
-      for (int c = half * (kBK / 2); c < (half + 1) * (kBK / 2); ++c) {
-        const bf16 p = __float2bfloat16(__expf(srow[c] - m_new));
-        prow[c] = p;
-        sum += __bfloat162float(p);  // the denominator sums what P.V multiplies
-      }
-      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-      float* orow = sOw + r * kLdO;
-      for (int c = half * (kD / 2); c < (half + 1) * (kD / 2); ++c) orow[c] *= alpha;
-      if (half == 0) {
-        sM[row] = m_new;
-        sL[row] = sL[row] * alpha + sum;
+    // O_w [16, 128] += P [16, 64] . V [64, 128]; P's A fragments are the
+    // score accumulators of two neighbouring key tiles, packed to bf16.
+#pragma unroll
+    for (int kk = 0; kk < kBK / 16; ++kk) {
+      const uint32_t a[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+                             pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+                             pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                             pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+#pragma unroll
+      for (int dp = 0; dp < kD / 16; ++dp) {
+        uint32_t bv[4];  // keys 16kk..+15 x d 16dp..+15: b0, b1 of two d tiles
+        ldmatrix_x4_trans(bv, cV + (kk * 16 + (lane & 7) + (((lane >> 3) & 1) << 3)) * kPitch +
+                                  dp * 16 + (lane >> 4) * 8);
+        mma_bf16(acc[2 * dp], a, bv[0], bv[1]);
+        mma_bf16(acc[2 * dp + 1], a, bv[2], bv[3]);
       }
     }
-    __syncwarp();
-
-    // O_w [16, kD] += P_w [16, kBK] . V [kBK, kD].
-    {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[kD / 16];
-#pragma unroll
-      for (int n = 0; n < kD / 16; ++n) {
-        wmma::load_matrix_sync(acc[n], sOw + n * 16, kLdO, wmma::mem_row_major);
-      }
-#pragma unroll
-      for (int kk = 0; kk < kBK; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-        wmma::load_matrix_sync(a, sPw + kk, kLdP);
-#pragma unroll
-        for (int n = 0; n < kD / 16; ++n) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bv;
-          wmma::load_matrix_sync(bv, sV + kk * kLdQ + n * 16, kLdQ);
-          wmma::mma_sync(acc[n], a, bv, acc[n]);
-        }
-      }
-#pragma unroll
-      for (int n = 0; n < kD / 16; ++n) {
-        wmma::store_matrix_sync(sOw + n * 16, acc[n], kLdO, wmma::mem_row_major);
-      }
-    }
-    __syncwarp();
   }
+  if (!live) return;
 
-  // Epilogue: this warp's rows, O / l, as bf16, 8 values per store.
+  // Epilogue: O / l as bf16 into this warp's own Q rows (no other warp reads
+  // them), then 16-byte stores of the rows < S.
+#pragma unroll
+  for (int off = 1; off <= 2; off <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+  }
+  const float inv0 = 1.f / l0, inv1 = 1.f / l1;
+  bf16* sOw = sQ + warp * 16 * kPitch;
+  __syncwarp();
+#pragma unroll
+  for (int n = 0; n < kD / 8; ++n) {
+    *reinterpret_cast<uint32_t*>(sOw + g * kPitch + n * 8 + 2 * t) =
+        pack_bf16(acc[n][0] * inv0, acc[n][1] * inv0);
+    *reinterpret_cast<uint32_t*>(sOw + (g + 8) * kPitch + n * 8 + 2 * t) =
+        pack_bf16(acc[n][2] * inv1, acc[n][3] * inv1);
+  }
+  __syncwarp();
   constexpr int kVecs = kD / 8;
+#pragma unroll
   for (int i = lane; i < 16 * kVecs; i += 32) {
     const int r = i / kVecs;
     const int c = (i % kVecs) * 8;
-    const int row = warp * 16 + r;
-    if (q0 + row >= S) continue;
-    const float inv = 1.f / sL[row];
-    const float* orow = sOw + r * kLdO + c;
-    __align__(16) bf16 out8[8];
-#pragma unroll
-    for (int e = 0; e < 8; ++e) out8[e] = __float2bfloat16(orow[e] * inv);
-    *reinterpret_cast<uint4*>(o + ((size_t)(b * S + q0 + row) * H + h) * kD + c) =
-        *reinterpret_cast<const uint4*>(out8);
+    if (w_row0 + r >= S) continue;
+    *reinterpret_cast<uint4*>(o + ((size_t)(b * S + w_row0 + r) * H + h) * kD + c) =
+        *reinterpret_cast<const uint4*>(sOw + r * kPitch + c);
   }
 }
 
@@ -230,17 +261,21 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 extern "C" {
 
 // q [B,S,H,128], k/v [B,Skv,Hkv,128], o [B,S,H,128]: contiguous bf16 on the
-// current device. Returns the cudaError_t of the launch.
+// current device, 16-byte aligned. Returns the cudaError_t of the launch.
 int lws_flash_attention_fwd(const void* q, const void* k, const void* v, void* o, int B,
                             int S, int Skv, int H, int Hkv, int causal, float scale,
                             void* stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmemBytes);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((S + kBQ - 1) / kBQ, H, B);
+  static bool ready = false;  // the attribute holds for the process: set it once
+  if (!ready) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        flash_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmemBytes);
+    if (err != cudaSuccess) return (int)err;
+    ready = true;
+  }
+  const int grid = (S + kBQ - 1) / kBQ * H * B;
   flash_fwd_kernel<<<grid, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(o), S, Skv, H, Hkv, causal, scale);
+      static_cast<bf16*>(o), B, S, Skv, H, Hkv, causal, scale * kLog2e);
   return (int)cudaGetLastError();
 }
 

@@ -7,12 +7,14 @@ weights and a per-output-channel f32 scale applied to the f32 accumulator
 [F, D] (out, in) and the product is x @ q.T. JAX's `supported` rule
 (m <= 256, decided from shapes) picks the callers' route in
 models/quant.py; the kernel itself takes any D and F and masks the ragged
-edge.
+edge. `plan` picks the kernel's body and split of D from the shapes alone.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -21,14 +23,75 @@ from lws_tpu_torch.ops import _ext
 _SIGNATURES = {
     "lws_int8_matmul": [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # x q scale out
-        ctypes.c_void_p,  # f32 split partials (or null)
+        ctypes.c_void_p, ctypes.c_void_p,  # f32 split partials, tile counters (or null)
         ctypes.c_int, ctypes.c_int, ctypes.c_int,  # M D F
         ctypes.c_int, ctypes.c_int, ctypes.c_int,  # bm splits k_chunk
         ctypes.c_int, ctypes.c_int, ctypes.c_void_p,  # vec_x vec_w stream
     ],
 }
 MAX_ROWS = 256   # lws_tpu/ops/int8_matmul.py _TM_MAX: the decode-shaped products
-_BN, _BK = 64, 128  # the kernel's channel tile and contraction stage
+SMALL_ROWS = 16  # up to this many rows the swapped (weight-streaming) body runs
+MAX_SPLITS = 8  # the last CTA of a tile sums every split's partial: keep that read short
+
+
+class Plan(NamedTuple):
+    """One launch of the kernel: `bm` rows per tile (8 or 16: the swapped
+    small body; 64: the mma.sync body; 128: the wgmma body), `bn` channels
+    and `bk` of D per pipeline stage, D split `splits` ways in chunks of
+    `k_chunk`, and `counters` tile counters for the in-kernel split
+    reduction (0 when D is not split)."""
+    bm: int
+    bn: int
+    bk: int
+    splits: int
+    k_chunk: int
+    counters: int
+
+
+@functools.lru_cache(maxsize=1024)
+def plan(M: int, D: int, F: int, sms: int, aligned: bool = True) -> Plan:
+    """The launch for an [M, D] x [F, D] product on a card with `sms` SMs.
+    Above 64 rows the wgmma body runs where TMA can read both operands (16-byte
+    aligned pointers, D % 16 == 0: `aligned`), the mma.sync body otherwise.
+
+    D is split only when there are fewer output tiles than SMs (with a tile
+    for every SM, partials would cost a round trip at the end for no more
+    bytes in flight), toward `per_sm` CTAs per SM: the small body needs
+    about two for enough loads in flight, the tensor-core bodies one wave.
+    The count is then cut to the fewest splits that deal min(blocks,
+    MAX_SPLITS) blocks in the same chunks (so 5-7 of 8 become 4: on the
+    H100, 5 splits of 32 tiles measured slower than 4), and no split is
+    empty."""
+    if M <= SMALL_ROWS:
+        bm, bn, bk, per_sm = (8 if M <= 8 else 16), 64, 128, 2
+    else:
+        wg = M > 64 and aligned and D % 16 == 0
+        bm, bn, bk, per_sm = (128 if wg else 64), 128, 64, 1
+    tiles = -(-M // bm) * -(-F // bn)
+    blocks = -(-D // bk)
+    splits = 1
+    if tiles < sms:
+        cap = min(blocks, MAX_SPLITS)
+        want = min(cap, -(-per_sm * sms // tiles))
+        splits = -(-cap // -(-cap // want))
+    per_split = -(-blocks // splits)
+    splits = -(-blocks // per_split)  # no empty split
+    return Plan(bm, bn, bk, splits, per_split * bk, tiles if splits > 1 else 0)
+
+
+# Tile counters by (device, stream): products on two streams may run at
+# once, and each takes its tickets from counter 0 up.
+_counters: dict[tuple[torch.device, int], torch.Tensor] = {}
+
+
+def _tile_counters(dev: torch.device, stream: int, n: int) -> torch.Tensor:
+    """At least n zeroed int32 counters for launches on `stream` of `dev`,
+    zeroed once when made (on that stream): the kernel leaves every counter
+    it takes at 0 for the next launch on the stream."""
+    buf = _counters.get((dev, stream))
+    if buf is None or buf.numel() < n:
+        buf = _counters[dev, stream] = torch.zeros(max(n, 4096), dtype=torch.int32, device=dev)
+    return buf
 
 
 def int8_matmul_reference(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
@@ -55,21 +118,22 @@ def _launch_kernel(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> tor
     if M < 1 or M > MAX_ROWS or D < 1 or F < 1:
         raise ValueError(f"int8_matmul: 1 <= rows <= {MAX_ROWS} and nonempty D, F "
                          f"(got rows={M}, D={D}, F={F})")
-    bm = 16 if M <= 16 else 64
-    # Split D until the first pass fills the card.
-    splits, per_split = _ext.split_plan(dev, -(-M // bm) * -(-F // _BN), -(-D // _BK))
-    k_chunk = per_split * _BK
+    p = plan(M, D, F, _ext.sm_count(dev), x.data_ptr() % 16 == 0 and q.data_ptr() % 16 == 0)
+    stream = torch.cuda.current_stream(dev).cuda_stream
     out = torch.empty(*lead, F, dtype=x.dtype, device=dev)
-    partial = torch.empty(splits * M * F if splits > 1 else 0, dtype=torch.float32, device=dev)
+    partial = counters = None  # the split reduction's scratch, when D is split
+    if p.splits > 1:
+        partial = torch.empty(p.splits * M * F, dtype=torch.float32, device=dev)
+        counters = _tile_counters(dev, stream, p.counters)
     vec_x = int(D % 8 == 0 and x.data_ptr() % 16 == 0)
     vec_w = int(D % 16 == 0 and q.data_ptr() % 16 == 0)
     lib = _ext.load("int8_matmul", _SIGNATURES)
     with torch.cuda.device(dev):
         rc = lib.lws_int8_matmul(
             x.data_ptr(), q.data_ptr(), scale.data_ptr(), out.data_ptr(),
-            partial.data_ptr() if splits > 1 else None,
-            M, D, F, bm, splits, k_chunk, vec_x, vec_w,
-            torch.cuda.current_stream(dev).cuda_stream,
+            partial.data_ptr() if partial is not None else None,
+            counters.data_ptr() if counters is not None else None,
+            M, D, F, p.bm, p.splits, p.k_chunk, vec_x, vec_w, stream,
         )
     _ext.check(lib, rc, "int8_matmul")
     int8_matmul.launches += 1

@@ -62,6 +62,20 @@ def test_flash_kernel_matches_plain(dev, S, Skv, H, Hkv, causal):
     torch.testing.assert_close(got.float(), want.float(), atol=TOL, rtol=TOL)
 
 
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("B,S", [(1, 127), (1, 128), (1, 129), (1, 1000), (8, 512)])
+def test_flash_kernel_flagship_heads_ragged_tiles(dev, B, S, causal):
+    """GQA 32/8 at q-tile edges of the 128-row tile (127, 128, 129), a
+    ragged long prompt, and the dense engine's batched prefill."""
+    g = torch.Generator(device=dev).manual_seed(B * 10000 + S)
+    q, k, v = randn(g, B, S, 32, 128, dev=dev), randn(g, B, S, 8, 128, dev=dev), \
+        randn(g, B, S, 8, 128, dev=dev)
+    got = flash_attention(q, k, v, causal=causal)
+    want = reference_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), atol=TOL, rtol=TOL)
+
+
 def _paged_case(dev, B, H, Hkv, L, NB, bs, MB, pos, seed=0):
     g = torch.Generator(device=dev).manual_seed(seed)
     q = randn(g, B, 1, H, 128, dev=dev)
@@ -157,6 +171,104 @@ def test_int8_matmul_kernel_matches_plain(dev, m, D, F):
     assert int8_matmul.launches == before + 1 and got.shape == (m, F)
     mag = want.float().abs().max().item()
     torch.testing.assert_close(got.float(), want.float(), atol=TOL * mag, rtol=TOL)
+
+
+FLAGSHIP_PRODUCTS = [(4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096), (4096, 128256)]
+
+
+def _int8_case(dev, m, D, F, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return (randn(g, m, D, dev=dev), int8s(g, F, D, dev=dev),
+            torch.rand(F, generator=g, device=dev) * D**-0.5 / 73.3)
+
+
+def _assert_matches_plain(x, q, scale, got):
+    want = int8_matmul_reference(x, q, scale)
+    mag = want.float().abs().max().item()
+    torch.testing.assert_close(got.float(), want.float(), atol=TOL * mag, rtol=TOL)
+
+
+@pytest.mark.parametrize("D,F", FLAGSHIP_PRODUCTS + [(1000, 300)])
+@pytest.mark.parametrize("m", [1, 7, 8, 9, 16, 17, 128, 200, 256])
+def test_int8_matmul_kernel_body_edges(dev, m, D, F):
+    """Every body boundary (8 and 16 rows: the swapped body; 17..256: the
+    tensor-core body) on the flagship's five products and a ragged D, F."""
+    x, q, scale = _int8_case(dev, m, D, F, seed=m * 7 + D + F)
+    before = int8_matmul.launches
+    got = int8_matmul(x, q, scale)
+    torch.cuda.synchronize()
+    assert int8_matmul.launches == before + 1 and got.shape == (m, F)
+    _assert_matches_plain(x, q, scale, got)
+
+
+@pytest.mark.parametrize("m,D,F", [(8, 4096, 1024), (1, 14336, 4096), (128, 4096, 4096),
+                                   (9, 1000, 300)])
+def test_int8_matmul_split_k_is_bitwise_repeatable(dev, m, D, F):
+    """Split-K products sum their partials in split order inside the kernel:
+    two calls give the same bits, and the tile counters are reset."""
+    from lws_tpu_torch.ops.int8_matmul import plan
+
+    assert plan(m, D, F, torch.cuda.get_device_properties(dev).multi_processor_count).splits > 1
+    x, q, scale = _int8_case(dev, m, D, F, seed=11)
+    first = int8_matmul(x, q, scale)
+    second = int8_matmul(x, q, scale)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    _assert_matches_plain(x, q, scale, first)
+
+
+def test_int8_matmul_after_a_product_of_another_shape(dev):
+    """Products of different shapes and split counts back to back on one
+    stream: each is right, so no counter is left stale between launches."""
+    cases = [_int8_case(dev, m, D, F, seed=i) for i, (m, D, F) in enumerate(
+        [(8, 4096, 1024), (8, 4096, 14336), (1, 14336, 4096), (200, 4096, 1024),
+         (16, 4096, 4096), (8, 4096, 1024)])]
+    outs = [int8_matmul(*c) for c in cases]
+    torch.cuda.synchronize()
+    for c, got in zip(cases, outs):
+        _assert_matches_plain(*c, got)
+
+
+@pytest.mark.parametrize("shapes", [((8, 4096, 1024), (8, 4096, 1024)),
+                                    ((8, 4096, 1024), (128, 4096, 4096))])
+def test_int8_matmul_split_products_on_two_streams_at_once(dev, shapes):
+    """Split products queued on two streams behind a spin run at the same
+    time; each stream takes tickets from its own tile counters, so every
+    output is bitwise the one the same product gives alone. Each product
+    has its own x, so a sum over another launch's partials would show."""
+    reps = 16
+    g = torch.Generator(device=dev).manual_seed(21)
+    cases = []
+    for i, (m, D, F) in enumerate(shapes):
+        _, q, scale = _int8_case(dev, m, D, F, seed=22 + i)
+        cases.append([(randn(g, m, D, dev=dev), q, scale) for _ in range(reps)])
+    want = [[int8_matmul(*c) for c in cs] for cs in cases]
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream(dev), torch.cuda.Stream(dev)]
+    for s in streams:
+        with torch.cuda.stream(s):
+            torch.cuda._sleep(20_000_000)  # ~10 ms: both queues fill before either runs
+    outs = [[], []]
+    for r in range(reps):
+        for i, s in enumerate(streams):
+            with torch.cuda.stream(s):
+                outs[i].append(int8_matmul(*cases[i][r]))
+    torch.cuda.synchronize()
+    for i in range(2):
+        assert all(torch.equal(got, w) for got, w in zip(outs[i], want[i]))
+
+
+@pytest.mark.parametrize("m", [100, 256])
+def test_int8_matmul_unaligned_rows_take_the_mma_sync_body(dev, m):
+    """Above 64 rows TMA reads both operands (the wgmma body) only from
+    16-byte aligned pointers; an x that is not takes the mma.sync body."""
+    from lws_tpu_torch.ops.int8_matmul import plan
+
+    g = torch.Generator(device=dev).manual_seed(m)
+    x = randn(g, m * 4096 + 1, dev=dev)[1:].view(m, 4096)  # 2-byte aligned, contiguous
+    q, scale = int8s(g, 1024, 4096, dev=dev), torch.rand(1024, generator=g, device=dev) * 1e-2
+    assert plan(m, 4096, 1024, 132, aligned=False).bm == 64 != plan(m, 4096, 1024, 132).bm
+    _assert_matches_plain(x, q, scale, int8_matmul(x, q, scale))
 
 
 def test_int8_matmul_leading_dims_and_unaligned_x(dev):
