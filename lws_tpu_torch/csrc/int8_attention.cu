@@ -13,12 +13,12 @@
 // kernel gives one program a whole (row, kv head) pair; on the H100,
 // B x Hkv = 64 CTAs (the flagship's 8 rows) would leave half the SMs idle
 // and each would walk up to 2048 tokens behind one CTA's latency. So it is
-// the paged kernel's design with dense addressing (decode_common.cuh,
-// DenseAddr): the T axis is cut into 16-token blocks, each (row, kv head) is
-// split over CTAs sized to give the card ~4 CTAs per SM, the G query heads
-// share every staged block, and a second pass merges the splits. With a
-// scalar pos every row has the same live length, so the splits cover only
-// the live blocks; with [B] pos (device data) they cover all of T.
+// the paged kernel with dense addressing (decode_common.cuh,
+// decode_attention<Int8Rows, DenseAddr>): the T axis is cut into 16-token
+// blocks, the live blocks of every row are planned on the device into equal
+// work items over a fixed grid, the G query heads share every staged block
+// on the tensor cores, and the last item of a (row, kv head) merges the
+// others in the same launch. A scalar pos is every row's position.
 
 #include "decode_common.cuh"
 
@@ -26,19 +26,23 @@ extern "C" {
 
 // q/out [B,1,H,128] bf16, k/v [B,T,Hkv,128] int8, k_scale/v_scale [B,T,Hkv]
 // f32, all contiguous on the current device; pos [B] int32, or null with
-// every row at pos_all; part_acc f32 [B*Hkv*splits*G*128] and part_ml f32
-// [B*Hkv*splits*G*2] scratch; 1 <= H/Hkv <= 32; splits * blocks_per_split
-// covers every row's live 16-token blocks. Returns the first cudaError_t.
+// every row at pos_all; part_acc/part_ml/tickets as for the paged kernel
+// (blocks = ceil(T/16)); 1 <= H/Hkv <= 32. Returns the cudaError_t.
 int lws_int8_decode_attention(const void* q, const void* k, const void* k_scale,
                               const void* v, const void* v_scale, const void* pos,
-                              int pos_all, void* out, void* part_acc, void* part_ml, int B,
-                              int T, int H, int Hkv, int splits, int blocks_per_split,
+                              int pos_all, void* out, void* part_acc, void* part_ml,
+                              void* tickets, int B, int T, int H, int Hkv, int grid, int prefer,
                               float scale, void* stream) {
   const lws_decode::DenseAddr addr{T};
-  return lws_decode::launch_decode<lws_decode::Int8Rows>(q, k, k_scale, v, v_scale, addr, pos,
-                                                         pos_all, out, part_acc, part_ml, B, H,
-                                                         Hkv, splits, blocks_per_split, scale,
-                                                         stream);
+  return lws_decode::launch_decode<lws_decode::Int8Rows>(
+      q, k, k_scale, v, v_scale, addr, pos, pos_all, out, part_acc, part_ml, tickets, B, H, Hkv,
+      grid, prefer, scale, stream);
+}
+
+// The chunk sizes the kernel's plan picks from, into out[0..cap); returns
+// their count (`quant` is accepted for the paged library's signature).
+int lws_decode_chunk_sizes(int /*quant*/, int* out, int cap) {
+  return lws_decode::chunk_sizes<lws_decode::Int8Rows>(out, cap);
 }
 
 const char* lws_cuda_error_string(int err) {

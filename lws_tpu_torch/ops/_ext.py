@@ -42,31 +42,13 @@ NVCC_FLAGS = (
     "-fPIC",
 )
 
-CTAS_PER_SM = 4  # split kernels aim their first pass at this many CTAs per SM
-
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
-
-
-def split_counts(sms: int, base_ctas: int, blocks: int) -> tuple[int, int]:
-    """(splits, blocks per split) for a kernel whose grid has `base_ctas`
-    CTAs before splitting and up to `blocks` blocks of work along the split
-    axis each, so that the split grid has about CTAS_PER_SM CTAs on each of
-    `sms` SMs; every split but the last holds `blocks per split`, and none
-    is empty."""
-    splits = min(blocks, max(1, -(-CTAS_PER_SM * sms // base_ctas)))
-    per_split = -(-blocks // splits)
-    return -(-blocks // per_split), per_split
 
 
 @functools.lru_cache(maxsize=None)
 def sm_count(dev) -> int:
     return torch.cuda.get_device_properties(dev).multi_processor_count
-
-
-def split_plan(dev, base_ctas: int, blocks: int) -> tuple[int, int]:
-    """split_counts for the SMs of CUDA device `dev`."""
-    return split_counts(sm_count(dev), base_ctas, blocks)
 
 
 def source_path(name: str) -> Path:

@@ -17,9 +17,14 @@ from lws_tpu_torch.ops import _ext
 from lws_tpu_torch.ops.attention import HEAD_DIM
 from lws_tpu_torch.ops.paged_attention import (
     BLOCK_SIZE,
+    MAX_SLOTS,
     cached_attention,
+    decode_grid,
+    decode_prefer,
+    decode_scratch,
     dequantize_kv,
-    split_scratch,
+    load_decode_library,
+    scratch_items,
 )
 
 _SIGNATURES = {
@@ -27,11 +32,12 @@ _SIGNATURES = {
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # q k k_scale
         ctypes.c_void_p, ctypes.c_void_p,  # v v_scale
         ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,  # pos (or null) pos_all out
-        ctypes.c_void_p, ctypes.c_void_p,  # split partials: acc, (m, l)
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # chunk partials: acc, (m, l); tickets
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B T H Hkv
-        ctypes.c_int, ctypes.c_int,  # splits blocks_per_split
+        ctypes.c_int, ctypes.c_int,  # grid prefer
         ctypes.c_float, ctypes.c_void_p,  # scale stream
     ],
+    "lws_decode_chunk_sizes": [ctypes.c_int, ctypes.POINTER(ctypes.c_int), ctypes.c_int],
 }
 
 
@@ -70,21 +76,25 @@ def _launch_kernel(q, k, k_scale, v, v_scale, pos) -> torch.Tensor:
         raise ValueError("int8_decode_attention: pos must be an int or an int32 [B] tensor")
     if not all(t.is_contiguous() for t in (q,) + tensors):
         raise ValueError("int8_decode_attention: inputs must be contiguous")
+    if B > MAX_SLOTS:
+        raise ValueError(f"int8_decode_attention: at most {MAX_SLOTS} rows, got {B}")
+    # The kernel plans the live blocks of every row on the device, from pos
+    # or from the scalar position; the grid and scratch depend on shapes only.
     blocks = -(-T // BLOCK_SIZE)
-    if not per_row:  # one live length for every row: split only the live blocks
-        pos = int(pos)
-        blocks = min(blocks, max(pos, 0) // BLOCK_SIZE + 1)
-    splits, per_split = _ext.split_plan(dev, B * Hkv, blocks)
-    part_acc, part_ml = split_scratch(q, Hkv, splits)
+    sms = _ext.sm_count(dev)
+    grid = decode_grid(B, Hkv, blocks, sms, quant=True)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    items = scratch_items(B, Hkv, blocks, grid)
+    part_acc, part_ml, tickets = decode_scratch(dev, stream, items, H // Hkv, B * Hkv)
     out = torch.empty_like(q)
-    lib = _ext.load("int8_attention", _SIGNATURES)
+    lib = load_decode_library("int8_attention", _SIGNATURES, quant=True)
     with torch.cuda.device(dev):
         rc = lib.lws_int8_decode_attention(
             q.data_ptr(), k.data_ptr(), k_scale.data_ptr(), v.data_ptr(), v_scale.data_ptr(),
-            pos.data_ptr() if per_row else None, 0 if per_row else pos, out.data_ptr(),
-            part_acc.data_ptr(), part_ml.data_ptr(),
-            B, T, H, Hkv, splits, per_split, float(hd) ** -0.5,
-            torch.cuda.current_stream(dev).cuda_stream,
+            pos.data_ptr() if per_row else None, 0 if per_row else min(max(int(pos), 0), T - 1),
+            out.data_ptr(),
+            part_acc.data_ptr(), part_ml.data_ptr(), tickets.data_ptr(),
+            B, T, H, Hkv, grid, decode_prefer(sms, grid), float(hd) ** -0.5, stream,
         )
     _ext.check(lib, rc, "int8_decode_attention")
     int8_decode_attention.launches += 1

@@ -7,11 +7,16 @@ Counterpart of lws_tpu/ops/paged_attention.py (both branches). Same
 contract as `cached_attention` with S=1: for slot b, the keys at logical
 positions <= pos_b[b] of the sequence the block-table row table[b] maps
 are attended. The pool is passed whole with a layer index, never sliced.
+
+`plan_items` is the kernel's launch plan in Python: the kernel computes the
+same plan on the device from pos (csrc/decode_common.cuh), so the launch
+never reads pos on the host; the CPU tests check the plan here.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple, Sequence
 
 import torch
 
@@ -22,22 +27,141 @@ _SIGNATURES = {
     "lws_paged_decode_attention": [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # q k_pool v_pool
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,  # table pos layer out
-        ctypes.c_void_p, ctypes.c_void_p,  # split partials: acc, (m, l)
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # chunk partials: acc, (m, l); tickets
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B H Hkv NB
-        ctypes.c_int, ctypes.c_int, ctypes.c_int,  # MB splits blocks_per_split
+        ctypes.c_int, ctypes.c_int, ctypes.c_int,  # MB grid prefer
         ctypes.c_float, ctypes.c_void_p,  # scale stream
     ],
     "lws_paged_decode_attention_int8": [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # q k_pool k_scale
         ctypes.c_void_p, ctypes.c_void_p,  # v_pool v_scale
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,  # table pos layer out
-        ctypes.c_void_p, ctypes.c_void_p,  # split partials: acc, (m, l)
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # chunk partials: acc, (m, l); tickets
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B H Hkv NB
-        ctypes.c_int, ctypes.c_int, ctypes.c_int,  # MB splits blocks_per_split
+        ctypes.c_int, ctypes.c_int, ctypes.c_int,  # MB grid prefer
         ctypes.c_float, ctypes.c_void_p,  # scale stream
     ],
+    "lws_decode_chunk_sizes": [ctypes.c_int, ctypes.POINTER(ctypes.c_int), ctypes.c_int],
 }
 BLOCK_SIZE = 16  # the kernel's compiled pool block size
+STAGED_BLOCKS = 8  # bf16 blocks the kernel stages at once (int8: 16); longer items run in passes
+LARGEST_CHUNK = 512  # blocks: the largest work item the plan makes
+# The grid per SM, by pool, and the items per SM the plan prefers where a
+# chunk size allows (PERF.md, PR 4): 2 items per SM are fastest while they
+# fit; the bf16 kernel's registers and staging allow a third CTA per SM,
+# the int8 kernel's staging does not.
+CTAS_PER_SM = 3
+INT8_CTAS_PER_SM = 2
+PREFER_PER_SM = 2
+MAX_SLOTS = 4096  # the plan's per-slot arrays live in shared memory (kMaxSlots)
+
+
+def chunk_sizes(quant: bool) -> tuple:
+    """The chunk sizes (blocks per work item) the kernel's plan picks from:
+    1 up to the blocks staged at once, then doublings up to LARGEST_CHUNK
+    (decode_common.cuh Smem::size; checked when a library is loaded)."""
+    staged = 2 * STAGED_BLOCKS if quant else STAGED_BLOCKS
+    doublings = []
+    while (doublings[-1] if doublings else staged) < LARGEST_CHUNK:
+        doublings.append(2 * (doublings[-1] if doublings else staged))
+    return tuple(range(1, staged + 1)) + tuple(doublings)
+
+
+class DecodePlan(NamedTuple):
+    """The kernel's work: `chunk` blocks per item, and the items in the
+    order the grid walks them, (slot, kv head, first block, end block)."""
+    chunk: int
+    items: tuple
+
+
+def live_blocks(pos: Sequence[int], n_blocks: int, last_pos: int | None = None) -> list[int]:
+    """Blocks each slot attends: through its position (clamped to
+    [0, last_pos]), at most n_blocks (max_blocks, or the dense cache's
+    ceil(T/16))."""
+    out = []
+    for p in pos:
+        p = max(int(p), 0) if last_pos is None else min(max(int(p), 0), last_pos)
+        out.append(min(p // BLOCK_SIZE + 1, n_blocks))
+    return out
+
+
+def decode_grid(B: int, Hkv: int, n_blocks: int, sms: int, quant: bool = False) -> int:
+    """The fixed grid: CTAS_PER_SM (int8: INT8_CTAS_PER_SM) CTAs on each SM,
+    never more than there could be one-block items. Shapes only: no live
+    length enters it."""
+    per_sm = INT8_CTAS_PER_SM if quant else CTAS_PER_SM
+    return max(1, min(per_sm * sms, B * Hkv * n_blocks))
+
+
+def decode_prefer(sms: int, grid: int) -> int:
+    """The items the plan keeps to where a chunk size allows."""
+    return min(PREFER_PER_SM * sms, grid)
+
+
+def plan_items(n_live: Sequence[int], Hkv: int, grid: int, prefer: int | None = None,
+               quant: bool = False) -> DecodePlan:
+    """The smallest of chunk_sizes(quant) whose items number at most
+    `prefer` (default: the grid), else at most `grid`, else the largest;
+    item h * chunks + (first chunk of slot b) + c covers blocks
+    [c * chunk, min((c + 1) * chunk, n_live[b])) of slot b, kv head h."""
+    def items_at(c):
+        return Hkv * sum(-(-n // c) for n in n_live)
+
+    sizes = chunk_sizes(quant)
+    fits = [c for limit in (grid if prefer is None else prefer, grid)
+            for c in sizes if items_at(c) <= limit]
+    chunk = fits[0] if fits else sizes[-1]
+    items = [(b, h, j0, min(j0 + chunk, n))
+             for h in range(Hkv) for b, n in enumerate(n_live) for j0 in range(0, n, chunk)]
+    return DecodePlan(chunk, tuple(items))
+
+
+def scratch_items(B: int, Hkv: int, n_blocks: int, grid: int) -> int:
+    """The most items any positions give: at most `grid` (>= prefer) when a
+    chunk size fits, else Hkv * sum(ceil(n / LARGEST_CHUNK)) <= this
+    bound."""
+    return max(grid, Hkv * B * -(-n_blocks // LARGEST_CHUNK))
+
+
+# Chunk partials and arrival tickets by (device, stream): launches on two
+# streams may run at once, and each leaves its tickets at 0 for the next.
+_scratch: dict[tuple[torch.device, int], tuple] = {}
+
+
+_checked_libs: dict[tuple[str, bool], ctypes.CDLL] = {}
+
+
+def load_decode_library(name: str, signatures: dict, quant: bool) -> ctypes.CDLL:
+    """The built decode library `name`, once its plan's chunk sizes are
+    known to be chunk_sizes(quant): scratch_items sizes the partials from
+    them, and a kernel making more items would write past them."""
+    lib = _checked_libs.get((name, quant))
+    if lib is None:
+        lib = _ext.load(name, signatures)
+        buf = (ctypes.c_int * 32)()
+        compiled = tuple(buf[:lib.lws_decode_chunk_sizes(int(quant), buf, 32)])
+        if compiled != chunk_sizes(quant):
+            raise RuntimeError(f"lws_tpu_torch: {name} plans chunks of {compiled} blocks, the "
+                               f"wrapper sizes scratch for {chunk_sizes(quant)}")
+        _checked_libs[name, quant] = lib
+    return lib
+
+
+def decode_scratch(dev: torch.device, stream: int, items: int, rows: int, tickets: int):
+    """(part_acc f32 [>= items*rows*128], part_ml f32 [>= items*rows*2],
+    zeroed int32 tickets [>= tickets]) for launches on `stream` of `dev`,
+    made once and grown when a launch needs more: the kernel leaves every
+    ticket at 0."""
+    cached = _scratch.get((dev, stream))
+    n = items * rows
+    if cached is None or cached[1].numel() < 2 * n or cached[2].numel() < tickets:
+        if cached is not None:
+            n, tickets = max(n, cached[1].numel() // 2), max(tickets, cached[2].numel())
+        cached = _scratch[dev, stream] = (
+            torch.empty(n * HEAD_DIM, dtype=torch.float32, device=dev),
+            torch.empty(n * 2, dtype=torch.float32, device=dev),
+            torch.zeros(tickets, dtype=torch.int32, device=dev))
+    return cached
 
 
 def cached_attention(q: torch.Tensor, cache_k: torch.Tensor, cache_v: torch.Tensor,
@@ -127,17 +251,11 @@ def _check_inputs(what: str, q, k_pool, v_pool, block_table, pos_b, layer_idx: i
         raise ValueError(f"{what}: inputs must be contiguous")
 
 
-def split_scratch(q, Hkv: int, splits: int):
-    B, _, H, hd = q.shape
-    n = B * Hkv * splits * (H // Hkv)
-    return (torch.empty(n * hd, dtype=torch.float32, device=q.device),
-            torch.empty(n * 2, dtype=torch.float32, device=q.device))
-
-
 def _launch_kernel(q, k_pool, v_pool, block_table, pos_b, layer_idx: int,
                    scales=None) -> torch.Tensor:
     """Launch the bf16 entry point, or with `scales` (k_scale, v_scale) the
-    int8 one; both run the same split pass (csrc/decode_common.cuh)."""
+    int8 one; both run decode_attention (csrc/decode_common.cuh). Host work
+    is shape checks and cached scratch: pos stays on the device."""
     quant = scales is not None
     what = "paged_decode_attention_int8" if quant else "paged_decode_attention"
     _check_inputs(what, q, k_pool, v_pool, block_table, pos_b, layer_idx,
@@ -145,21 +263,23 @@ def _launch_kernel(q, k_pool, v_pool, block_table, pos_b, layer_idx: int,
     dev = q.device
     B, _, H, hd = q.shape
     NB, Hkv = k_pool.shape[1], k_pool.shape[3]
-    # Split each slot's table row so the first pass fills the card: the
-    # live length is device data, so the split is sized from max_blocks.
     MB = block_table.shape[1]
-    splits, per_split = _ext.split_plan(dev, B * Hkv, MB)
-    part_acc, part_ml = split_scratch(q, Hkv, splits)
+    if B > MAX_SLOTS:
+        raise ValueError(f"{what}: at most {MAX_SLOTS} slots, got {B}")
+    sms = _ext.sm_count(dev)
+    grid = decode_grid(B, Hkv, MB, sms, quant)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    items = scratch_items(B, Hkv, MB, grid)
+    part_acc, part_ml, tickets = decode_scratch(dev, stream, items, H // Hkv, B * Hkv)
     out = torch.empty_like(q)
-    lib = _ext.load("paged_attention", _SIGNATURES)
+    lib = load_decode_library("paged_attention", _SIGNATURES, quant)
     pools = ((k_pool.data_ptr(), scales[0].data_ptr(), v_pool.data_ptr(), scales[1].data_ptr())
              if quant else (k_pool.data_ptr(), v_pool.data_ptr()))
     with torch.cuda.device(dev):
         rc = getattr(lib, "lws_" + what)(
             q.data_ptr(), *pools, block_table.data_ptr(), pos_b.data_ptr(), layer_idx,
-            out.data_ptr(), part_acc.data_ptr(), part_ml.data_ptr(),
-            B, H, Hkv, NB, MB, splits, per_split, float(hd) ** -0.5,
-            torch.cuda.current_stream(dev).cuda_stream,
+            out.data_ptr(), part_acc.data_ptr(), part_ml.data_ptr(), tickets.data_ptr(),
+            B, H, Hkv, NB, MB, grid, decode_prefer(sms, grid), float(hd) ** -0.5, stream,
         )
     _ext.check(lib, rc, what)
     (paged_decode_attention_int8 if quant else paged_decode_attention).launches += 1

@@ -317,16 +317,19 @@ def test_paged_int8_kernel_null_and_stale_rows(dev):
     torch.testing.assert_close(again[1:], got[1:], atol=0, rtol=0)
 
 
-@pytest.mark.parametrize("T,pos", [(2048, [0, 15, 16, 2047, 517, 1000, 31, 1500]),
-                                   (2048, 1000), (50, [0, 16, 49]), (40, 39), (64, 5000)])
-def test_int8_decode_kernel_matches_plain(dev, T, pos):
+@pytest.mark.parametrize("T,pos,Hkv", [(2048, [0, 15, 16, 2047, 517, 1000, 31, 1500], 8),
+                                       (2048, 1000, 8), (50, [0, 16, 49], 8), (40, 39, 8),
+                                       (64, 5000, 8), (50, [0, 16, 49], 1), (300, [7, 299], 16)])
+def test_int8_decode_kernel_matches_plain(dev, T, pos, Hkv):
     """Mixed per-row and scalar positions, block edges, a cache length that
-    is not a multiple of 16, and a position past the cache (every key)."""
+    is not a multiple of 16, and a position past the cache (every key).
+    With Hkv = 1 and T = 50 a block's scales do not start on 16 bytes, and
+    with Hkv = 16 they span more than 8 heads: both take 4-byte copies."""
     B = len(pos) if isinstance(pos, list) else 3
     g = torch.Generator(device=dev).manual_seed(T)
     q = randn(g, B, 1, 32, 128, dev=dev)
-    kq, ks = tl._quantize_kv(randn(g, B, T, 8, 128, dev=dev))
-    vq, vs = tl._quantize_kv(randn(g, B, T, 8, 128, dev=dev))
+    kq, ks = tl._quantize_kv(randn(g, B, T, Hkv, 128, dev=dev))
+    vq, vs = tl._quantize_kv(randn(g, B, T, Hkv, 128, dev=dev))
     p = torch.tensor(pos, dtype=torch.int32, device=dev) if isinstance(pos, list) else pos
     before = int8_decode_attention.launches
     got = int8_decode_attention(q, kq, ks, vq, vs, p)
@@ -395,3 +398,160 @@ def test_int8_model_logits_kernel_vs_plain(dev, kv_quant):
     wk, _ = tl.forward_with_cache(model, tok[:, None], ck)
     wp, _ = tl.forward_with_cache(model, tok[:, None], cp, plain=True)
     assert ((wk - wp).abs().max() / wp.abs().max()).item() < 5e-2
+
+
+# ---------------------------------------------------------------------------
+# Paged decode: the device-planned work items, both pools
+
+
+def _pool_case(dev, pos, H, Hkv, MB, quant, seed=0, L=2):
+    """Pools holding just the live blocks (plus the null block 0), a
+    scrambled table, q and positions; with `quant` the int8 pools and
+    scales."""
+    n_live = [min(p // 16 + 1, MB) for p in pos]
+    case = _paged_case(dev, len(pos), H, Hkv, L, sum(n_live) + 1, 16, MB,
+                       [min(p, MB * 16 - 1) for p in pos], seed)
+    q, k_pool, v_pool, table, _ = case
+    pos_t = torch.tensor(np.asarray(pos, np.int32), device=dev)
+    if not quant:
+        return q, k_pool, v_pool, table, pos_t
+    kq, ks = tl._quantize_kv(k_pool)
+    vq, vs = tl._quantize_kv(v_pool)
+    return q, kq, ks, vq, vs, table, pos_t
+
+
+def _paged_fns(quant):
+    return ((paged_decode_attention_int8, paged_decode_attention_int8_reference) if quant
+            else (paged_decode_attention, paged_decode_attention_reference))
+
+
+PLAN_CASES = {  # name: (positions, H, Hkv, max_blocks)
+    "one_long": ([2047] + [0] * 7, 32, 8, 128),
+    "all_long": ([2047] * 8, 32, 8, 128),
+    "boundaries": ([15, 16, 31, 32, 127, 128, 255, 256], 32, 8, 128),
+    "capped": ([5000, 2047, 300, 4096], 32, 8, 64),
+    "one_slot": ([700], 32, 8, 128),
+    "thirty_two": ([int(x) for x in np.random.default_rng(3).integers(0, 2048, 32)], 32, 8, 128),
+    "g1": ([15, 16, 900, 2047], 8, 8, 128),
+    "g4": ([15, 1000, 517, 40], 16, 4, 128),
+    "g24": ([31, 600, 0], 24, 1, 64),
+    "g32": ([17, 1500], 32, 1, 128),
+    "hkv16": ([15, 1000, 2047, 40], 32, 16, 128),  # int8 scales past 8 heads: 4-byte copies
+}
+
+
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("case", sorted(PLAN_CASES))
+def test_paged_kernels_plan_shapes_match_plain(dev, case, quant):
+    """Imbalanced and full-length slots, block boundaries, positions past
+    max_blocks, one and 32 slots, and G = 1, 4, 24 and 32 query heads per kv
+    head, for both pools, against the plain versions."""
+    pos, H, Hkv, MB = PLAN_CASES[case]
+    fn, plain = _paged_fns(quant)
+    args = _pool_case(dev, pos, H, Hkv, MB, quant, seed=len(pos) + H)
+    before = fn.launches
+    got = fn(*args, 1)
+    want = plain(*args, 1)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    torch.testing.assert_close(got.float(), want.float(), atol=TOL, rtol=TOL)
+    # Outputs over long slots are small (~0.03), so also against their norm:
+    # a lost 16-key block moves it by ~15 % at 2,048 keys.
+    rel = ((got.float() - want.float()).norm() / want.float().norm()).item()
+    assert rel <= 1e-2, rel
+
+
+@pytest.mark.parametrize("quant", [False, True])
+def test_paged_kernels_are_bitwise_repeatable(dev, quant):
+    """Chunks are merged in chunk order by whichever CTA finishes last, so
+    repeated launches give the same bits, and the tickets are left at 0."""
+    fn, _ = _paged_fns(quant)
+    args = _pool_case(dev, [15, 16, 31, 1000, 517, 263, 1063, 40], 32, 8, 128, quant, seed=5)
+    first = fn(*args, 0)
+    outs = [fn(*args, 0) for _ in range(20)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(first, o) for o in outs)
+
+
+@pytest.mark.parametrize("quant", [False, True])
+def test_paged_kernels_on_two_streams_at_once(dev, quant):
+    """Launches queued on two streams behind a spin run at the same time;
+    each stream has its own tickets and partials, so every output is
+    bitwise the one the launch gives alone. Each launch has its own q, so a
+    merge over another launch's partials would show."""
+    fn, _ = _paged_fns(quant)
+    reps = 12
+    base = _pool_case(dev, [2047, 1000, 0, 517, 1063, 40, 300, 1500], 32, 8, 128, quant, seed=9)
+    g = torch.Generator(device=dev).manual_seed(31)
+    qs = [[randn(g, *base[0].shape, dev=dev) for _ in range(reps)] for _ in range(2)]
+    want = [[fn(q, *base[1:], 1) for q in qq] for qq in qs]
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream(dev), torch.cuda.Stream(dev)]
+    for s in streams:
+        with torch.cuda.stream(s):
+            torch.cuda._sleep(20_000_000)
+    outs = [[], []]
+    for r in range(reps):
+        for i, s in enumerate(streams):
+            with torch.cuda.stream(s):
+                outs[i].append(fn(qs[i][r], *base[1:], 1))
+    torch.cuda.synchronize()
+    for i in range(2):
+        assert all(torch.equal(got, w) for got, w in zip(outs[i], want[i]))
+
+
+def test_int8_decode_kernel_is_bitwise_repeatable(dev):
+    g = torch.Generator(device=dev).manual_seed(8)
+    q = randn(g, 8, 1, 32, 128, dev=dev)
+    kq, ks = tl._quantize_kv(randn(g, 8, 2048, 8, 128, dev=dev))
+    vq, vs = tl._quantize_kv(randn(g, 8, 2048, 8, 128, dev=dev))
+    pos = torch.tensor([0, 15, 16, 2047, 517, 1000, 263, 1500], dtype=torch.int32, device=dev)
+    first = int8_decode_attention(q, kq, ks, vq, vs, pos)
+    again = [int8_decode_attention(q, kq, ks, vq, vs, pos) for _ in range(10)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(first, o) for o in again)
+
+
+@pytest.mark.parametrize("quant", [False, True])
+def test_paged_kernels_never_use_rows_past_pos(dev, quant):
+    """Rows past a slot's position in its last block may be unwritten: with
+    NaN there (K, V and, for int8, the scales) the outputs stay finite and
+    equal the plain version's over clean pools."""
+    fn, plain = _paged_fns(quant)
+    pos = [15, 16, 31, 1000, 517, 263, 1063, 40]
+    args = list(_pool_case(dev, pos, 32, 8, 128, quant, seed=13))
+    want = plain(*args, 1)
+    table = args[-2]
+    for b, p in enumerate(pos):
+        blk = int(table[b, p // 16])
+        for t in args[1:-2]:  # pools and scales
+            if t.dtype == torch.int8:
+                t[1, blk, p % 16 + 1:] = 127
+            else:
+                t[1, blk, p % 16 + 1:] = float("nan")
+    got = fn(*args, 1)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got.float(), want.float(), atol=TOL, rtol=TOL)
+
+
+@pytest.mark.parametrize("T,Hkv", [(1000, 8), (1001, 1)])
+def test_int8_decode_kernel_never_uses_rows_past_pos(dev, T, Hkv):
+    """The dense cache past each row's position (and past T in a partial
+    last block) may hold NaN scales: the output is the plain version's,
+    with the scales fetched whole (Hkv = 8) or by 4-byte copies (T * Hkv
+    odd)."""
+    g = torch.Generator(device=dev).manual_seed(14)
+    B = 4  # T % 16 != 0: a partial last block
+    q = randn(g, B, 1, 32, 128, dev=dev)
+    kq, ks = tl._quantize_kv(randn(g, B, T, Hkv, 128, dev=dev))
+    vq, vs = tl._quantize_kv(randn(g, B, T, Hkv, 128, dev=dev))
+    pos = torch.tensor([0, 17, 517, T - 1], dtype=torch.int32, device=dev)
+    want = int8_decode_attention_reference(q, kq, ks, vq, vs, pos)
+    for b, p in enumerate(pos.tolist()):
+        ks[b, p + 1:] = float("nan")
+        vs[b, p + 1:] = float("nan")
+    got = int8_decode_attention(q, kq, ks, vq, vs, pos)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got.float(), want.float(), atol=TOL, rtol=TOL)
