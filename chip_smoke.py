@@ -6,6 +6,7 @@ kernels to their plain PyTorch versions.
     python3 chip_smoke.py --kernels    # build + kernel checks only (no engine)
     python3 chip_smoke.py --profile    # every phase, and a torch.profiler breakdown
                                        # of steady decode steps of both paged engines
+                                       # and of steady verify passes
 
 Phases (each raises on failure; the script then exits non-zero and prints
 no result line):
@@ -25,8 +26,9 @@ no result line):
      2047, and all at 2047 over 4 shared pool blocks, whose rows stay in
      L2): the bf16 pool, then the int8 pool with its scales (gather +
      dequantize);
-  4. the int8_matmul kernel against its plain version at m = 1, 8, 128 and
-     256 rows for the flagship's five product shapes, with two yardsticks
+  4. the int8_matmul kernel against its plain version at m = 1, 8, 40 (a
+     verify pass of 8 slots x 5 tokens), 128 and 256 rows for the
+     flagship's five product shapes, with two yardsticks
      timed beside it: torch._weight_int8pack_mm (PyTorch's own W8A16 call,
      held to the plain version first; a shape it refuses is printed) and the
      bf16 F.linear of the same shape (the product the bf16 flagship runs);
@@ -44,7 +46,17 @@ no result line):
   6. the int8 paged engine: the bf16 model is freed, then
      flagship_config("full", kv_quant=True) with init_quantized_params (int8
      weights, int8 KV) serves the same requests the same way;
-  7. the dense Engine on the same int8 model: its batched prefill and one
+  7. prefix caching, chunked admission and speculative decoding on the same
+     int8 model: PagedBatchEngine(slots=8, max_len=2048, block_size=16,
+     prefix_cache=True, prefill_chunk=256, interleave_steps=8) serves a
+     shared-system-prompt mix (a 200-token unrelated prompt, then a shared
+     512-token prefix with suffixes of 40..1200 tokens), decoded plainly in
+     round 1 and speculatively (gamma 4, 3-gram prompt lookup) in round 2,
+     when every shareable block hits; the suffix and chunked routes' logits
+     and the verify pass's column 0 are held to the one-shot prefill and the
+     decode step, and the device-resident loop to the host-loop oracle on
+     two fresh engines (token-identical streams);
+  8. the dense Engine on the same int8 model: its batched prefill and one
      decode step held to the plain path, then one batch of 8 prompts of 512
      tokens, 64 new tokens each.
 Every engine path is driven with all kernels' launch counts set to 0 just
@@ -81,6 +93,10 @@ PAGED_REL_TOL = 1e-2      # ||kernel - plain|| / ||plain|| over the whole output
 MATMUL_TOL = 2e-2
 LOGITS_REL_TOL = 5e-2     # max |kernel - plain| / max |plain| over the vocab, bf16 model
 SLOTS, MAX_LEN, BLOCK, NEW_TOKENS, ROUNDS = 8, 2048, 16, 64, 3
+# The prefix/chunked/speculative path: a shared system prompt, the chunk
+# size, the decode steps between chunks, and the speculative run.
+SHARED_PREFIX, CHUNK, INTERLEAVE, GAMMA, NGRAM = 512, 256, 8, 4, 3
+VERIFY_ROWS = SLOTS * (GAMMA + 1)
 
 
 class SmokeFailure(RuntimeError):
@@ -357,6 +373,7 @@ def phase_int8_matmul(torch, dev, cfg) -> dict:
     flush = scrubber(torch, dev)
     record, worst = None, 0.0
     step = {"ms": 0.0, "bound_ms": 0.0, "bf16": 0.0, "int8pack": 0.0}
+    verify = {"ms": 0.0, "bound_ms": 0.0, "bf16": 0.0}  # one verify pass's products
     # One prefill's 7L products at the buckets that take the kernel (128 and
     # 256 rows): the kernel, the dequantizing route that quant.matmul takes
     # above 256 rows, _weight_int8pack_mm and the bf16 F.linear yardstick.
@@ -367,7 +384,7 @@ def phase_int8_matmul(torch, dev, cfg) -> dict:
         q = torch.randint(-127, 128, (Fo, D), generator=g, device=dev, dtype=torch.int8)
         scale = torch.rand(Fo, generator=g, device=dev) * D**-0.5 / 73.3
         w_bf16 = q.to(torch.bfloat16)  # the yardstick's weight, made untimed
-        for m in (1, 8, 128, 256):
+        for m in (1, 8, VERIFY_ROWS, 128, 256):
             x = torch.randn(m, D, generator=g, device=dev, dtype=torch.bfloat16)
             out = int8_matmul(x, q, scale)
             ref = int8_matmul_reference(x, q, scale)
@@ -404,6 +421,9 @@ def phase_int8_matmul(torch, dev, cfg) -> dict:
                   f"kernel={ms:.4f} ms plain={plain_ms:.4f} ms int8pack={pack} "
                   f"bf16 F.linear={bf16_ms:.4f} ms{dequant} bound={bound_ms:.4f} ms "
                   f"({bound_by}) roofline={bound_ms / ms:.1%}")
+            if m == VERIFY_ROWS:
+                for key, t in (("ms", ms), ("bound_ms", bound_ms), ("bf16", bf16_ms)):
+                    verify[key] += count * t
             if m == 8:
                 for key, t in (("ms", ms), ("bound_ms", bound_ms), ("bf16", bf16_ms),
                                ("int8pack", pack_ms)):
@@ -418,6 +438,13 @@ def phase_int8_matmul(torch, dev, cfg) -> dict:
           f"lm_head): {step['ms']:.3f} ms (bound {step['bound_ms']:.3f} ms, "
           f"{step['bound_ms'] / step['ms']:.1%}; int8pack {fmt(step['int8pack'])}; "
           f"bf16 F.linear {fmt(step['bf16'])})")
+    print(f"int8_matmul: one verify pass's products at m={VERIFY_ROWS} ({SLOTS} slots x "
+          f"{GAMMA + 1} tokens; 7 per layer x {cfg.n_layers} + lm_head): {verify['ms']:.3f} ms "
+          f"(bound {verify['bound_ms']:.3f} ms, {verify['bound_ms'] / verify['ms']:.1%}; "
+          f"bf16 F.linear {verify['bf16']:.3f} ms)")
+    record.update({f"m{VERIFY_ROWS}_pass_ms": verify["ms"],
+                   f"m{VERIFY_ROWS}_pass_bound_ms": verify["bound_ms"],
+                   f"m{VERIFY_ROWS}_pass_bf16_linear_ms": verify["bf16"]})
     for m, t in prefill.items():
         print(f"int8_matmul: one prefill's 7 x {cfg.n_layers} products at m={m}: kernel "
               f"{fmt(t['kernel'])}, dequantizing route {fmt(t['dequant'])}, int8pack "
@@ -710,6 +737,274 @@ def path_int8_paged(torch, dev, cfg, prompts) -> tuple:
     return launches, engine
 
 
+def prefix_mix(cfg) -> list:
+    """The shared-system-prompt mix: a 200-token prompt unrelated to the
+    rest, then the shared 512-token prefix with 7 distinct suffixes of
+    linspace(40, 1200, 7) tokens, from a seeded generator."""
+    rng = np.random.default_rng(5)
+    V = cfg.vocab_size
+    prefix = rng.integers(1, V, SHARED_PREFIX)
+    return [rng.integers(1, V, 200).astype(np.int32)] + [
+        np.concatenate([prefix, rng.integers(1, V, n)]).astype(np.int32)
+        for n in np.linspace(40, 1200, 7).astype(int)]
+
+
+def admission_route(plen: int, hit_blocks: int) -> tuple[str, int]:
+    """The route PagedBatchEngine(prefix_cache=True, prefill_chunk=CHUNK)
+    takes for a prompt with `hit_blocks` cached blocks, and the rows of its
+    products: (route, rows of one forward; chunks for a chunked route)."""
+    s_true = plen - hit_blocks * BLOCK
+    if s_true > CHUNK:
+        return ("chunked hit" if hit_blocks else "chunked miss"), -(-s_true // CHUNK)
+    if not hit_blocks:
+        return "one-shot miss", bucket_of(plen)
+    s_suf = 8
+    while s_suf < s_true:
+        s_suf *= 2
+    return "suffix hit", s_suf
+
+
+def expected_prefix_launches(cfg, admissions, decode_steps: int, spec_dispatches: int) -> dict:
+    """Exact launches of the path from its admissions' routes and the
+    engine's step and dispatch counts. A one-shot miss runs flash once per
+    layer; every route runs its 7 products per layer through int8_matmul
+    when a forward has at most 256 rows (chunks of 256 always, suffix
+    buckets of 8..256, one-shot buckets up to 256) and one lm_head row; a
+    decode step runs the int8 paged kernel per layer and 7L + 1 products;
+    a verify pass 7L + 1 products of SLOTS x (GAMMA + 1) rows and no
+    attention kernel (stock torch over the gathered view)."""
+    L = cfg.n_layers
+    flash, products = 0, 0
+    for route, rows in admissions:
+        if route == "one-shot miss":
+            flash += L
+        forwards = rows if route.startswith("chunked") else 1
+        width = CHUNK if route.startswith("chunked") else rows
+        products += (7 * L * forwards if width <= 256 else 0) + 1
+    return {"flash_attention": flash,
+            "paged_decode_attention_int8": L * decode_steps,
+            "int8_matmul": products + (7 * L + 1) * (decode_steps + spec_dispatches)}
+
+
+def tokens_so_far(engine, ids) -> int:
+    """Tokens the host holds for requests `ids`, finished or not."""
+    live = {r.request_id: r for r in engine._active.values()}
+    return sum(len((engine._completed.get(i) or live[i]).tokens) for i in ids)
+
+
+def check_prefix_routes(torch, dev, cfg, engine, prompt, hit_blocks: int) -> None:
+    """The suffix route (forward_with_cache at pos = hit_len over the
+    one-shot prefill's prefix rows) and the chunked route (chunks of CHUNK
+    through forward_prefill_chunk from the same rows) against the one-shot
+    prefill of the same prompt, all on the kernel path."""
+    from lws_tpu_torch.models.llama import (
+        forward_prefill,
+        forward_prefill_chunk,
+        forward_with_cache,
+        init_cache,
+    )
+
+    model, plen, hit_len = engine.params, len(prompt), hit_blocks * BLOCK
+    bucket, s_true = bucket_of(plen), plen - hit_blocks * BLOCK
+    padded = np.zeros((1, bucket), np.int64)
+    padded[0, :plen] = prompt
+    ref, ref_cache = forward_prefill(model, torch.tensor(padded, device=dev),
+                                     init_cache(cfg, 1, bucket, dev), last_pos=plen - 1)
+
+    def prefix_cache(width):
+        c = init_cache(cfg, 1, width, dev)
+        for name in ("k", "v", "k_scale", "v_scale"):
+            getattr(c, name)[:, :, :hit_len] = getattr(ref_cache, name)[:, :, :hit_len]
+        c.pos = hit_len
+        return c
+
+    s_suf = 8
+    while s_suf < s_true:
+        s_suf *= 2
+    suffix = np.zeros((1, s_suf), np.int64)
+    suffix[0, :s_true] = prompt[hit_len:]
+    suf, _ = forward_with_cache(model, torch.tensor(suffix, device=dev),
+                                prefix_cache(bucket + s_suf), last_offset=s_true - 1)
+    n_chunks = -(-s_true // CHUNK)
+    chunks = np.zeros((1, n_chunks * CHUNK), np.int64)
+    chunks[0, :s_true] = prompt[hit_len:]
+    dense = prefix_cache(bucket + CHUNK)
+    for i in range(n_chunks):
+        hidden, dense = forward_prefill_chunk(
+            model, torch.tensor(chunks[:, i * CHUNK:(i + 1) * CHUNK], device=dev), dense)
+    chunked = engine._chunk_logits(hidden, (s_true - 1) % CHUNK)
+    torch.cuda.synchronize()
+    for what, got in (("suffix route", suf), ("chunked route", chunked)):
+        check(tuple(got.shape) == (1, cfg.vocab_size) and bool(torch.isfinite(got).all()),
+              f"prefix engine: {what} logits shape/finite")
+        rel = ((got - ref).abs().max() / ref.abs().max()).item()
+        print(f"prefix engine: {what} logits ({plen}-token prompt, {hit_blocks} cached blocks, "
+              f"{s_true} computed) vs the one-shot prefill: max rel err {rel:.3e} "
+              f"(argmax {int(got.argmax())} vs {int(ref.argmax())})")
+        check(rel <= LOGITS_REL_TOL, f"prefix engine: {what} logits rel err {rel} > "
+                                     f"{LOGITS_REL_TOL}")
+
+
+def check_verify_logits(torch, dev, cfg, model, rng) -> None:
+    """Column 0 of a verify pass (the running token and GAMMA drafts)
+    against forward_decode_paged from the same pool state."""
+    from lws_tpu_torch.models.llama import (
+        PagedKVCache,
+        forward_decode_paged,
+        forward_prefill,
+        forward_verify_paged,
+        init_cache,
+        init_paged_cache,
+        paged_insert,
+    )
+
+    V, plen, bucket = cfg.vocab_size, 300, 512
+    padded = np.zeros((1, bucket), np.int64)
+    padded[0, :plen] = rng.integers(1, V, plen)
+    logits, cache = forward_prefill(model, torch.tensor(padded, device=dev),
+                                    init_cache(cfg, 1, bucket, dev), last_pos=plen - 1)
+    n_blocks = bucket // BLOCK
+    pool_v = init_paged_cache(cfg, n_blocks + 2, BLOCK, dev)
+    paged_insert(pool_v, cache.k[:, 0], cache.v[:, 0], torch.arange(1, n_blocks + 1, device=dev),
+                 cache.k_scale[:, 0], cache.v_scale[:, 0])
+    pool_d = PagedKVCache(*(a.clone() for a in (pool_v.k, pool_v.v, pool_v.k_scale,
+                                                pool_v.v_scale)))
+    table = torch.zeros(1, MAX_LEN // BLOCK, dtype=torch.int32, device=dev)
+    table[0, :n_blocks + 1] = torch.arange(1, n_blocks + 2, device=dev)
+    pos = torch.tensor([plen], dtype=torch.int32, device=dev)
+    first = logits.argmax(-1).to(torch.int32)
+    run = torch.tensor([[int(first)] + rng.integers(1, V, GAMMA).tolist()], dtype=torch.int32,
+                       device=dev)
+    vl, _ = forward_verify_paged(model, run, pool_v, table, pos)
+    dl, _ = forward_decode_paged(model, first, pool_d, table, pos)
+    torch.cuda.synchronize()
+    check(tuple(vl.shape) == (1, GAMMA + 1, V) and bool(torch.isfinite(vl).all()),
+          "verify logits shape/finite")
+    rel = ((vl[:, 0] - dl).abs().max() / dl.abs().max()).item()
+    print(f"prefix engine: verify column 0 vs the paged decode step: max rel err {rel:.3e} "
+          f"(argmax {int(vl[0, 0].argmax())} vs {int(dl.argmax())})")
+    check(rel <= LOGITS_REL_TOL, f"prefix engine: verify logits rel err {rel} > {LOGITS_REL_TOL}")
+
+
+def prefix_engine(cfg, model):
+    from lws_tpu_torch.serving.paged_engine import PagedBatchEngine
+
+    return PagedBatchEngine(cfg, model, slots=SLOTS, max_len=MAX_LEN, block_size=BLOCK,
+                            prefix_cache=True, prefill_chunk=CHUNK, interleave_steps=INTERLEAVE,
+                            device=model.device)
+
+
+def path_int8_prefix_spec(torch, dev, cfg, model, profile: bool = False) -> dict:
+    """Prefix caching, chunked admission and speculative decoding on the
+    int8 flagship: two rounds of the shared-system-prompt mix (round 1
+    plain, round 2 speculative), the route and verify logits checks, and
+    the device loop against the host-loop oracle on two fresh engines.
+    With `profile`, a torch.profiler breakdown of steady verify passes."""
+    t_path = time.perf_counter()
+    V, prompts = cfg.vocab_size, prefix_mix(cfg)
+    engine = prefix_engine(cfg, model)
+    torch.cuda.synchronize()
+    stats0, hits0 = dict(engine.stats), engine.stats_prefix["hit_blocks"]
+    reset_counts()
+    ttft_by_route, admissions, want_hits = {}, [], 0
+    for rnd, spec in ((1, False), (2, True)):
+        ids = []
+        for i, p in enumerate(prompts):
+            if rnd == 2:  # every shareable block is cached (parked or live)
+                hit = (len(p) - 1) // BLOCK
+            else:  # the unrelated prompt and the prefix's first prompt miss
+                hit = SHARED_PREFIX // BLOCK if i >= 2 else 0
+            route = admission_route(len(p), hit)
+            before = engine.stats_prefix["hit_blocks"]
+            t0 = time.perf_counter()
+            rid = engine.submit(p, NEW_TOKENS)  # returns once the first token is on the host
+            ttft_by_route.setdefault(route[0], []).append(time.perf_counter() - t0)
+            check(rid is not None, f"prefix engine: round {rnd} refused a request")
+            check(engine.stats_prefix["hit_blocks"] - before == hit,
+                  f"prefix engine: round {rnd}, {len(p)}-token prompt hit "
+                  f"{engine.stats_prefix['hit_blocks'] - before} blocks, expected {hit}")
+            ids.append(rid)
+            admissions.append(route)
+            want_hits += hit
+        engine._pipeline.flush()
+        torch.cuda.synchronize()
+        done0, spec0 = tokens_so_far(engine, ids), dict(engine.stats)
+        t0 = time.perf_counter()
+        if spec:
+            engine.run_until_drained_speculative(gamma=GAMMA, ngram=NGRAM)
+        else:
+            engine.run_until_drained()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        for rid in ids:
+            out = engine.result(rid)
+            check(out is not None and len(out) == NEW_TOKENS,
+                  f"prefix engine: request {rid}: {out and len(out)} tokens")
+            check(all(0 <= tok < V for tok in out), f"prefix engine: request {rid}: token "
+                                                    f"outside [0, {V})")
+        acct = engine.pool_accounting()
+        check(acct["free"] + acct["parked"] + acct["live"] == acct["total"] and acct["live"] == 0,
+              f"prefix engine: round {rnd}: pool not returned: {acct}")
+        decoded = SLOTS * NEW_TOKENS - done0
+        line = (f"prefix engine round {rnd} ({'speculative' if spec else 'plain'}): {decoded} "
+                f"tokens decoded in {wall:.3f} s = {decoded / wall:.1f} tok/s")
+        if spec:
+            d = {k: engine.stats[k] - spec0[k] for k in
+                 ("spec_dispatches", "spec_drafted", "spec_accepted", "spec_fallback_dispatches")}
+            dispatches = d["spec_dispatches"] + d["spec_fallback_dispatches"]
+            line += (f"; {d['spec_dispatches']} speculative + {d['spec_fallback_dispatches']} "
+                     f"plain dispatches, acceptance {d['spec_accepted']}/{d['spec_drafted']} = "
+                     f"{d['spec_accepted'] / max(1, d['spec_drafted']):.1%}, "
+                     f"{decoded / dispatches:.2f} tokens per dispatch over {SLOTS} slots")
+        print(line + f"; pool {acct}")
+    launches = read_counts()
+    steps = engine.stats["decode_steps"] - stats0["decode_steps"]
+    spec_dispatches = engine.stats["spec_dispatches"] - stats0["spec_dispatches"]
+    chunked = sum(1 for route, _ in admissions if route.startswith("chunked"))
+    check(engine.stats_prefix["hit_blocks"] - hits0 == want_hits,
+          f"prefix engine: {engine.stats_prefix['hit_blocks'] - hits0} hit blocks, "
+          f"expected {want_hits}")
+    check(engine.stats["chunked_admissions"] - stats0["chunked_admissions"] == chunked,
+          f"prefix engine: {engine.stats['chunked_admissions']} chunked admissions, "
+          f"expected {chunked}")
+    check(engine.stats["interleaved_decode_steps"] > 0, "prefix engine: no decode step ran "
+                                                        "between chunks")
+    check(spec_dispatches > 0, "prefix engine: no speculative dispatch ran")
+    print(f"prefix engine: {len(admissions)} admissions ({want_hits} hit blocks, {chunked} "
+          f"chunked, {engine.stats['interleaved_decode_steps']} decode steps between chunks), "
+          f"{steps} decode steps, {spec_dispatches} verify passes")
+    print("prefix engine: median TTFT by route: " + ", ".join(
+        f"{route}: {statistics.median(ts) * 1e3:.1f} ms ({len(ts)} admissions)"
+        for route, ts in sorted(ttft_by_route.items())))
+    check_launches("prefix engine", launches,
+                   expected_prefix_launches(cfg, admissions, steps, spec_dispatches))
+    # Checks outside the counted run: the routes and the verify pass on the
+    # kernel path, then the device loop against the host-loop oracle.
+    check_prefix_routes(torch, dev, cfg, engine, prompts[4], SHARED_PREFIX // BLOCK)
+    check_verify_logits(torch, dev, cfg, model, np.random.default_rng(6))
+    if profile:
+        phase_profile(torch, engine, prompts, "int8 speculative engine", speculative=True)
+    del engine
+    torch.cuda.empty_cache()
+    streams = []
+    for sync in (False, True):
+        fresh = prefix_engine(cfg, model)
+        ids = [fresh.submit(p, NEW_TOKENS) for p in prompts]
+        fresh.run_until_drained_speculative(gamma=GAMMA, ngram=NGRAM, sync=sync)
+        streams.append([fresh.result(i) for i in ids])
+        print(f"prefix engine, fresh, {'host-loop oracle' if sync else 'device loop'}: "
+              f"{fresh.stats['spec_dispatches']} verify passes, {fresh.stats['spec_accepted']}/"
+              f"{fresh.stats['spec_drafted']} drafts accepted")
+        del fresh
+        torch.cuda.empty_cache()
+    differ = [i for i, (a, b) in enumerate(zip(*streams)) if a != b]
+    check(not differ, f"prefix engine: device loop and host-loop oracle differ on requests "
+                      f"{differ}")
+    print(f"prefix engine: device loop and host-loop oracle token-identical on all "
+          f"{len(prompts)} requests; path wall time {time.perf_counter() - t_path:.1f} s")
+    return launches
+
+
 def path_int8_dense(torch, dev, cfg, model) -> dict:
     from lws_tpu_torch.models.llama import KVCache, forward_prefill, forward_with_cache
     from lws_tpu_torch.serving.engine import Engine
@@ -772,15 +1067,18 @@ def path_int8_dense(torch, dev, cfg, model) -> dict:
     return launches
 
 
-def phase_profile(torch, engine, prompts, what: str, steps: int = 16) -> None:
+def phase_profile(torch, engine, prompts, what: str, steps: int = 16,
+                  speculative: bool = False) -> None:
     """Device time by kernel family over `steps` steady decode steps of an
-    8-slot paged engine (torch.profiler, CUDA activity), and the device's
-    busy share of the window's wall time."""
+    8-slot paged engine (torch.profiler, CUDA activity), or with
+    `speculative` over `steps` verify passes (step_speculative), and the
+    device's busy share of the window's wall time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    budget = steps * (GAMMA + 1) + 8 if speculative else steps + 8  # never exhausted in the window
     for p in prompts:
-        check(engine.submit(p, steps + 8) is not None, "profile: admission refused")
+        check(engine.submit(p, budget) is not None, "profile: admission refused")
     engine.step_n(4)  # settle the in-flight ring
     engine._pipeline.flush()
     torch.cuda.synchronize()
@@ -788,7 +1086,11 @@ def phase_profile(torch, engine, prompts, what: str, steps: int = 16) -> None:
         t0 = time.perf_counter()
         done = 0
         while done < steps:
-            done += engine.step_n(min(8, steps - done))
+            if speculative:
+                check(engine.step_speculative(GAMMA, NGRAM), "profile: verify pass refused")
+                done += 1
+            else:
+                done += engine.step_n(min(8, steps - done))
         engine._pipeline.flush()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
@@ -815,7 +1117,8 @@ def phase_profile(torch, engine, prompts, what: str, steps: int = 16) -> None:
             families["other"] += us
     busy = sum(families.values()) / 1e6
     check(busy > 0, "profile: torch.profiler recorded no device time")
-    print(f"profile {what}: {steps} decode steps, 8 slots: wall {wall * 1e3:.2f} ms "
+    unit = "verify passes" if speculative else "decode steps"
+    print(f"profile {what}: {steps} {unit}, 8 slots: wall {wall * 1e3:.2f} ms "
           f"({wall * 1e3 / steps:.2f} ms/step under the profiler), device busy "
           f"{busy * 1e3:.2f} ms = {busy / wall:.1%} of wall (idle {1 - busy / wall:.1%}), "
           f"{launches / steps:.0f} kernels/step")
@@ -836,7 +1139,8 @@ def main(argv=None) -> int:
     ap.add_argument("--kernels", action="store_true",
                     help="build and check the kernels only (no engine, no result line)")
     ap.add_argument("--profile", action="store_true",
-                    help="profile steady decode steps of both paged engines (torch.profiler)")
+                    help="profile steady decode steps of both paged engines and steady "
+                         "verify passes (torch.profiler)")
     args = ap.parse_args(argv)
 
     import torch
@@ -902,7 +1206,10 @@ def main(argv=None) -> int:
     if args.profile:
         phase_profile(torch, engine, prompts, "int8 engine")
     model8 = engine.params
-    del engine  # its pool goes before the dense engine's cache is built
+    del engine  # its pool goes before the next engine's is built
+    torch.cuda.empty_cache()
+    by_path["int8 prefix/chunked/speculative engine"] = path_int8_prefix_spec(
+        torch, dev, cfg8, model8, profile=args.profile)
     torch.cuda.empty_cache()
     by_path["int8 dense engine"] = path_int8_dense(torch, dev, cfg8, model8)
     rows = []

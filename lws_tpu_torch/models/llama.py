@@ -18,9 +18,13 @@ tensors, their plain versions. `plain=True` runs the plain versions on any
 device, products included; it exists so a comparison can hold the kernel
 path against the plain path on the card, and the engines never pass it.
 
+The speculative-decoding forward and primitives (`forward_verify_paged`,
+`ngram_draft`, `speculative_accept`) and `forward_prefill_chunk` serve the
+paged engine's speculative and chunked-admission modes; their attention is
+stock torch, as JAX leaves it to XLA.
+
 Left out here (lws_tpu/models/llama.py names): MoE, ring/context parallel,
-forward/loss_fn, forward_prefill_chunk, forward_decode_slotted, the
-speculative functions and all sharding specs.
+forward/loss_fn, forward_decode_slotted and all sharding specs.
 """
 
 from __future__ import annotations
@@ -51,8 +55,9 @@ from lws_tpu_torch.ops.paged_attention import (
 __all__ = [
     "LlamaConfig", "Llama", "LlamaBlock", "init_params", "rms_norm", "rope",
     "rope_tables", "apply_rope",
-    "KVCache", "init_cache", "forward_prefill", "forward_with_cache", "PagedKVCache",
-    "init_paged_cache", "paged_insert", "forward_decode_paged", "_cached_attention",
+    "KVCache", "init_cache", "forward_prefill", "forward_with_cache", "forward_prefill_chunk",
+    "PagedKVCache", "init_paged_cache", "paged_insert", "forward_decode_paged",
+    "forward_verify_paged", "ngram_draft", "speculative_accept", "_cached_attention",
     "_quantize_kv", "_dequantize_kv", "LAYER_PRODUCTS", "LAYER_NORMS",
 ]
 
@@ -206,8 +211,11 @@ class Llama(nn.Module):
 
     def logits(self, x: torch.Tensor, plain: bool = False) -> torch.Tensor:
         """Final norm + lm_head in the compute dtype, returned as f32."""
-        x = rms_norm(x, self.final_norm, self.cfg.norm_eps)
-        return matmul(x, self.lm_head.weight, plain=plain).float()
+        return self.head(rms_norm(x, self.final_norm, self.cfg.norm_eps), plain)
+
+    def head(self, h: torch.Tensor, plain: bool = False) -> torch.Tensor:
+        """lm_head over already-normalized hidden states, returned as f32."""
+        return matmul(h, self.lm_head.weight, plain=plain).float()
 
 
 @torch.no_grad()
@@ -330,19 +338,22 @@ def forward_prefill(params: Llama, tokens: torch.Tensor, cache: KVCache,
     return params.logits(last, plain), cache
 
 
-@torch.no_grad()
-def forward_with_cache(params: Llama, tokens: torch.Tensor, cache: KVCache,
-                       plain: bool = False) -> tuple[torch.Tensor, KVCache]:
-    """Append tokens [B, S] at cache.pos; returns (logits for the LAST token
-    [B, V] f32, the cache with pos advanced by S). Each layer writes its K/V
-    at [pos, pos + S) in place, then its queries attend to keys <= their
-    position. lws_tpu/models/llama.py:561 (_block_with_cache :504): with an
+def _forward_cached(params: Llama, tokens: torch.Tensor, cache: KVCache,
+                    plain: bool) -> torch.Tensor:
+    """The layers over tokens [B, S] appended at cache.pos: each layer writes
+    its K/V at [pos, pos + S) in place, then its queries attend to keys <=
+    their position (lws_tpu/models/llama.py:_block_with_cache :504): with an
     int8 cache and S == 1 the int8 decode kernel on CUDA; with an int8 cache
     otherwise, the dequantized layer through cached attention; with a bf16
-    cache, cached attention (the path JAX leaves to XLA)."""
+    cache, cached attention (the path JAX leaves to XLA). Advances cache.pos
+    by S and returns the last layer's output [B, S, D], before the final
+    norm. Writes must fit: pos + S past the cache's length raises (JAX would
+    clamp the write's start instead)."""
     cfg = params.cfg
     B, S = tokens.shape
     pos = cache.pos
+    if pos + S > cache.max_len:
+        raise ValueError(f"{S} tokens at {pos} overflow a cache of {cache.max_len}")
     positions = pos + torch.arange(S, device=tokens.device).expand(B, S)
     rope_cs = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
     x = embed_lookup(params.embed.weight, tokens, cfg.dtype)
@@ -362,7 +373,40 @@ def forward_with_cache(params: Llama, tokens: torch.Tensor, cache: KVCache,
 
         x = block(x, rope_cs, attn_fn, plain)
     cache.pos += S
-    return params.logits(x[:, -1], plain), cache
+    return x
+
+
+@torch.no_grad()
+def forward_with_cache(params: Llama, tokens: torch.Tensor, cache: KVCache,
+                       plain: bool = False, last_offset=None, all_logits: bool = False
+                       ) -> tuple[torch.Tensor, KVCache]:
+    """Append tokens [B, S] at cache.pos; returns (logits [B, V] f32 of the
+    appended position `last_offset` (an int, or a [B] tensor of per-row
+    offsets; S-1 if None: the true end of a padded suffix), the cache with
+    pos advanced by S). With `all_logits`, the logits of every appended
+    position [B, S, V], the verification shape. lws_tpu/models/llama.py:561."""
+    x = _forward_cached(params, tokens, cache, plain)
+    if all_logits:
+        return params.logits(x, plain), cache
+    if last_offset is None:
+        last = x[:, -1]
+    elif isinstance(last_offset, int):
+        last = x[:, last_offset]
+    else:
+        idx = last_offset.long().reshape(-1, 1, 1).expand(x.shape[0], 1, x.shape[-1])
+        last = x.gather(1, idx)[:, 0]
+    return params.logits(last, plain), cache
+
+
+@torch.no_grad()
+def forward_prefill_chunk(params: Llama, tokens: torch.Tensor, cache: KVCache,
+                          plain: bool = False) -> tuple[torch.Tensor, KVCache]:
+    """One chunk of chunked prefill: append tokens [B, C] at cache.pos and
+    return the final-normalized hidden states [B, C, D] (not logits), so the
+    caller can take the true last prompt position out of a padded final
+    chunk. lws_tpu/models/llama.py:599."""
+    x = _forward_cached(params, tokens, cache, plain)
+    return rms_norm(x, params.final_norm, params.cfg.norm_eps), cache
 
 
 # ---------------------------------------------------------------------------
@@ -462,3 +506,103 @@ def forward_decode_paged(params: Llama, tokens: torch.Tensor, cache: PagedKVCach
 
         x = block(x, rope_cs, attn_fn, plain)
     return params.logits(x[:, -1], plain), cache
+
+
+@torch.no_grad()
+def forward_verify_paged(params: Llama, tokens: torch.Tensor, cache: PagedKVCache,
+                         block_table: torch.Tensor, pos_b: torch.Tensor, plain: bool = False
+                         ) -> tuple[torch.Tensor, PagedKVCache]:
+    """Speculative verification over paged slots: append tokens [B, S] (the
+    running token and S-1 drafts per slot) at positions pos_b..pos_b+S-1 and
+    return the logits of all S positions [B, S, V] f32. Each layer scatters
+    its S new K/V rows per slot into the slot's table blocks in place
+    (quantized for an int8 pool), then attends through the gathered table
+    view (dequantized for an int8 pool) with per-slot positions. Rows past
+    the accepted prefix go stale and are overwritten by later appends: pos_b
+    is the rewind. Positions past a slot's allocated blocks hit table
+    entries of 0, the null block, never attended. The gather path of
+    lws_tpu/models/llama.py:1002 (JAX runs no kernel here either); with
+    quantized weights the products still take the int8_matmul kernel on
+    CUDA (B * S rows)."""
+    cfg = params.cfg
+    B, S = tokens.shape
+    bs = cache.block_size
+    hkv, hd = cfg.n_kv_heads, cfg.head_dim
+    positions = pos_b.long()[:, None] + torch.arange(S, device=tokens.device)[None, :]
+    rope_cs = rope_tables(positions, hd, cfg.rope_theta)
+    x = embed_lookup(params.embed.weight, tokens, cfg.dtype)
+    # Callers keep every live row below max_len (the engine's _spec_fits);
+    # the clamp only keeps a released slot's stale position inside the table.
+    blk_idx = torch.clamp(positions // bs, max=block_table.shape[1] - 1)
+    write_blk = block_table.long().gather(1, blk_idx)
+    write_off = positions % bs
+    idx = block_table.long()
+
+    def view(pool, layer_idx, scale=None):
+        rows = pool[layer_idx][idx]  # [B, max_blocks, bs, Hkv, hd]
+        if scale is not None:
+            rows = _dequantize_kv(rows, scale[layer_idx][idx], cfg.dtype)
+        return rows.reshape(B, -1, hkv, hd)
+
+    for layer_idx, block in enumerate(params.layers):
+
+        def attn_fn(q, k, v, layer_idx=layer_idx):
+            _write_kv(cache, layer_idx, (write_blk, write_off), k, v)
+            return _cached_attention(q, view(cache.k, layer_idx, cache.k_scale),
+                                     view(cache.v, layer_idx, cache.v_scale), pos_b)
+
+        x = block(x, rope_cs, attn_fn, plain)
+    return params.logits(x, plain), cache
+
+
+# ---------------------------------------------------------------------------
+# Device-resident speculative decoding primitives (lws_tpu/models/llama.py:1082-1135)
+
+
+def ngram_draft(hist: torch.Tensor, hist_len: torch.Tensor, ngram: int, gamma: int
+                ) -> torch.Tensor:
+    """Prompt-lookup drafts for a batch of slots: hist [B, H] int32 holds
+    global token t of each slot at column t % H, hist_len [B] the tokens ever
+    recorded, so the live window is the last min(hist_len, H). The latest
+    earlier occurrence of the window's trailing `ngram` wins and the `gamma`
+    tokens after it are the draft; short or absent candidates pad with the
+    last token. Returns [B, gamma] int32. Equals Engine._draft_ngram whenever
+    the window holds the whole context (lws_tpu/models/llama.py:1087, vmapped
+    over slots)."""
+    B, H = hist.shape
+    dev = hist.device
+    total = hist_len.long()
+    W = torch.clamp(total, max=H)  # live window length
+    start = total - W  # global index of window[0]
+    j = torch.arange(H, device=dev)
+    lin = hist.gather(1, (start[:, None] + j[None, :]) % H)  # lin[:, j] valid for j < W
+    last = lin.gather(1, torch.clamp(W - 1, 0, H - 1)[:, None])  # [B, 1]
+    k = torch.arange(ngram, device=dev)
+    tail = lin.gather(1, torch.clamp(W[:, None] - ngram + k[None, :], 0, H - 1))  # [B, ngram]
+    cand = lin[:, torch.clamp(j[:, None] + k[None, :], 0, H - 1)]  # [B, H, ngram]
+    # A start must be a strictly EARLIER occurrence; short windows match nothing.
+    ok = (cand == tail[:, None, :]).all(dim=-1) & (j[None, :] <= W[:, None] - ngram - 1)
+    best = torch.where(ok, j[None, :], -1).amax(dim=1)  # [B]
+    idx = best[:, None] + ngram + torch.arange(gamma, device=dev)[None, :]
+    in_window = (best[:, None] >= 0) & (idx < W[:, None])
+    drafts = torch.where(in_window, lin.gather(1, torch.clamp(idx, 0, H - 1)), last)
+    return drafts.to(torch.int32)
+
+
+def speculative_accept(drafts: torch.Tensor, greedy: torch.Tensor, rem: torch.Tensor
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Acceptance of a verify pass: drafts [B, gamma], greedy [B, gamma+1]
+    (the verify logits' argmax), rem [B] remaining budgets. The accepted
+    prefix is the run of leading matches; returns (take [B] int32,
+    out [B, gamma+1]) where out[b, :take[b]] are the slot's tokens this
+    dispatch: the accepted drafts and the model's own next token, clamped to
+    the budget (lws_tpu/models/llama.py:1117)."""
+    gamma = drafts.shape[1]
+    matches = (drafts == greedy[:, :gamma]).to(torch.int32)
+    a = torch.cumprod(matches, dim=1).sum(dim=1)  # [B] accepted prefix
+    pos = torch.arange(gamma + 1, device=drafts.device)[None, :]
+    ext = torch.cat([drafts, drafts[:, -1:]], dim=1)  # [B, gamma+1]
+    bonus = greedy.gather(1, a[:, None].long())  # [B, 1]
+    out = torch.where(pos == a[:, None], bonus, ext)
+    take = torch.minimum(a + 1, rem.to(a.dtype)).to(torch.int32)
+    return take, out

@@ -11,7 +11,8 @@ KV cache [L, B, max_len, Hkv, hd] (int8 with scales when cfg.kv_quant),
 updated in place: prefill through forward_prefill, decode steps through
 forward_with_cache (on CUDA with an int8 cache, the int8 decode kernel; with
 quantized weights, the int8_matmul kernel). Left out of this slice: mesh/TP,
-chunked and streamed prefill, speculative decoding, telemetry.
+chunked and streamed prefill, speculative generation (of it only the host
+drafter `_draft_ngram` is here, for the paged engine's oracle), telemetry.
 """
 
 from __future__ import annotations
@@ -152,6 +153,23 @@ class Engine:
         if pipeline_depth is None:
             pipeline_depth = 2 if self.device.type == "cuda" else 0
         self.pipeline_depth = pipeline_depth
+
+    @staticmethod
+    def _draft_ngram(context: list, ngram: int, gamma: int) -> list:
+        """Draft gamma tokens by matching the context's trailing n-gram
+        against its own history (prompt-lookup decoding): the latest earlier
+        occurrence wins, a short or absent candidate pads with the last
+        token (lws_tpu/serving/engine.py:492). Any draft is safe: acceptance
+        keeps only tokens equal to the model's own argmax."""
+        tail = context[-ngram:]
+        cand: list = []
+        for i in range(len(context) - ngram - 1, -1, -1):
+            if context[i:i + ngram] == tail:
+                cand = context[i + ngram: i + ngram + gamma]
+                break
+        while len(cand) < gamma:
+            cand.append(context[-1])
+        return cand
 
     def _sample(self, logits: torch.Tensor) -> torch.Tensor:
         if self.sampling.temperature <= 0.0:

@@ -11,7 +11,8 @@ wait) while chunk N+1 runs on the card. `depth=0` is the synchronous loop.
     carries its tokens, `commit(host)` applies the host bookkeeping once the
     copy lands. Pushing past `depth` consumes the oldest chunk (FIFO: commit
     order is dispatch order, which the engine's host truth depends on).
-  * `flush()` consumes everything in flight.
+  * `flush()` consumes everything in flight; `discard()` drops it
+    uncommitted (the rollback after a failed dispatch).
   * `host_section()` times a host scheduling window; time spent there with
     an empty ring is time the device waited on the host (`host_blocked_s`).
 """
@@ -72,7 +73,7 @@ class DecodePipeline:
         self._lock = threading.RLock()
         self._ring: "deque[tuple[int, object, Callable]]" = deque()  # guarded-by: _lock
         self.stats = {  # guarded-by: _lock
-            "dispatched": 0, "consumed": 0, "flushes": 0,
+            "dispatched": 0, "consumed": 0, "flushes": 0, "discarded": 0,
             "host_blocked_s": 0.0, "device_wait_s": 0.0, "max_inflight": 0,
         }
 
@@ -106,6 +107,13 @@ class DecodePipeline:
                 self.stats["flushes"] += 1
             while self._ring:
                 self._consume_oldest()
+
+    def discard(self) -> None:
+        """Abandon every in-flight chunk without its commit: the caller
+        restores device state from host truth (lws_tpu/serving/pipeline.py:161)."""
+        with self._lock:
+            self.stats["discarded"] += len(self._ring)
+            self._ring.clear()
 
     def _consume_oldest(self) -> None:  # holds-lock: _lock
         _, payload, commit = self._ring.popleft()

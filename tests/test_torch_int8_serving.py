@@ -184,8 +184,8 @@ def test_paged_engine_int8_streams_match_jax(model, jax_path, monkeypatch):
     got = [eng.result(i) for i in ids_t]
     assert got == [jax_eng.result(i) for i in ids_j]
     assert all(len(r) == 12 for r in got)
-    assert eng.pool_accounting() == {"free": eng.num_blocks - 1, "live": 0,
-                                     "total": eng.num_blocks - 1}
+    assert eng.pool_accounting() == jax_eng.pool_accounting() == {
+        "free": eng.num_blocks - 1, "parked": 0, "live": 0, "total": eng.num_blocks - 1}
 
 
 def test_paged_engine_int8_staggered_admission_matches_jax(model, monkeypatch):

@@ -115,7 +115,8 @@ def test_pool_backpressure_and_reuse_match_jax(small_model, jax_kernel):
 
     jax_eng, eng = engines(small_model, slots=4, max_len=64, block_size=8, num_blocks=10)
     assert run(eng) == run(jax_eng)
-    assert eng.pool_accounting() == {"free": 9, "live": 0, "total": 9}
+    assert eng.pool_accounting() == jax_eng.pool_accounting() == {
+        "free": 9, "parked": 0, "live": 0, "total": 9}
 
 
 def test_half_size_pool_serves_every_slot_and_matches_jax(small_model, jax_kernel):
