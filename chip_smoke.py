@@ -26,9 +26,10 @@ no result line):
      2047, and all at 2047 over 4 shared pool blocks, whose rows stay in
      L2): the bf16 pool, then the int8 pool with its scales (gather +
      dequantize);
-  4. the int8_matmul kernel against its plain version at m = 1, 8, 40 (a
-     verify pass of 8 slots x 5 tokens), 128 and 256 rows for the
-     flagship's five product shapes, with two yardsticks
+  4. the int8_matmul kernel against its plain version at every row count the
+     engine paths give it, derived from their routes (1, 8, 16, 40 = a verify
+     pass of 8 slots x 5 tokens, 128 and 256), for the flagship's five
+     product shapes, with two yardsticks
      timed beside it: torch._weight_int8pack_mm (PyTorch's own W8A16 call,
      held to the plain version first; a shape it refuses is printed) and the
      bf16 F.linear of the same shape (the product the bf16 flagship runs);
@@ -52,9 +53,12 @@ no result line):
      shared-system-prompt mix (a 200-token unrelated prompt, then a shared
      512-token prefix with suffixes of 40..1200 tokens), decoded plainly in
      round 1 and speculatively (gamma 4, 3-gram prompt lookup) in round 2,
-     when every shareable block hits; the suffix and chunked routes' logits
-     and the verify pass's column 0 are held to the one-shot prefill and the
-     decode step, and the device-resident loop to the host-loop oracle on
+     when every shareable block hits. Then, through the engine's own
+     admission, the suffix route at 256 and 16 rows and the chunked hit and
+     miss routes: their logits and the K/V rows they leave in the pool held
+     to the one-shot prefill; a verify pass over the model's own greedy
+     drafts held column by column to successive decode steps, all drafts
+     accepted; and the device-resident loop held to the host-loop oracle on
      two fresh engines (token-identical streams);
   8. the dense Engine on the same int8 model: its batched prefill and one
      decode step held to the plain path, then one batch of 8 prompts of 512
@@ -92,11 +96,16 @@ PAGED_REL_TOL = 1e-2      # ||kernel - plain|| / ||plain|| over the whole output
 # multiply by a bf16-rounded scale in bf16, which the kernel does not.
 MATMUL_TOL = 2e-2
 LOGITS_REL_TOL = 5e-2     # max |kernel - plain| / max |plain| over the vocab, bf16 model
+# A route's dequantized int8 K/V rows in the pool against the one-shot
+# prefill's: ||pool - one-shot|| / ||one-shot|| over all layers' rows. Rows
+# written to a wrong block or with wrong scales read about 1.4.
+POOL_REL_TOL = 5e-2
 SLOTS, MAX_LEN, BLOCK, NEW_TOKENS, ROUNDS = 8, 2048, 16, 64, 3
 # The prefix/chunked/speculative path: a shared system prompt, the chunk
 # size, the decode steps between chunks, and the speculative run.
 SHARED_PREFIX, CHUNK, INTERLEAVE, GAMMA, NGRAM = 512, 256, 8, 4, 3
 VERIFY_ROWS = SLOTS * (GAMMA + 1)
+ECHO_SPAN = 12  # the span an echo prompt holds, and the tokens asked of it
 
 
 class SmokeFailure(RuntimeError):
@@ -384,7 +393,7 @@ def phase_int8_matmul(torch, dev, cfg) -> dict:
         q = torch.randint(-127, 128, (Fo, D), generator=g, device=dev, dtype=torch.int8)
         scale = torch.rand(Fo, generator=g, device=dev) * D**-0.5 / 73.3
         w_bf16 = q.to(torch.bfloat16)  # the yardstick's weight, made untimed
-        for m in (1, 8, VERIFY_ROWS, 128, 256):
+        for m in matmul_rows(cfg):
             x = torch.randn(m, D, generator=g, device=dev, dtype=torch.bfloat16)
             out = int8_matmul(x, q, scale)
             ref = int8_matmul_reference(x, q, scale)
@@ -534,12 +543,29 @@ def weight_bytes_per_step(cfg, model) -> int:
 
 
 def bucket_of(n: int) -> int:
-    """The paged engine's prefill length for an n-token prompt: a power of
-    two, at least one block."""
-    bucket = BLOCK
-    while bucket < n:
-        bucket *= 2
-    return min(bucket, MAX_LEN)
+    """The paged engines' one-shot prefill length for an n-token prompt: a
+    power of two, at least one block (the engine's own rule)."""
+    from lws_tpu_torch.serving.paged_engine import admission_route
+
+    return admission_route(n, 0, BLOCK, MAX_LEN, None)[1]
+
+
+def paged_prompt_lens() -> list[int]:
+    """The lengths of the plain paged engines' 8 prompts."""
+    return [int(n) for n in np.linspace(100, 1000, SLOTS).astype(int)]
+
+
+def matmul_rows(cfg) -> list[int]:
+    """Every row count that the engine paths give int8_matmul (products of
+    more than MAX_ROWS rows take the dequantizing route): an admission's
+    lm_head row, a decode step's SLOTS rows, a verify pass's VERIFY_ROWS, the
+    int8 paged engine's one-shot buckets and the prefix path's route rows.
+    The kernel phase holds the kernel to its plain version at each."""
+    from lws_tpu_torch.ops.int8_matmul import MAX_ROWS
+
+    rows = {1, SLOTS, VERIFY_ROWS} | {bucket_of(n) for n in paged_prompt_lens()}
+    rows |= {route[1] for *_, route in prefix_admissions(prefix_mix(cfg))}
+    return sorted(r for r in rows if r <= MAX_ROWS)
 
 
 def engine_bounds(cfg, weight_bytes: int, lens, new_tokens: int,
@@ -705,8 +731,7 @@ def path_bf16_paged(torch, dev, cfg) -> tuple:
           f"{sum(p.numel() for p in model.parameters()) / 1e9:.3f} B params, {n_bytes / 1e9:.2f} GB")
     rng = np.random.default_rng(0)
     check_logits_paths(torch, dev, cfg, model, rng, "bf16 engine")
-    prompts = [rng.integers(1, cfg.vocab_size, n).astype(np.int32)
-               for n in np.linspace(100, 1000, SLOTS).astype(int)]
+    prompts = [rng.integers(1, cfg.vocab_size, n).astype(np.int32) for n in paged_prompt_lens()]
     launches, steps, engine = serve_paged(torch, dev, cfg, model, prompts, "bf16 engine")
     L, admissions = cfg.n_layers, ROUNDS * SLOTS
     check_launches("bf16 engine", launches, {"flash_attention": L * admissions,
@@ -749,38 +774,45 @@ def prefix_mix(cfg) -> list:
         for n in np.linspace(40, 1200, 7).astype(int)]
 
 
-def admission_route(plen: int, hit_blocks: int) -> tuple[str, int]:
-    """The route PagedBatchEngine(prefix_cache=True, prefill_chunk=CHUNK)
-    takes for a prompt with `hit_blocks` cached blocks, and the rows of its
-    products: (route, rows of one forward; chunks for a chunked route)."""
-    s_true = plen - hit_blocks * BLOCK
-    if s_true > CHUNK:
-        return ("chunked hit" if hit_blocks else "chunked miss"), -(-s_true // CHUNK)
-    if not hit_blocks:
-        return "one-shot miss", bucket_of(plen)
-    s_suf = 8
-    while s_suf < s_true:
-        s_suf *= 2
-    return "suffix hit", s_suf
+def prefix_admissions(prompts) -> list[tuple]:
+    """(round, prompt, cached blocks, route) of every admission of the
+    prefix path, in submission order. In round 1 the unrelated prompt and
+    the prefix's first prompt miss and the rest hit the shared prefix's 32
+    blocks; in round 2 every shareable block hits. The route is the
+    engine's own: (name, rows of each forward, forwards)."""
+    from lws_tpu_torch.serving.paged_engine import admission_route
+
+    out = []
+    for rnd in (1, 2):
+        for i, p in enumerate(prompts):
+            if rnd == 2:
+                hit = (len(p) - 1) // BLOCK
+            else:
+                hit = SHARED_PREFIX // BLOCK if i >= 2 else 0
+            out.append((rnd, p, hit, admission_route(len(p), hit * BLOCK, BLOCK, MAX_LEN, CHUNK)))
+    return out
+
+
+def route_label(route: tuple, hit: int) -> str:
+    return f"{route[0]} {'hit' if hit else 'miss'}"
 
 
 def expected_prefix_launches(cfg, admissions, decode_steps: int, spec_dispatches: int) -> dict:
     """Exact launches of the path from its admissions' routes and the
     engine's step and dispatch counts. A one-shot miss runs flash once per
-    layer; every route runs its 7 products per layer through int8_matmul
-    when a forward has at most 256 rows (chunks of 256 always, suffix
-    buckets of 8..256, one-shot buckets up to 256) and one lm_head row; a
-    decode step runs the int8 paged kernel per layer and 7L + 1 products;
-    a verify pass 7L + 1 products of SLOTS x (GAMMA + 1) rows and no
-    attention kernel (stock torch over the gathered view)."""
+    layer; every route runs its 7 products per layer per forward through
+    int8_matmul when the forward has at most MAX_ROWS rows, and one lm_head
+    row; a decode step runs the int8 paged kernel per layer and 7L + 1
+    products; a verify pass 7L + 1 products of SLOTS x (GAMMA + 1) rows and
+    no attention kernel (stock torch over the gathered view)."""
+    from lws_tpu_torch.ops.int8_matmul import MAX_ROWS
+
     L = cfg.n_layers
     flash, products = 0, 0
-    for route, rows in admissions:
-        if route == "one-shot miss":
+    for *_, (route, rows, forwards) in admissions:
+        if route == "one-shot":
             flash += L
-        forwards = rows if route.startswith("chunked") else 1
-        width = CHUNK if route.startswith("chunked") else rows
-        products += (7 * L * forwards if width <= 256 else 0) + 1
+        products += (7 * L * forwards if rows <= MAX_ROWS else 0) + 1
     return {"flash_attention": flash,
             "paged_decode_attention_int8": L * decode_steps,
             "int8_matmul": products + (7 * L + 1) * (decode_steps + spec_dispatches)}
@@ -792,62 +824,99 @@ def tokens_so_far(engine, ids) -> int:
     return sum(len((engine._completed.get(i) or live[i]).tokens) for i in ids)
 
 
-def check_prefix_routes(torch, dev, cfg, engine, prompt, hit_blocks: int) -> None:
-    """The suffix route (forward_with_cache at pos = hit_len over the
-    one-shot prefill's prefix rows) and the chunked route (chunks of CHUNK
-    through forward_prefill_chunk from the same rows) against the one-shot
-    prefill of the same prompt, all on the kernel path."""
-    from lws_tpu_torch.models.llama import (
-        forward_prefill,
-        forward_prefill_chunk,
-        forward_with_cache,
-        init_cache,
-    )
+def pool_rows(pool, blocks, plen: int):
+    """Dequantized K and V rows [L, plen, Hkv, D] f32 of an int8 pool's
+    `blocks`."""
+    def rows(x, scale):
+        return (x[:, blocks].flatten(1, 2)[:, :plen].float()
+                * scale[:, blocks].flatten(1, 2)[:, :plen, :, None])
 
-    model, plen, hit_len = engine.params, len(prompt), hit_blocks * BLOCK
-    bucket, s_true = bucket_of(plen), plen - hit_blocks * BLOCK
-    padded = np.zeros((1, bucket), np.int64)
-    padded[0, :plen] = prompt
-    ref, ref_cache = forward_prefill(model, torch.tensor(padded, device=dev),
-                                     init_cache(cfg, 1, bucket, dev), last_pos=plen - 1)
+    return rows(pool.k, pool.k_scale), rows(pool.v, pool.v_scale)
 
-    def prefix_cache(width):
-        c = init_cache(cfg, 1, width, dev)
-        for name in ("k", "v", "k_scale", "v_scale"):
-            getattr(c, name)[:, :, :hit_len] = getattr(ref_cache, name)[:, :, :hit_len]
-        c.pos = hit_len
-        return c
 
-    s_suf = 8
-    while s_suf < s_true:
-        s_suf *= 2
-    suffix = np.zeros((1, s_suf), np.int64)
-    suffix[0, :s_true] = prompt[hit_len:]
-    suf, _ = forward_with_cache(model, torch.tensor(suffix, device=dev),
-                                prefix_cache(bucket + s_suf), last_offset=s_true - 1)
-    n_chunks = -(-s_true // CHUNK)
-    chunks = np.zeros((1, n_chunks * CHUNK), np.int64)
-    chunks[0, :s_true] = prompt[hit_len:]
-    dense = prefix_cache(bucket + CHUNK)
-    for i in range(n_chunks):
-        hidden, dense = forward_prefill_chunk(
-            model, torch.tensor(chunks[:, i * CHUNK:(i + 1) * CHUNK], device=dev), dense)
-    chunked = engine._chunk_logits(hidden, (s_true - 1) % CHUNK)
-    torch.cuda.synchronize()
-    for what, got in (("suffix route", suf), ("chunked route", chunked)):
-        check(tuple(got.shape) == (1, cfg.vocab_size) and bool(torch.isfinite(got).all()),
-              f"prefix engine: {what} logits shape/finite")
-        rel = ((got - ref).abs().max() / ref.abs().max()).item()
-        print(f"prefix engine: {what} logits ({plen}-token prompt, {hit_blocks} cached blocks, "
-              f"{s_true} computed) vs the one-shot prefill: max rel err {rel:.3e} "
-              f"(argmax {int(got.argmax())} vs {int(ref.argmax())})")
-        check(rel <= LOGITS_REL_TOL, f"prefix engine: {what} logits rel err {rel} > "
-                                     f"{LOGITS_REL_TOL}")
+def check_engine_routes(torch, dev, cfg, engine, prompts) -> None:
+    """The prefix-hit and chunked routes through the engine's own admission
+    (the digest walk, the _dense_view gather of int8 pool blocks and scales,
+    the route's forwards, _scatter_dense), at shapes the path runs: a fresh
+    233-token suffix on the shared prefix (the suffix route at 256 rows, as
+    in round 1), a round-2 prompt again (the suffix route at 16 rows), a
+    fresh 620-token suffix (the chunked-hit route) and a fresh 552-token
+    prompt (the chunked-miss route). Each asks for one token, so it is
+    released at admission. The logits its route computed and the K/V rows
+    it leaves in the pool (the hit blocks' cached rows included) are held
+    to the one-shot prefill of the same prompt."""
+    from lws_tpu_torch.models.llama import forward_prefill, init_cache
+    from lws_tpu_torch.serving.paged_engine import admission_route
+
+    rng = np.random.default_rng(7)
+    V, prefix = cfg.vocab_size, prompts[2][:SHARED_PREFIX]
+    fresh = lambda n: rng.integers(1, V, n).astype(np.int32)
+    cases = [("suffix hit", np.concatenate([prefix, fresh(233)]), SHARED_PREFIX // BLOCK),
+             ("suffix hit", prompts[3], (len(prompts[3]) - 1) // BLOCK),
+             ("chunked hit", np.concatenate([prefix, fresh(620)]), SHARED_PREFIX // BLOCK),
+             ("chunked miss", fresh(SHARED_PREFIX + 40), 0)]
+    # Each admission's route logits (the return of _insert_with_prefix or
+    # _chunk_logits) and the pool blocks _scatter_dense writes.
+    wrapped = ("_insert_with_prefix", "_chunk_logits", "_scatter_dense")
+    captured = {}
+    for name in wrapped:
+        method = getattr(engine, name)
+
+        def spy(*a, _m=method, _name=name):
+            captured.setdefault(_name, []).append((_m(*a), a))
+            return captured[_name][-1][0]
+
+        setattr(engine, name, spy)
+    try:
+        for what, prompt, hit in cases:
+            plen = len(prompt)
+            route = admission_route(plen, hit * BLOCK, BLOCK, MAX_LEN, CHUNK)
+            check(route_label(route, hit) == what, f"prefix engine: a {plen}-token prompt with "
+                                                    f"{hit} cached blocks takes {route}")
+            captured.clear()
+            before = engine.stats_prefix["hit_blocks"]
+            rid = engine.submit(prompt, 1)
+            check(rid is not None and engine.stats_prefix["hit_blocks"] - before == hit,
+                  f"prefix engine: {what} check: {engine.stats_prefix['hit_blocks'] - before} "
+                  f"blocks hit, expected {hit}")
+            logits = captured.get("_insert_with_prefix", []) + captured.get("_chunk_logits", [])
+            check(len(logits) == 1 and len(captured["_scatter_dense"]) == 1,
+                  f"prefix engine: {what} check: {len(logits)} route logits, "
+                  f"{len(captured['_scatter_dense'])} scatters")
+            bucket = bucket_of(plen)
+            padded = np.zeros((1, bucket), np.int64)
+            padded[0, :plen] = prompt
+            ref, ref_cache = forward_prefill(engine.params, torch.tensor(padded, device=dev),
+                                             init_cache(cfg, 1, bucket, dev), last_pos=plen - 1)
+            got_kv = pool_rows(engine.cache, captured["_scatter_dense"][0][1][1].long(), plen)
+            ref_kv = [(x[:, 0, :plen].float() * scale[:, 0, :plen, :, None])
+                      for x, scale in ((ref_cache.k, ref_cache.k_scale),
+                                       (ref_cache.v, ref_cache.v_scale))]
+            got = logits[0][0]
+            torch.cuda.synchronize()
+            check(tuple(got.shape) == (1, V) and bool(torch.isfinite(got).all()),
+                  f"prefix engine: {what} logits shape/finite")
+            rel = ((got - ref).abs().max() / ref.abs().max()).item()
+            kv_rel = max((torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b)).item()
+                         for a, b in zip(got_kv, ref_kv))
+            print(f"prefix engine: {what} route ({plen}-token prompt, {hit} cached blocks, "
+                  f"{route[2]} forward(s) of {route[1]} rows) vs the one-shot prefill: logits "
+                  f"max rel err {rel:.3e} (argmax {int(got.argmax())} vs {int(ref.argmax())}), "
+                  f"pool K/V rows rel err {kv_rel:.3e}")
+            check(rel <= LOGITS_REL_TOL, f"prefix engine: {what} logits rel err {rel} > "
+                                         f"{LOGITS_REL_TOL}")
+            check(kv_rel <= POOL_REL_TOL, f"prefix engine: {what} pool rows rel err {kv_rel} > "
+                                          f"{POOL_REL_TOL}")
+    finally:
+        for name in wrapped:
+            delattr(engine, name)  # the class's methods again
 
 
 def check_verify_logits(torch, dev, cfg, model, rng) -> None:
-    """Column 0 of a verify pass (the running token and GAMMA drafts)
-    against forward_decode_paged from the same pool state."""
+    """A verify pass whose drafts are the model's own greedy tokens. GAMMA
+    + 1 paged decode steps from a prefilled pool give the drafts and, column
+    by column, the logits that the verify pass must reproduce from a copy of
+    the same pool; speculative_accept must then take all GAMMA + 1 tokens."""
     from lws_tpu_torch.models.llama import (
         PagedKVCache,
         forward_decode_paged,
@@ -856,6 +925,7 @@ def check_verify_logits(torch, dev, cfg, model, rng) -> None:
         init_cache,
         init_paged_cache,
         paged_insert,
+        speculative_accept,
     )
 
     V, plen, bucket = cfg.vocab_size, 300, 512
@@ -872,18 +942,58 @@ def check_verify_logits(torch, dev, cfg, model, rng) -> None:
     table = torch.zeros(1, MAX_LEN // BLOCK, dtype=torch.int32, device=dev)
     table[0, :n_blocks + 1] = torch.arange(1, n_blocks + 2, device=dev)
     pos = torch.tensor([plen], dtype=torch.int32, device=dev)
-    first = logits.argmax(-1).to(torch.int32)
-    run = torch.tensor([[int(first)] + rng.integers(1, V, GAMMA).tolist()], dtype=torch.int32,
-                       device=dev)
-    vl, _ = forward_verify_paged(model, run, pool_v, table, pos)
-    dl, _ = forward_decode_paged(model, first, pool_d, table, pos)
+    run = [logits.argmax(-1).to(torch.int32)]  # the running token, then the drafts
+    steps = []  # the decode steps' logits [1, V]
+    for j in range(GAMMA + 1):
+        dl, pool_d = forward_decode_paged(model, run[-1], pool_d, table, pos + j)
+        steps.append(dl)
+        run.append(dl.argmax(-1).to(torch.int32))
+    tokens_in = torch.stack(run[:GAMMA + 1], dim=1)  # [1, GAMMA + 1]
+    vl, _ = forward_verify_paged(model, tokens_in, pool_v, table, pos)
+    take, out = speculative_accept(tokens_in[:, 1:], vl.argmax(-1).to(torch.int32),
+                                   torch.tensor([NEW_TOKENS], dtype=torch.int32, device=dev))
     torch.cuda.synchronize()
     check(tuple(vl.shape) == (1, GAMMA + 1, V) and bool(torch.isfinite(vl).all()),
           "verify logits shape/finite")
-    rel = ((vl[:, 0] - dl).abs().max() / dl.abs().max()).item()
-    print(f"prefix engine: verify column 0 vs the paged decode step: max rel err {rel:.3e} "
-          f"(argmax {int(vl[0, 0].argmax())} vs {int(dl.argmax())})")
-    check(rel <= LOGITS_REL_TOL, f"prefix engine: verify logits rel err {rel} > {LOGITS_REL_TOL}")
+    rels = [((vl[:, j] - dl).abs().max() / dl.abs().max()).item() for j, dl in enumerate(steps)]
+    print(f"prefix engine: verify columns 0..{GAMMA} vs the successive paged decode steps: max "
+          f"rel err " + ", ".join(f"{r:.3e}" for r in rels) + f"; accepted {int(take) - 1} of "
+          f"{GAMMA} greedy drafts")
+    check(max(rels) <= LOGITS_REL_TOL, f"prefix engine: verify logits rel err {max(rels)} > "
+                                       f"{LOGITS_REL_TOL}")
+    want = torch.cat(run[1:])
+    check(int(take) == GAMMA + 1 and torch.equal(out[0], want),
+          f"prefix engine: speculative_accept took {int(take)} tokens {out[0].tolist()} of the "
+          f"decode steps' {want.tolist()}")
+
+
+def echo_prompts(cfg, engine, rounds: int = 3) -> tuple[list, list]:
+    """Prompts that speculation accepts drafts on, even with random weights:
+    A + T + W + B + T, with A (168 tokens) and B (64) random, T a random
+    NGRAM-gram and W a span of ECHO_SPAN tokens: 250 tokens, one chunk, so
+    each is admitted in one shot and none decodes while another is
+    admitted (a chunked admission would run the others' steps plainly
+    between its chunks). Prompt lookup drafts what
+    followed T's first occurrence, so the drafts are accepted as far as the
+    model continues the prompt with W itself. W starts random and becomes,
+    `rounds` times, the greedy continuation of its own prompt (plain
+    decoding on `engine`): W is a small part of a long random context and
+    moves the continuation little, so it settles toward a fixed point.
+    Returns (prompts, spans)."""
+    rng = np.random.default_rng(8)
+    V = cfg.vocab_size
+    parts = [(rng.integers(1, V, 168), rng.integers(1, V, NGRAM), rng.integers(1, V, 64))
+             for _ in range(SLOTS)]
+    spans = [rng.integers(1, V, ECHO_SPAN) for _ in range(SLOTS)]
+
+    def build(a, t, b, w):
+        return np.concatenate([a, t, w, b, t]).astype(np.int32)
+
+    for _ in range(rounds):
+        ids = [engine.submit(build(*part, w), ECHO_SPAN) for part, w in zip(parts, spans)]
+        engine.run_until_drained()
+        spans = [np.asarray(engine.result(i)) for i in ids]
+    return [build(*part, w) for part, w in zip(parts, spans)], spans
 
 
 def prefix_engine(cfg, model):
@@ -902,30 +1012,24 @@ def path_int8_prefix_spec(torch, dev, cfg, model, profile: bool = False) -> dict
     With `profile`, a torch.profiler breakdown of steady verify passes."""
     t_path = time.perf_counter()
     V, prompts = cfg.vocab_size, prefix_mix(cfg)
+    plan = prefix_admissions(prompts)
     engine = prefix_engine(cfg, model)
     torch.cuda.synchronize()
     stats0, hits0 = dict(engine.stats), engine.stats_prefix["hit_blocks"]
     reset_counts()
-    ttft_by_route, admissions, want_hits = {}, [], 0
+    ttft_by_route = {}
     for rnd, spec in ((1, False), (2, True)):
         ids = []
-        for i, p in enumerate(prompts):
-            if rnd == 2:  # every shareable block is cached (parked or live)
-                hit = (len(p) - 1) // BLOCK
-            else:  # the unrelated prompt and the prefix's first prompt miss
-                hit = SHARED_PREFIX // BLOCK if i >= 2 else 0
-            route = admission_route(len(p), hit)
+        for _, p, hit, route in (a for a in plan if a[0] == rnd):
             before = engine.stats_prefix["hit_blocks"]
             t0 = time.perf_counter()
             rid = engine.submit(p, NEW_TOKENS)  # returns once the first token is on the host
-            ttft_by_route.setdefault(route[0], []).append(time.perf_counter() - t0)
+            ttft_by_route.setdefault(route_label(route, hit), []).append(time.perf_counter() - t0)
             check(rid is not None, f"prefix engine: round {rnd} refused a request")
             check(engine.stats_prefix["hit_blocks"] - before == hit,
                   f"prefix engine: round {rnd}, {len(p)}-token prompt hit "
                   f"{engine.stats_prefix['hit_blocks'] - before} blocks, expected {hit}")
             ids.append(rid)
-            admissions.append(route)
-            want_hits += hit
         engine._pipeline.flush()
         torch.cuda.synchronize()
         done0, spec0 = tokens_so_far(engine, ids), dict(engine.stats)
@@ -960,7 +1064,8 @@ def path_int8_prefix_spec(torch, dev, cfg, model, profile: bool = False) -> dict
     launches = read_counts()
     steps = engine.stats["decode_steps"] - stats0["decode_steps"]
     spec_dispatches = engine.stats["spec_dispatches"] - stats0["spec_dispatches"]
-    chunked = sum(1 for route, _ in admissions if route.startswith("chunked"))
+    want_hits = sum(hit for _, _, hit, _ in plan)
+    chunked = sum(1 for *_, route in plan if route[0] == "chunked")
     check(engine.stats_prefix["hit_blocks"] - hits0 == want_hits,
           f"prefix engine: {engine.stats_prefix['hit_blocks'] - hits0} hit blocks, "
           f"expected {want_hits}")
@@ -970,38 +1075,54 @@ def path_int8_prefix_spec(torch, dev, cfg, model, profile: bool = False) -> dict
     check(engine.stats["interleaved_decode_steps"] > 0, "prefix engine: no decode step ran "
                                                         "between chunks")
     check(spec_dispatches > 0, "prefix engine: no speculative dispatch ran")
-    print(f"prefix engine: {len(admissions)} admissions ({want_hits} hit blocks, {chunked} "
+    print(f"prefix engine: {len(plan)} admissions ({want_hits} hit blocks, {chunked} "
           f"chunked, {engine.stats['interleaved_decode_steps']} decode steps between chunks), "
           f"{steps} decode steps, {spec_dispatches} verify passes")
     print("prefix engine: median TTFT by route: " + ", ".join(
         f"{route}: {statistics.median(ts) * 1e3:.1f} ms ({len(ts)} admissions)"
         for route, ts in sorted(ttft_by_route.items())))
     check_launches("prefix engine", launches,
-                   expected_prefix_launches(cfg, admissions, steps, spec_dispatches))
+                   expected_prefix_launches(cfg, plan, steps, spec_dispatches))
     # Checks outside the counted run: the routes and the verify pass on the
     # kernel path, then the device loop against the host-loop oracle.
-    check_prefix_routes(torch, dev, cfg, engine, prompts[4], SHARED_PREFIX // BLOCK)
+    check_engine_routes(torch, dev, cfg, engine, prompts)
     check_verify_logits(torch, dev, cfg, model, np.random.default_rng(6))
     if profile:
         phase_profile(torch, engine, prompts, "int8 speculative engine", speculative=True)
+    echo, spans = echo_prompts(cfg, engine)
     del engine
     torch.cuda.empty_cache()
-    streams = []
+    # The device loop against the host-loop oracle: the round-2 prompts (no
+    # draft accepted on random weights), then the echo prompts, whose
+    # accepted drafts drive multi-token commits and the budget clamp.
+    streams, accepted = [], []
     for sync in (False, True):
         fresh = prefix_engine(cfg, model)
         ids = [fresh.submit(p, NEW_TOKENS) for p in prompts]
         fresh.run_until_drained_speculative(gamma=GAMMA, ngram=NGRAM, sync=sync)
+        mix = dict(fresh.stats)
+        ids += [fresh.submit(p, ECHO_SPAN) for p in echo]
+        fresh.run_until_drained_speculative(gamma=GAMMA, ngram=NGRAM, sync=sync)
         streams.append([fresh.result(i) for i in ids])
+        accepted.append((mix["spec_accepted"], fresh.stats["spec_accepted"] - mix["spec_accepted"]))
         print(f"prefix engine, fresh, {'host-loop oracle' if sync else 'device loop'}: "
-              f"{fresh.stats['spec_dispatches']} verify passes, {fresh.stats['spec_accepted']}/"
-              f"{fresh.stats['spec_drafted']} drafts accepted")
+              f"round-2 prompts {mix['spec_dispatches']} verify passes, {mix['spec_accepted']}/"
+              f"{mix['spec_drafted']} drafts accepted; echo prompts "
+              f"{fresh.stats['spec_dispatches'] - mix['spec_dispatches']} verify passes, "
+              f"{accepted[-1][1]}/{fresh.stats['spec_drafted'] - mix['spec_drafted']} accepted")
         del fresh
         torch.cuda.empty_cache()
+    settled = [int(np.argmin(np.append(np.asarray(out) == w, False)))
+               for out, w in zip(streams[0][len(prompts):], spans)]
+    print(f"prefix engine: echo spans reproduced for {settled} of their {ECHO_SPAN} tokens")
     differ = [i for i, (a, b) in enumerate(zip(*streams)) if a != b]
     check(not differ, f"prefix engine: device loop and host-loop oracle differ on requests "
                       f"{differ}")
+    check(accepted[0] == accepted[1] and accepted[0][1] > 0,
+          f"prefix engine: accepted drafts (round-2, echo) device loop {accepted[0]}, oracle "
+          f"{accepted[1]}")
     print(f"prefix engine: device loop and host-loop oracle token-identical on all "
-          f"{len(prompts)} requests; path wall time {time.perf_counter() - t_path:.1f} s")
+          f"{len(streams[0])} requests; path wall time {time.perf_counter() - t_path:.1f} s")
     return launches
 
 

@@ -84,6 +84,34 @@ from lws_tpu_torch.serving.engine import Engine, sample_logits_per_slot
 from lws_tpu_torch.serving.pipeline import DecodePipeline, remaining_steps
 
 
+def pow2_rows(n: int, floor: int) -> int:
+    """The least power-of-two multiple of `floor` (a power of two) that
+    holds n rows."""
+    rows = floor
+    while rows < n:
+        rows *= 2
+    return rows
+
+
+def admission_route(plen: int, hit_len: int, block_size: int, max_len: int,
+                    prefill_chunk: Optional[int]) -> tuple[str, int, int]:
+    """The prefill that admitting a `plen`-token prompt with `hit_len`
+    cached tokens runs: (route, rows of each forward, forwards).
+      * "chunked" when more than one chunk is left to compute: forwards of
+        prefill_chunk rows;
+      * "one-shot" on a miss: the prompt's bucket, a power of two of at
+        least one block, capped at max_len;
+      * "suffix" on a hit: the suffix in its own power-of-two bucket of at
+        least 8 rows, whose padding lands in the dense view's scratch tail.
+    """
+    s_true = plen - hit_len
+    if prefill_chunk is not None and s_true > prefill_chunk:
+        return "chunked", prefill_chunk, -(-s_true // prefill_chunk)
+    if not hit_len:
+        return "one-shot", min(pow2_rows(plen, block_size), max_len), 1
+    return "suffix", pow2_rows(s_true, 8), 1
+
+
 @dataclass
 class PagedRequest:
     request_id: int
@@ -458,10 +486,7 @@ class PagedBatchEngine:
             raise ValueError("prompt + max_new_tokens exceeds max_len")
         # Power-of-two length bucket, floored at one block so the prefill
         # scatter is block-aligned.
-        bucket = self.block_size
-        while bucket < plen:
-            bucket *= 2
-        bucket = min(bucket, self.max_len)
+        bucket = min(pow2_rows(plen, self.block_size), self.max_len)
         footprint = max(bucket, plen + max_new_tokens)
         n_blocks = -(-footprint // self.block_size)
         sampling = (temperature, top_k, top_p, seed)
@@ -473,7 +498,8 @@ class PagedBatchEngine:
             return None
         blocks = [self._free_blocks.popleft() for _ in range(n_blocks)]
         req, gen = self._new_request(prompt, max_new_tokens, sampling, blocks)
-        if self.prefill_chunk is not None and plen > self.prefill_chunk:
+        if admission_route(plen, 0, self.block_size, self.max_len,
+                           self.prefill_chunk)[0] == "chunked":
             first = self._admit_chunked(req, gen, bucket, 0, None)
         else:
             first = self._admit_one_shot(req, gen, bucket)
@@ -534,7 +560,8 @@ class PagedBatchEngine:
             return None
         blocks = hits + new_blocks
         req, gen = self._new_request(prompt, max_new_tokens, sampling, blocks, hits)
-        if self.prefill_chunk is not None and plen - hit_len > self.prefill_chunk:
+        route, s_suf, _ = admission_route(plen, hit_len, bs, self.max_len, self.prefill_chunk)
+        if route == "chunked":
             dense = None
             if hits:
                 # The hit blocks gathered once, padded by one chunk so the
@@ -542,17 +569,14 @@ class PagedBatchEngine:
                 ids = torch.tensor(blocks[: bucket // bs], device=self.device)
                 dense = self._dense_view(ids, self.prefill_chunk, hit_len)
             first = self._admit_chunked(req, gen, bucket, hit_len, dense)
-        elif not hits:
+        elif route == "one-shot":
             first = self._admit_one_shot(req, gen, bucket)
         else:
-            # The suffix in its own power-of-two bucket (at least 8): true
-            # rows land in [hit_len, plen) of the view, the padding past
-            # bucket in the scratch tail the scatter drops.
+            # The suffix in its own bucket of s_suf rows: true rows land in
+            # [hit_len, plen) of the view, the padding past bucket in the
+            # scratch tail the scatter drops.
             self._set_table(req.slot, blocks)
             s_true = plen - hit_len
-            s_suf = 8
-            while s_suf < s_true:
-                s_suf *= 2
             suffix = np.zeros((1, s_suf), np.int64)
             suffix[0, :s_true] = prompt[hit_len:]
             logits = self._insert_with_prefix(
@@ -789,12 +813,7 @@ class PagedBatchEngine:
         is_greedy = temp <= 0.0
         tokens_in = torch.cat(
             [tokens[:, None], torch.where(is_greedy[:, None], drafts, tokens[:, None])], dim=1)
-        all_logits, _ = forward_verify_paged(self.params, tokens_in, self.cache, table, pos_b)
-        greedy = torch.argmax(all_logits, dim=-1).to(torch.int32)
-        if sample:
-            sampled = sample_logits_per_slot(all_logits[:, 0], self._gens, temp, top_k, top_p)
-        else:
-            sampled = greedy[:, 0]
+        greedy, sampled = self._spec_verify(tokens_in, pos_b, table, temp, top_k, top_p, sample)
         take, out = speculative_accept(torch.where(is_greedy[:, None], drafts, -1), greedy, rem)
         out = torch.where(is_greedy[:, None], out, sampled[:, None].expand_as(out))
         take = torch.where(is_greedy, take, torch.clamp(rem, max=1))
@@ -873,9 +892,10 @@ class PagedBatchEngine:
         self.stats["spec_dispatches"] += 1
         return True
 
-    def _spec_verify_sync(self, tokens_in, pos, table, temp, top_k, top_p, sample: bool):
-        """The sync oracle's device part: the verify pass, its argmax
-        [slots, S] and each slot's sampled column-0 token [slots]."""
+    def _spec_verify(self, tokens_in, pos, table, temp, top_k, top_p, sample: bool):
+        """The verify pass both speculative loops launch: its argmax [slots,
+        S] and each slot's column-0 token [slots], sampled from the slot's
+        generator when `sample`, else the argmax."""
         all_logits, _ = forward_verify_paged(self.params, tokens_in, self.cache, table, pos)
         greedy = torch.argmax(all_logits, dim=-1).to(torch.int32)
         if sample:
@@ -912,7 +932,7 @@ class PagedBatchEngine:
                 tokens_in[s, 1:] = d
                 pos[s] = len(r.prompt) + len(r.tokens) - 1
             _, table, (temp, top_k, top_p) = self._dispatch_inputs()
-            greedy, sampled = self._spec_verify_sync(
+            greedy, sampled = self._spec_verify(
                 torch.tensor(tokens_in, device=self.device), torch.tensor(pos, device=self.device),
                 table, temp, top_k, top_p, self._sampled_active > 0)
         greedy_h, sampled_h = greedy.cpu().numpy(), sampled.cpu().numpy()
