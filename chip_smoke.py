@@ -6,7 +6,7 @@ kernels to their plain PyTorch versions.
     python3 chip_smoke.py --kernels    # build + kernel checks only (no engine)
     python3 chip_smoke.py --profile    # every phase, and a torch.profiler breakdown
                                        # of steady decode steps of both paged engines
-                                       # and of steady verify passes
+                                       # and the MoE engine, and of steady verify passes
 
 Phases (each raises on failure; the script then exits non-zero and prints
 no result line):
@@ -62,7 +62,27 @@ no result line):
      two fresh engines (token-identical streams);
   8. the dense Engine on the same int8 model: its batched prefill and one
      decode step held to the plain path, then one batch of 8 prompts of 512
-     tokens, 64 new tokens each.
+     tokens, 64 new tokens each;
+  9. the BatchEngine on the same int8 model (slots=8, max_len=2048): a
+     slotted decode step from its own admissions (per-slot positions
+     100..1000, the int8 decode kernel with a [B] pos) held to the plain
+     path, then the paged phases' 8 prompts admitted 4 steps apart, 64 new
+     tokens each; its streams are compared with the int8 paged engine's
+     (printed, not gated: bf16 near-ties may fork);
+ 10. the dense Engine(batch_size=1) on the same model: prefill_chunked of a
+     1,000-token prompt in chunks of 256 (first-token logits and dequantized
+     cache rows held to the one-shot prefill), prefill_chunked_stream of it
+     (the emitted K/V bytes equal the final cache rows), generate_speculative
+     (gamma 4, 3-gram lookup) on 8 echo prompts (a verify pass held column by
+     column to decode steps; acceptance, tokens per dispatch and tok/s
+     printed);
+ 11. MoE: the Mixtral-8x7B geometry (32 layers, 8 experts, top-2, capacity
+     factor 2.0) with random int8 weights built in place (~47 GB) and an
+     int8 K/V pool: prefill and paged decode logits held to the plain path,
+     int8_matmul held to its plain version at every per-expert row count the
+     path gives it (timed beside its bound and bf16 F.linear), then
+     PagedBatchEngine(slots=8, block_size=16, max_len=2048) serving the 8
+     prompts (32 new tokens each) and one Engine.generate.
 Every engine path is driven with all kernels' launch counts set to 0 just
 before it and read just after, and the counts are checked exactly. The last
 lines are a JSON line of per-kernel numbers, the card line, and
@@ -106,6 +126,11 @@ SLOTS, MAX_LEN, BLOCK, NEW_TOKENS, ROUNDS = 8, 2048, 16, 64, 3
 SHARED_PREFIX, CHUNK, INTERLEAVE, GAMMA, NGRAM = 512, 256, 8, 4, 3
 VERIFY_ROWS = SLOTS * (GAMMA + 1)
 ECHO_SPAN = 12  # the span an echo prompt holds, and the tokens asked of it
+# The batch-engine slice: decode steps between the batch engine's staggered
+# admissions; the dense engine's chunked/streamed prompt (4 chunks of CHUNK,
+# the last padded) and the tokens asked of each speculative request; the
+# tokens asked of each MoE request.
+STAGGER, DENSE_PROMPT, SPEC_NEW, MOE_NEW_TOKENS = 4, 1000, 32, 32
 
 
 class SmokeFailure(RuntimeError):
@@ -574,19 +599,24 @@ def engine_bounds(cfg, weight_bytes: int, lens, new_tokens: int,
     prefill bound in seconds: the median over requests, or with `batched`
     that of one prefill of them all; the decode tok/s bound). A prefill
     runs 2*params flops per token through every product but the lm_head
-    (last token only) plus causal attention, and reads the weights once; a
-    decode step reads `weight_bytes` and every live K/V row (kv_row_bytes,
-    int8 with scales when kv_quant) once."""
+    (last token only) plus causal attention, and reads the weights once; an
+    MoE layer's experts instead compute their n_experts x capacity rows
+    each, filled or not (dense dispatch). A decode step reads `weight_bytes`
+    (every expert's, for MoE) and every live K/V row (kv_row_bytes, int8
+    with scales when kv_quant) once."""
     from lws_tpu_torch.models.flagship import kv_row_bytes
+    from lws_tpu_torch.models.llama import moe_capacity
 
     V, D, L = cfg.vocab_size, cfg.d_model, cfg.n_layers
-    H, hd = cfg.n_heads, cfg.head_dim
-    prod_params = cfg.n_params() - 2 * V * D
+    H, hd, E = cfg.n_heads, cfg.head_dim, cfg.n_experts
+    expert_params = 3 * D * cfg.d_ff  # one expert's products
+    prod_params = cfg.n_params() - 2 * V * D - L * E * expert_params
     prefill = []
     for n in lens:
         bucket = bucket_of(n)
-        prefill.append(2 * prod_params * bucket + 2 * V * D
-                       + L * 4 * H * hd * bucket * (bucket + 1) / 2)
+        expert_rows = E * moe_capacity(cfg.capacity_factor, bucket, cfg.top_k, E) if E else 0
+        prefill.append(2 * prod_params * bucket + 2 * L * expert_params * expert_rows
+                       + 2 * V * D + L * 4 * H * hd * bucket * (bucket + 1) / 2)
     prefill_s = bound(sum(prefill), weight_bytes)[0] / 1e3 if batched else \
         statistics.median(bound(f, weight_bytes)[0] / 1e3 for f in prefill)
     steps = new_tokens - 1
@@ -621,9 +651,22 @@ def check_logits_paths(torch, dev, cfg, model, rng, what: str) -> None:
     check(not any(read_counts().values()), f"{what}: the plain prefill launched {read_counts()}")
     check(tuple(lk.shape) == (1, V) and bool(torch.isfinite(lk).all()), "prefill logits shape/finite")
     rel = ((lk - lp).abs().max() / lp.abs().max()).item()
-    kv_err = (ck.k[:, :, :plen].float() - cp.k[:, :, :plen].float()).abs().max().item()
+    kv_diff = (ck.k[:, :, :plen].float() - cp.k[:, :, :plen].float()).abs().amax(-1)
+    # int8 K: the share of (layer, token, kv head) rows more than 2 steps
+    # apart, which rounding alone does not give (an MoE token whose top-k
+    # experts differ between the paths at an earlier layer does), over all
+    # layers and at layers 0, 1, 2, 4, ...: a share that grows with depth
+    # from 0 at layer 0 is routing, one that jumps at layer 1 an expert's
+    # product.
+    far = ""
+    if cfg.kv_quant:
+        by_layer = (kv_diff > 2).float().mean(dim=(1, 2, 3))
+        layers = [0] + [2**i for i in range(cfg.n_layers.bit_length()) if 2**i < cfg.n_layers]
+        far = (f", rows > 2 int8 steps apart {by_layer.mean().item():.3%} (layers "
+               + ", ".join(f"{l}: {by_layer[l].item():.2%}" for l in layers) + ")")
     print(f"{what}: prefill logits kernel vs plain: max rel err {rel:.3e} "
-          f"(argmax {int(lk.argmax())} vs {int(lp.argmax())}); K cache max abs err {kv_err:.3e}")
+          f"(argmax {int(lk.argmax())} vs {int(lp.argmax())}); K cache max abs err "
+          f"{kv_diff.max().item():.3e}{far}")
     check(rel <= LOGITS_REL_TOL, f"{what}: prefill logits rel err {rel} > {LOGITS_REL_TOL}")
     n_blocks = bucket // BLOCK
     pool_k = init_paged_cache(cfg, n_blocks + 2, BLOCK, dev)
@@ -648,16 +691,18 @@ def check_logits_paths(torch, dev, cfg, model, rng, what: str) -> None:
     check(rel_d <= LOGITS_REL_TOL, f"{what}: decode logits rel err {rel_d} > {LOGITS_REL_TOL}")
 
 
-def serve_paged(torch, dev, cfg, model, prompts, what: str) -> tuple:
+def serve_paged(torch, dev, cfg, model, prompts, what: str, rounds: int = ROUNDS,
+                new_tokens: int = NEW_TOKENS) -> tuple:
     """PagedBatchEngine(slots=8, max_len=2048, block_size=16) serves the 8
-    prompts for ROUNDS rounds (64 new tokens each) after a warm-up request,
+    prompts for `rounds` rounds (`new_tokens` each) after a warm-up request,
     with the launch counts reset just before and read just after. Returns
-    (launches, decode steps, the engine)."""
+    (launches, decode steps, the engine, the last round's streams)."""
     from lws_tpu_torch.models.quant import quantized_bytes
     from lws_tpu_torch.serving.paged_engine import PagedBatchEngine
 
     V = cfg.vocab_size
-    engine = PagedBatchEngine(cfg, model, slots=SLOTS, max_len=MAX_LEN, block_size=BLOCK)
+    engine = PagedBatchEngine(cfg, model, slots=SLOTS, max_len=MAX_LEN, block_size=BLOCK,
+                              device=model.device)
     rng = np.random.default_rng(1)
     warm = engine.submit(rng.integers(1, V, 64).astype(np.int32), 8)  # cuBLAS/allocator warm-up
     engine.run_until_drained()
@@ -669,11 +714,11 @@ def serve_paged(torch, dev, cfg, model, prompts, what: str) -> tuple:
     reset_counts()
     ttfts, rates = [], []
     by_bucket = {}  # prefill bucket -> TTFTs of its prompts over the rounds
-    for r in range(ROUNDS):
+    for r in range(rounds):
         ttft, ids = [], []
         for p in prompts:  # submit returns once the first token is on the host
             t0 = time.perf_counter()
-            rid = engine.submit(p, NEW_TOKENS)
+            rid = engine.submit(p, new_tokens)
             ttft.append(time.perf_counter() - t0)
             by_bucket.setdefault(bucket_of(len(p)), []).append(ttft[-1])
             check(rid is not None, f"{what}: engine refused a request with free slots and blocks")
@@ -684,22 +729,22 @@ def serve_paged(torch, dev, cfg, model, prompts, what: str) -> tuple:
         decode_s = time.perf_counter() - t0
         for rid in ids:
             out = engine.result(rid)
-            check(out is not None and len(out) == NEW_TOKENS,
+            check(out is not None and len(out) == new_tokens,
                   f"{what}: request {rid}: {out and len(out)} tokens")
             check(all(0 <= tok < V for tok in out), f"{what}: request {rid}: token outside [0, {V})")
         acct = engine.pool_accounting()
         check(acct["free"] == acct["total"] and acct["live"] == 0, f"{what}: pool not returned: {acct}")
-        decoded = SLOTS * (NEW_TOKENS - 1)
+        decoded = SLOTS * (new_tokens - 1)
         ttfts.append(statistics.median(ttft))
         rates.append(decoded / decode_s)
-        print(f"{what} round {r}: {SLOTS} requests, prompts {lens}, {NEW_TOKENS} tokens "
+        print(f"{what} round {r}: {SLOTS} requests, prompts {lens}, {new_tokens} tokens "
               f"each: median TTFT {ttfts[-1] * 1e3:.1f} ms (max {max(ttft) * 1e3:.1f} ms), "
               f"decode {decoded} tokens in {decode_s:.3f} s = {rates[-1]:.1f} tok/s")
     launches = read_counts()
     steps = engine.stats["decode_steps"] - steps0
     peak = torch.cuda.max_memory_allocated(dev)
-    ttft_bound, rate_bound = engine_bounds(cfg, weight_bytes_per_step(cfg, model), lens, NEW_TOKENS)
-    print(f"{what}: median over {ROUNDS} rounds: TTFT {statistics.median(ttfts) * 1e3:.1f} ms "
+    ttft_bound, rate_bound = engine_bounds(cfg, weight_bytes_per_step(cfg, model), lens, new_tokens)
+    print(f"{what}: median over {rounds} rounds: TTFT {statistics.median(ttfts) * 1e3:.1f} ms "
           f"(bound {ttft_bound * 1e3:.1f} ms), decode {statistics.median(rates):.1f} tok/s "
           f"(bound {rate_bound:.1f} tok/s, {statistics.median(rates) / rate_bound:.1%} of it); "
           f"{steps} decode steps; parameters {quantized_bytes(model) / 1e9:.2f} GB; "
@@ -708,7 +753,7 @@ def serve_paged(torch, dev, cfg, model, prompts, what: str) -> tuple:
         f"{b}: {statistics.median(ts) * 1e3:.1f} ms ({len(ts)} admissions)"
         for b, ts in sorted(by_bucket.items())))
     check(steps > 0, f"{what}: no decode step ran")
-    return launches, steps, engine
+    return launches, steps, engine, [engine.result(rid) for rid in ids]
 
 
 def check_launches(what: str, got: dict, want: dict) -> None:
@@ -732,7 +777,7 @@ def path_bf16_paged(torch, dev, cfg) -> tuple:
     rng = np.random.default_rng(0)
     check_logits_paths(torch, dev, cfg, model, rng, "bf16 engine")
     prompts = [rng.integers(1, cfg.vocab_size, n).astype(np.int32) for n in paged_prompt_lens()]
-    launches, steps, engine = serve_paged(torch, dev, cfg, model, prompts, "bf16 engine")
+    launches, steps, engine, _ = serve_paged(torch, dev, cfg, model, prompts, "bf16 engine")
     L, admissions = cfg.n_layers, ROUNDS * SLOTS
     check_launches("bf16 engine", launches, {"flash_attention": L * admissions,
                                              "paged_decode_attention": L * steps})
@@ -749,7 +794,7 @@ def path_int8_paged(torch, dev, cfg, prompts) -> tuple:
     print(f"int8 engine: flagship 'full' kv_quant init_quantized_params "
           f"{time.perf_counter() - t0:.1f} s, {quantized_bytes(model) / 1e9:.2f} GB of parameters")
     check_logits_paths(torch, dev, cfg, model, np.random.default_rng(0), "int8 engine")
-    launches, steps, engine = serve_paged(torch, dev, cfg, model, prompts, "int8 engine")
+    launches, steps, engine, streams = serve_paged(torch, dev, cfg, model, prompts, "int8 engine")
     L, admissions = cfg.n_layers, ROUNDS * SLOTS
     small = ROUNDS * sum(1 for p in prompts if bucket_of(len(p)) <= 256)
     check_launches("int8 engine", launches, {
@@ -759,7 +804,7 @@ def path_int8_paged(torch, dev, cfg, prompts) -> tuple:
         # products at buckets <= 256 rows, and the lm_head row per admission.
         "int8_matmul": (7 * L + 1) * steps + 7 * L * small + admissions,
     })
-    return launches, engine
+    return launches, engine, streams
 
 
 def prefix_mix(cfg) -> list:
@@ -1188,6 +1233,483 @@ def path_int8_dense(torch, dev, cfg, model) -> dict:
     return launches
 
 
+def first_difference(a, b) -> int:
+    """The first step at which two token streams differ (their common
+    length if none)."""
+    return next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), min(len(a), len(b)))
+
+
+def batch_admission_products(cfg, lens) -> int:
+    """int8_matmul launches of BatchEngine admissions of prompts of `lens`:
+    each prefills its power-of-two bucket (at least 8 rows) alone, with the
+    7L products on the kernel at buckets of at most MAX_ROWS rows, and one
+    lm_head row."""
+    from lws_tpu_torch.ops.int8_matmul import MAX_ROWS
+    from lws_tpu_torch.serving.paged_engine import pow2_rows
+
+    return sum(7 * cfg.n_layers * (min(pow2_rows(n, 8), MAX_LEN) <= MAX_ROWS) + 1 for n in lens)
+
+
+def check_slotted_logits(torch, engine) -> None:
+    """One slotted decode step from the engine's own cache (its slots just
+    admitted at positions 100..1000), kernel path against plain path, each
+    on its own copy of the cache."""
+    from lws_tpu_torch.models.llama import KVCache, forward_decode_slotted
+
+    c = engine.cache
+    copies = [KVCache(c.k.clone(), c.v.clone(), 0, c.k_scale.clone(), c.v_scale.clone())
+              for _ in range(2)]
+    lk, _ = forward_decode_slotted(engine.params, engine.tokens, copies[0], engine.pos_b)
+    reset_counts()
+    lp, _ = forward_decode_slotted(engine.params, engine.tokens, copies[1], engine.pos_b,
+                                   plain=True)
+    torch.cuda.synchronize()
+    check(not any(read_counts().values()), f"batch engine: the plain step launched {read_counts()}")
+    check(tuple(lk.shape) == (SLOTS, engine.cfg.vocab_size) and bool(torch.isfinite(lk).all()),
+          "batch engine: slotted logits shape/finite")
+    rel = ((lk - lp).abs().max() / lp.abs().max()).item()
+    agree = (lk.argmax(-1) == lp.argmax(-1)).float().mean().item()
+    print(f"batch engine: slotted decode-step logits kernel vs plain at positions "
+          f"{engine.pos_b.tolist()}: max rel err {rel:.3e} (argmax agreement {agree:.0%})")
+    check(rel <= LOGITS_REL_TOL, f"batch engine: slotted logits rel err {rel} > {LOGITS_REL_TOL}")
+
+
+def path_int8_batch(torch, dev, cfg, model, prompts, paged_streams) -> tuple:
+    """BatchEngine(slots=8, max_len=2048) on the int8 flagship: a slotted
+    decode step from its own admissions held to the plain path, then the
+    paged phases' 8 prompts (64 new tokens each) admitted staggered, with
+    STAGGER steps between admissions, under exact launch counts. The greedy
+    streams are compared with the int8 paged engine's on the same weights
+    (printed: bf16 near-ties may fork). Returns (launches, the engine)."""
+    from lws_tpu_torch.serving.batch_engine import BatchEngine
+
+    t_path, V, L = time.perf_counter(), cfg.vocab_size, cfg.n_layers
+    engine = BatchEngine(cfg, model, slots=SLOTS, max_len=MAX_LEN, device=model.device)
+    rng = np.random.default_rng(9)
+    warm = engine.submit(rng.integers(1, V, 64).astype(np.int32), 8)  # cuBLAS/allocator warm-up
+    engine.run_until_drained()
+    check(engine.result(warm) is not None, "batch engine: warm-up request did not finish")
+    ids = [engine.submit(p, 2) for p in prompts]  # every slot admitted, none stepped yet
+    check_slotted_logits(torch, engine)
+    engine.run_until_drained()
+    check(all(len(engine.result(i)) == 2 for i in ids), "batch engine: check requests unfinished")
+    torch.cuda.synchronize()
+    steps0 = engine.stats["decode_steps"]
+    reset_counts()
+    t_run, ttft, ids = time.perf_counter(), [], []
+    for p in prompts:
+        t0 = time.perf_counter()
+        ids.append(engine.submit(p, NEW_TOKENS))  # returns once the first token is on the host
+        ttft.append(time.perf_counter() - t0)
+        check(ids[-1] is not None, "batch engine: a request was refused with a free slot")
+        for _ in range(STAGGER):
+            engine.step()
+    engine.run_until_drained()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t_run
+    launches = read_counts()
+    steps = engine.stats["decode_steps"] - steps0
+    streams = [engine.result(i) for i in ids]
+    for rid, out in zip(ids, streams):
+        check(out is not None and len(out) == NEW_TOKENS and all(0 <= t < V for t in out),
+              f"batch engine: request {rid}: {out and len(out)} tokens")
+    lens = [len(p) for p in prompts]
+    decoded = SLOTS * (NEW_TOKENS - 1)
+    rate = decoded / (wall - sum(ttft))
+    ttft_bound, rate_bound = engine_bounds(cfg, weight_bytes_per_step(cfg, model), lens, NEW_TOKENS)
+    print(f"batch engine: {SLOTS} requests admitted {STAGGER} steps apart, prompts {lens}, "
+          f"{NEW_TOKENS} tokens each: median TTFT {statistics.median(ttft) * 1e3:.1f} ms (bound "
+          f"{ttft_bound * 1e3:.1f} ms), decode {decoded} tokens in {wall - sum(ttft):.3f} s of "
+          f"{wall:.3f} s outside submit = {rate:.1f} tok/s (bound {rate_bound:.1f} tok/s, "
+          f"{rate / rate_bound:.1%} of it); {steps} decode steps")
+    same = [a == b for a, b in zip(streams, paged_streams)]
+    print(f"batch engine: {sum(same)} of {SLOTS} greedy streams equal the int8 paged engine's; "
+          f"first differing step per request: "
+          f"{[first_difference(a, b) for a, b in zip(streams, paged_streams)]}")
+    check_launches("batch engine", launches, {
+        "flash_attention": L * SLOTS,
+        "int8_decode_attention": L * steps,
+        "int8_matmul": (7 * L + 1) * steps + batch_admission_products(cfg, lens),
+    })
+    print(f"batch engine: path wall time {time.perf_counter() - t_path:.1f} s")
+    return launches, engine
+
+
+def dequantized_rows(cache, rows: int):
+    """Dequantized K and V rows [L, B, rows, Hkv, D] f32 of an int8 dense cache."""
+    return [x[:, :, :rows].float() * scale[:, :, :rows, :, None]
+            for x, scale in ((cache.k, cache.k_scale), (cache.v, cache.v_scale))]
+
+
+def check_dense_verify_logits(torch, dev, cfg, model, rng) -> None:
+    """The dense speculative step's verify pass (forward_with_cache at a
+    device position, all logits) over the model's own greedy drafts, held
+    column by column to GAMMA + 1 successive decode steps from a copy of
+    the same cache."""
+    from lws_tpu_torch.models.llama import KVCache, forward_prefill, forward_with_cache, init_cache
+
+    V, plen = cfg.vocab_size, 300
+    tokens = torch.tensor(rng.integers(1, V, (1, plen)), device=dev)
+    logits, cache = forward_prefill(model, tokens, init_cache(cfg, 1, MAX_LEN, dev))
+    steps_cache = KVCache(cache.k.clone(), cache.v.clone(), cache.pos, cache.k_scale.clone(),
+                          cache.v_scale.clone())
+    run, steps = [logits.argmax(-1).to(torch.int32)], []
+    for _ in range(GAMMA + 1):
+        dl, steps_cache = forward_with_cache(model, run[-1][:, None], steps_cache)
+        steps.append(dl)
+        run.append(dl.argmax(-1).to(torch.int32))
+    pos = torch.tensor([plen], dtype=torch.int32, device=dev)
+    vl, _ = forward_with_cache(model, torch.stack(run[:GAMMA + 1], dim=1), cache, all_logits=True,
+                               pos=pos)
+    torch.cuda.synchronize()
+    check(tuple(vl.shape) == (1, GAMMA + 1, V) and bool(torch.isfinite(vl).all()),
+          "dense verify logits shape/finite")
+    rels = [((vl[:, j] - dl).abs().max() / dl.abs().max()).item() for j, dl in enumerate(steps)]
+    agree = sum(int(vl[0, j].argmax()) == int(run[j + 1]) for j in range(GAMMA + 1))
+    print(f"dense engine: verify columns 0..{GAMMA} vs the successive decode steps: max rel err "
+          + ", ".join(f"{r:.3e}" for r in rels) + f"; {agree} of {GAMMA + 1} argmaxes agree")
+    check(max(rels) <= LOGITS_REL_TOL, f"dense engine: verify logits rel err {max(rels)} > "
+                                       f"{LOGITS_REL_TOL}")
+
+
+def path_int8_dense_modes(torch, dev, cfg, model, batch_engine) -> dict:
+    """The dense Engine(batch_size=1) on the int8 flagship: prefill_chunked
+    (chunks of CHUNK) of a DENSE_PROMPT-token prompt, prefill_chunked_stream
+    of the same prompt (ring depth 1), and generate_speculative (GAMMA,
+    NGRAM-gram lookup) on 8 echo prompts built with `batch_engine` and on
+    one random prompt that fills the cache to max_len with its tokens, so
+    its loop ends in single tail steps, under exact launch counts. Then,
+    outside the counted run: the chunked logits and cache rows against the
+    one-shot prefill, the streamed bytes against the final cache rows, the
+    verify pass against decode steps, the speculative streams against plain
+    generate(), and the max_len request's stream against an independent
+    forward (check_greedy_chain)."""
+    from lws_tpu_torch.models.convert import to_numpy
+    from lws_tpu_torch.models.llama import forward_prefill, init_cache
+    from lws_tpu_torch.serving.engine import Engine
+
+    t_path, V, L = time.perf_counter(), cfg.vocab_size, cfg.n_layers
+    engine = Engine(cfg, model, batch_size=1, max_len=MAX_LEN, device=model.device)
+    rng = np.random.default_rng(10)
+    engine.generate(rng.integers(1, V, (1, 32)).astype(np.int32), 4)  # warm-up
+    echo, _ = echo_prompts(cfg, batch_engine)
+    prompt = rng.integers(1, V, (1, DENSE_PROMPT)).astype(np.int32)
+    long_prompt = rng.integers(1, V, (1, MAX_LEN - SPEC_NEW)).astype(np.int32)
+    sampled = []
+    sample = engine._sample
+    engine._sample = lambda logits: (sampled.append(logits), sample(logits))[1]
+    emitted = []
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    tok_c, cache_c = engine.prefill_chunked(prompt, chunk_size=CHUNK)
+    first = int(tok_c[0])
+    t_chunked = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tok_s, cache_s, stats = engine.prefill_chunked_stream(
+        prompt, CHUNK, emit=lambda lo, hi, arrays: emitted.append((lo, hi, arrays)), ring_depth=1)
+    t_stream = time.perf_counter() - t0
+    del engine._sample  # the class's method again
+    spec = [engine.generate_speculative(p[None], SPEC_NEW, gamma=GAMMA, ngram=NGRAM)
+            for p in [*echo, long_prompt[0]]]
+    launches = read_counts()
+    chunked_logits = sampled[0]
+    n_chunks = -(-DENSE_PROMPT // CHUNK)
+    print(f"dense engine: prefill_chunked of {DENSE_PROMPT} tokens in {n_chunks} chunks of {CHUNK}: "
+          f"{t_chunked * 1e3:.1f} ms to the first token; prefill_chunked_stream "
+          f"{t_stream * 1e3:.1f} ms, {stats['chunks']} chunks, gather {stats['gather_s'] * 1e3:.1f} ms")
+    # The counted run's expected launches: each chunk's 7L products at CHUNK
+    # rows and one lm_head row, twice; per speculative request its one-shot
+    # prefill (flash, 7L products at its length, one lm_head row), 7L + 1
+    # products per verify pass (GAMMA + 1 rows) and per single tail step,
+    # whose attention is the int8 decode kernel. The max_len request's
+    # prefill has more than MAX_ROWS rows, so only its lm_head row is
+    # int8_matmul's.
+    from lws_tpu_torch.ops.int8_matmul import MAX_ROWS
+    passes = [r.spec_stats["drafted"] // GAMMA for r in spec]
+    tails = [r.spec_stats["dispatches"] - n for r, n in zip(spec, passes)]
+    check(min(tails) >= 0, f"dense engine: tail steps {tails}")
+    check(tails[-1] > 0, "dense engine: the max_len request ran no tail step")
+    check_launches("dense modes", launches, {
+        "flash_attention": L * len(spec),
+        "int8_decode_attention": L * sum(tails),
+        "int8_matmul": 2 * (7 * L * n_chunks + 1) + len(echo) * (7 * L + 1)
+                       + 7 * L * (long_prompt.shape[1] <= MAX_ROWS) + 1
+                       + (7 * L + 1) * (sum(passes) + sum(tails)),
+    })
+    # Outside the counted run: the one-shot prefill of the same prompt.
+    ref, ref_cache = forward_prefill(model, torch.tensor(prompt, device=dev),
+                                     init_cache(cfg, 1, DENSE_PROMPT, dev))
+    rel = ((chunked_logits - ref).abs().max() / ref.abs().max()).item()
+    kv_rel = max((torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b)).item()
+                 for a, b in zip(dequantized_rows(cache_c, DENSE_PROMPT),
+                                 dequantized_rows(ref_cache, DENSE_PROMPT)))
+    print(f"dense engine: chunked vs one-shot prefill: first-token logits max rel err {rel:.3e} "
+          f"(argmax {first} vs {int(ref.argmax())}), cache rows [0, {DENSE_PROMPT}) rel err "
+          f"{kv_rel:.3e}")
+    check(cache_c.pos == cache_s.pos == DENSE_PROMPT, f"dense engine: pos {cache_c.pos}, "
+                                                      f"{cache_s.pos}")
+    check(rel <= LOGITS_REL_TOL, f"dense engine: chunked logits rel err {rel} > {LOGITS_REL_TOL}")
+    check(kv_rel <= POOL_REL_TOL, f"dense engine: chunked cache rows rel err {kv_rel} > "
+                                  f"{POOL_REL_TOL}")
+    check(stats["chunks"] == n_chunks and len(emitted) == n_chunks,
+          f"dense engine: {stats['chunks']} streamed chunks, expected {n_chunks}")
+    check(int(tok_s[0]) == first, "dense engine: streamed and chunked first tokens differ")
+    for lo, hi, arrays in emitted:
+        check(hi - lo == min(CHUNK, DENSE_PROMPT - lo), f"dense engine: chunk rows {lo}..{hi}")
+        for name in ("k", "v", "k_scale", "v_scale"):
+            want = to_numpy(getattr(cache_s, name)[:, :, lo:hi])
+            check(arrays[name].shape == want.shape and arrays[name].tobytes() == want.tobytes(),
+                  f"dense engine: streamed {name} rows {lo}..{hi} differ from the final cache")
+        check(np.array_equal(arrays["tokens"], prompt[:, lo:hi]), "dense engine: streamed tokens")
+    print(f"dense engine: the {n_chunks} streamed chunks equal the final cache rows byte for byte")
+    check_dense_verify_logits(torch, dev, cfg, model, np.random.default_rng(12))
+    spec_echo, long = spec[:-1], spec[-1]
+    n_echo = len(echo)
+    drafted = sum(r.spec_stats["drafted"] for r in spec_echo)
+    accepted = sum(r.spec_stats["accepted"] for r in spec_echo)
+    decode_s = sum(r.decode_s for r in spec_echo)
+    decoded = sum(r.tokens.shape[1] - 1 for r in spec_echo)
+    plain = [engine.generate(p[None], SPEC_NEW) for p in [*echo, long_prompt[0]]]
+    same = [np.array_equal(r.tokens, q.tokens) for r, q in zip(spec, plain)]
+    differ = [first_difference(r.tokens[0], q.tokens[0]) for r, q in zip(spec, plain)]
+    plain_rate = sum(q.decode_steps for q in plain[:-1]) / sum(q.decode_s for q in plain[:-1])
+    print(f"dense engine: generate_speculative on {n_echo} echo prompts, {SPEC_NEW} tokens "
+          f"each: {sum(passes[:-1])} verify passes + {sum(tails[:-1])} single steps, acceptance "
+          f"{accepted}/{drafted} = {accepted / max(drafted, 1):.1%}, "
+          f"{decoded / max(sum(passes[:-1]) + sum(tails[:-1]), 1):.2f} tokens per dispatch, "
+          f"{decoded / decode_s:.1f} tok/s (plain generate {plain_rate:.1f} tok/s); "
+          f"{sum(same[:-1])} of {n_echo} streams equal plain generate's, first differing step "
+          f"{differ[:-1]}")
+    check(accepted > 0, "dense engine: no echo draft was accepted")
+    check(long.tokens.shape == (1, SPEC_NEW), f"dense engine: max_len stream {long.tokens.shape}")
+    gap = check_greedy_chain(torch, dev, cfg, model, long_prompt, long.tokens[0])
+    print(f"dense engine: generate_speculative of a {long_prompt.shape[1]}-token prompt to "
+          f"max_len {MAX_LEN}: {passes[-1]} verify passes + {tails[-1]} single tail steps; "
+          f"stream {'equals' if same[-1] else 'differs from'} plain generate's (first differing "
+          f"step {differ[-1]}); each token's logit within {gap:.3e} of its row's max under an "
+          f"independent forward (limit {LOGITS_REL_TOL})")
+    print(f"dense engine modes: path wall time {time.perf_counter() - t_path:.1f} s")
+    return launches
+
+
+def check_greedy_chain(torch, dev, cfg, model, prompt, stream) -> float:
+    """Holds a greedy `stream` generated after `prompt` [1, P] to an
+    independent forward: the one-shot prefill of the prompt, then the
+    stream's tokens appended in one forward (dequantized cached attention,
+    no decode kernel). Each token's logit must lie within LOGITS_REL_TOL of
+    its row's largest |logit| below the row's max (bf16 near-ties may pick
+    either); returns the largest such gap."""
+    from lws_tpu_torch.models.llama import forward_prefill, forward_with_cache, init_cache
+    cache = init_cache(cfg, 1, prompt.shape[1] + len(stream), dev)
+    first, cache = forward_prefill(model, torch.tensor(prompt, device=dev), cache)
+    rest, _ = forward_with_cache(model, torch.tensor(stream[None, :-1], device=dev), cache,
+                                 all_logits=True)
+    logits = torch.cat([first[:, None], rest], 1)[0]  # [n, V] f32
+    chosen = logits.gather(1, torch.tensor(stream, device=dev).long()[:, None])[:, 0]
+    gap = ((logits.max(1).values - chosen) / logits.abs().max(1).values).max().item()
+    check(gap <= LOGITS_REL_TOL, f"dense engine: a max_len stream token is {gap:.3e} below its "
+                                 f"row's max (limit {LOGITS_REL_TOL})")
+    return gap
+
+
+def mixtral_config(torch):
+    """The Mixtral-8x7B geometry of the published mistralai/Mixtral-8x7B-v0.1
+    config (vocab 32000, d_model 4096, 32 layers, 32 heads, 8 KV heads, d_ff
+    14336, 8 experts, top-2, rope theta 1e6, RMSNorm eps 1e-5), with the JAX
+    package's capacity factor 2.0, bf16 compute and an int8 KV cache."""
+    from lws_tpu_torch.models.llama import LlamaConfig
+
+    return LlamaConfig(vocab_size=32000, d_model=4096, n_layers=32, n_heads=32, n_kv_heads=8,
+                       d_ff=14336, rope_theta=1e6, norm_eps=1e-5, max_seq_len=MAX_LEN,
+                       dtype=torch.bfloat16, param_dtype=torch.bfloat16, n_experts=8, top_k=2,
+                       capacity_factor=2.0, kv_quant=True)
+
+
+def init_quantized_moe(torch, cfg, generator, dev):
+    """Random int8 MoE weights written straight into a Llama(quantized=True),
+    with flagship.init_quantized_params' statistics (values uniform in
+    [-127, 127], flat scales fan_in**-0.5 / 73.3, wo and w_down damped by
+    (2L)**-0.5); each expert's products like the dense FFN's, the router
+    N(0, 1/d) in param_dtype. No bf16 copy of the model is ever made."""
+    from lws_tpu_torch.models.flagship import _INT8_UNIFORM_RMS
+    from lws_tpu_torch.models.llama import Llama
+
+    model = Llama(cfg, dev, quantized=True)
+
+    def fill(w, fan_in: int, damp: float = 1.0) -> None:
+        w.q.random_(-127, 128, generator=generator)
+        w.scale.fill_(fan_in**-0.5 * damp / _INT8_UNIFORM_RMS)
+
+    L, d, f = cfg.n_layers, cfg.d_model, cfg.d_ff
+    damp = (2 * L) ** -0.5
+    for blk in model.layers:
+        for w in (blk.wq, blk.wk, blk.wv, blk.w_gate, blk.w_up):
+            fill(w, d)
+        fill(blk.wo, cfg.n_heads * cfg.head_dim, damp)
+        fill(blk.w_down, f, damp)
+        blk.router.copy_(torch.randn(blk.router.shape, generator=generator, device=dev) * d**-0.5)
+    fill(model.embed, 1)
+    fill(model.lm_head, d)
+    return model
+
+
+def moe_launches(cfg, admission_rows, decode_steps: int, decode_rows: int) -> int:
+    """int8_matmul launches of MoE forwards: per layer the 4 attention
+    products and, per expert, its 3 products, each on the kernel when its
+    rows fit (the attention products' rows are the forward's tokens, the
+    experts' the batch times the capacity), and one lm_head product.
+    `admission_rows` lists (tokens, expert rows) of each prefill; a decode
+    step has `decode_rows` of each."""
+    from lws_tpu_torch.ops.int8_matmul import MAX_ROWS
+
+    L, E = cfg.n_layers, cfg.n_experts
+    per = lambda tokens, rows: L * (4 * (tokens <= MAX_ROWS) + 3 * E * (rows <= MAX_ROWS)) + 1
+    return sum(per(*r) for r in admission_rows) + decode_steps * per(*decode_rows)
+
+
+def check_expert_products(torch, dev, cfg, model, rows) -> dict:
+    """int8_matmul on one expert's weights (layer 0, expert 0: w_gate's
+    (4096, 14336) and w_down's (14336, 4096)) at each per-expert row count
+    the MoE path gives it, held to its plain version and timed beside its
+    bound and the bf16 F.linear of the same shape. Returns {rows: {...}}."""
+    import torch.nn.functional as F
+
+    from lws_tpu_torch.ops.int8_matmul import int8_matmul, int8_matmul_reference
+
+    g = torch.Generator(device=dev).manual_seed(13)
+    flush = scrubber(torch, dev)
+    blk = model.layers[0]
+    out = {}
+    for m in rows:
+        rec = {}
+        for name in ("w_gate", "w_down"):
+            q, scale = getattr(blk, name).q[0], getattr(blk, name).scale[0]
+            Fo, D = q.shape
+            x = torch.randn(m, D, generator=g, device=dev, dtype=torch.bfloat16)
+            got, ref = int8_matmul(x, q, scale), int8_matmul_reference(x, q, scale)
+            torch.cuda.synchronize()
+            mag = ref.float().abs().max().item()
+            err = (got.float() - ref.float()).abs().max().item()
+            check(torch.allclose(got.float(), ref.float(), atol=MATMUL_TOL * mag, rtol=MATMUL_TOL),
+                  f"MoE int8_matmul m={m} ({D},{Fo}): max abs err {err} (max |plain| {mag})")
+            w_bf16 = q.to(torch.bfloat16)
+            ms = time_cuda(torch, lambda: int8_matmul(x, q, scale), flush=flush)
+            plain_ms = time_cuda(torch, lambda: int8_matmul_reference(x, q, scale), reps=5,
+                                 warmup=1, flush=flush)
+            bf16_ms = time_cuda(torch, lambda: F.linear(x, w_bf16), flush=flush)
+            bound_ms, bound_by = bound(2 * m * D * Fo, m * D * 2 + Fo * D + Fo * 4 + m * Fo * 2)
+            print(f"MoE int8_matmul m={m:3d} (D,F)=({D},{Fo}) (per expert): rel err "
+                  f"{err / mag:.2e} kernel={ms:.4f} ms plain={plain_ms:.4f} ms bf16 "
+                  f"F.linear={bf16_ms:.4f} ms bound={bound_ms:.4f} ms ({bound_by}) "
+                  f"roofline={bound_ms / ms:.1%}")
+            rec[f"({D},{Fo})"] = {"ms": ms, "plain_ms": plain_ms, "bf16_linear_ms": bf16_ms,
+                                  "bound_ms": bound_ms, "max_abs_err": err / mag}
+            del w_bf16
+        out[m] = rec
+    return out
+
+
+def check_moe_routing_paths(torch, dev, cfg, model) -> None:
+    """check_logits_paths on the MoE model with every moe_ffn call's top-2
+    expert sets recorded, then the prompt tokens whose sets differ between
+    the kernel and the plain prefill, layer by layer, and the gap between
+    their 2nd and 3rd router probabilities where a token first differs:
+    near-ties that the two paths' bf16 rounding breaks differently."""
+    import torch.nn.functional as F
+
+    from lws_tpu_torch.models import llama
+
+    records, moe_ffn = [], llama.moe_ffn
+
+    def spy(x, router, *args, **kw):
+        top = torch.topk(torch.softmax(F.linear(x, router.to(x.dtype)).float(), -1), 3, dim=-1)
+        records.append((top.indices[..., :2].sort(dim=-1).values, top.values))
+        return moe_ffn(x, router, *args, **kw)
+
+    llama.moe_ffn = spy
+    try:
+        check_logits_paths(torch, dev, cfg, model, np.random.default_rng(0), "MoE engine")
+    finally:
+        llama.moe_ffn = moe_ffn
+    L, plen = cfg.n_layers, 300  # check_logits_paths' prompt: its prefills are the first 2L calls
+    ever = torch.zeros(plen, dtype=torch.bool, device=dev)
+    per_layer, gaps = [], []
+    for (k_sets, k_top), (p_sets, _) in zip(records[:L], records[L:2 * L]):
+        differ = (k_sets[0, :plen] != p_sets[0, :plen]).any(dim=-1)
+        gaps += (k_top[0, :plen, 1] - k_top[0, :plen, 2])[differ & ~ever].tolist()
+        ever |= differ
+        per_layer.append(int(differ.sum()))
+    print(f"MoE engine: prompt tokens whose top-2 experts differ between the kernel and plain "
+          f"prefill, by layer: {per_layer}; {int(ever.sum())} of {plen} tokens at some layer; "
+          f"2nd-3rd router probability gap where a token first differs: max "
+          f"{max(gaps, default=0.0):.4f}, median over all tokens of the last layer "
+          f"{(records[L - 1][1][0, :plen, 1] - records[L - 1][1][0, :plen, 2]).median().item():.4f}")
+
+
+def path_int8_moe(torch, dev, profile: bool = False) -> tuple:
+    """The Mixtral-8x7B geometry with random int8 weights (init_quantized_moe)
+    and an int8 K/V pool at full depth: prefill and decode logits kernel vs
+    plain; int8_matmul at every per-expert row count of the path; then
+    PagedBatchEngine(slots=8, block_size=16, max_len=2048) serving the paged
+    phases' 8 prompts (MOE_NEW_TOKENS each) and one Engine.generate of the
+    first prompt, each under exact launch counts. With `profile`, a
+    torch.profiler breakdown of steady paged decode steps. Returns
+    (launches, the per-expert product records)."""
+    from lws_tpu_torch.models.llama import moe_capacity
+    from lws_tpu_torch.models.quant import quantized_bytes
+    from lws_tpu_torch.ops.int8_matmul import MAX_ROWS
+    from lws_tpu_torch.serving.engine import Engine
+
+    cfg = mixtral_config(torch)
+    V, L, E, K, cf = cfg.vocab_size, cfg.n_layers, cfg.n_experts, cfg.top_k, cfg.capacity_factor
+    t0 = time.perf_counter()
+    model = init_quantized_moe(torch, cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    torch.cuda.synchronize()
+    expert_bytes = sum(getattr(b, n).q.numel() + getattr(b, n).scale.numel() * 4
+                       for b in model.layers for n in ("w_gate", "w_up", "w_down"))
+    print(f"MoE engine: Mixtral-8x7B geometry, int8, {L} layers x {E} experts: init "
+          f"{time.perf_counter() - t0:.1f} s, {quantized_bytes(model) / 1e9:.2f} GB of parameters "
+          f"({expert_bytes / 1e9:.2f} GB of experts), {cfg.n_params() / 1e9:.2f} B parameters")
+    check_moe_routing_paths(torch, dev, cfg, model)
+    rng = np.random.default_rng(14)
+    prompts = [rng.integers(1, V, n).astype(np.int32) for n in paged_prompt_lens()]
+    cap = lambda S: moe_capacity(cf, S, K, E)
+    paged_rows = [(bucket_of(len(p)), cap(bucket_of(len(p)))) for p in prompts]
+    dense_rows = (len(prompts[0]), cap(len(prompts[0])))
+    rows = sorted({r for _, r in paged_rows + [dense_rows]} | {SLOTS * cap(1), cap(1)})
+    products = check_expert_products(torch, dev, cfg, model, [r for r in rows if r <= MAX_ROWS])
+    launches, steps, engine, _ = serve_paged(torch, dev, cfg, model, prompts, "MoE engine",
+                                             rounds=1, new_tokens=MOE_NEW_TOKENS)
+    check_launches("MoE engine", launches, {
+        "flash_attention": L * SLOTS,
+        "paged_decode_attention_int8": L * steps,
+        "int8_matmul": moe_launches(cfg, paged_rows, steps, (SLOTS, SLOTS * cap(1))),
+    })
+    if profile:
+        phase_profile(torch, engine, prompts, "MoE engine")
+    del engine
+    torch.cuda.empty_cache()
+    dense = Engine(cfg, model, batch_size=1, max_len=MAX_LEN, device=model.device)
+    torch.cuda.synchronize()
+    reset_counts()
+    res = dense.generate(prompts[0][None], MOE_NEW_TOKENS)
+    counted = read_counts()
+    check(res.tokens.shape == (1, MOE_NEW_TOKENS) and ((res.tokens >= 0) & (res.tokens < V)).all(),
+          f"MoE dense engine: tokens {res.tokens.shape}")
+    print(f"MoE dense engine: one {len(prompts[0])}-token prompt, {MOE_NEW_TOKENS} tokens: TTFT "
+          f"{res.ttft_s * 1e3:.1f} ms, decode {res.decode_tokens_per_s:.1f} tok/s")
+    check_launches("MoE dense engine", counted, {
+        "flash_attention": L,
+        "int8_decode_attention": L * res.decode_steps,
+        "int8_matmul": moe_launches(cfg, [dense_rows], res.decode_steps, (1, cap(1))),
+    })
+    for name, n in counted.items():
+        launches[name] += n
+    print(f"MoE engines: path wall time {time.perf_counter() - t0:.1f} s")
+    return launches, products
+
+
 def phase_profile(torch, engine, prompts, what: str, steps: int = 16,
                   speculative: bool = False) -> None:
     """Device time by kernel family over `steps` steady decode steps of an
@@ -1260,8 +1782,8 @@ def main(argv=None) -> int:
     ap.add_argument("--kernels", action="store_true",
                     help="build and check the kernels only (no engine, no result line)")
     ap.add_argument("--profile", action="store_true",
-                    help="profile steady decode steps of both paged engines and steady "
-                         "verify passes (torch.profiler)")
+                    help="profile steady decode steps of both paged engines and the MoE "
+                         "engine, and steady verify passes (torch.profiler)")
     args = ap.parse_args(argv)
 
     import torch
@@ -1278,6 +1800,7 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 3
 
+    t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
     card = card_line()
     print(f"card: {card}")
@@ -1323,7 +1846,7 @@ def main(argv=None) -> int:
     del engine  # the bf16 weights and pool go before the int8 model is built
     torch.cuda.empty_cache()
     cfg8 = flagship_config("full", kv_quant=True)
-    by_path["int8 paged engine"], engine = path_int8_paged(torch, dev, cfg8, prompts)
+    by_path["int8 paged engine"], engine, paged_streams = path_int8_paged(torch, dev, cfg8, prompts)
     if args.profile:
         phase_profile(torch, engine, prompts, "int8 engine")
     model8 = engine.params
@@ -1333,12 +1856,22 @@ def main(argv=None) -> int:
         torch, dev, cfg8, model8, profile=args.profile)
     torch.cuda.empty_cache()
     by_path["int8 dense engine"] = path_int8_dense(torch, dev, cfg8, model8)
+    torch.cuda.empty_cache()
+    by_path["int8 batch engine"], batch_engine = path_int8_batch(torch, dev, cfg8, model8, prompts,
+                                                                 paged_streams)
+    by_path["int8 dense chunked/streamed/speculative"] = path_int8_dense_modes(
+        torch, dev, cfg8, model8, batch_engine)
+    del batch_engine, model8  # the flagship goes before the MoE model is built
+    torch.cuda.empty_cache()
+    by_path["int8 MoE engines"], kernels["int8_matmul"]["moe_expert_rows"] = path_int8_moe(
+        torch, dev, profile=args.profile)
     rows = []
     for name, rec in kernels.items():
         per_path = {path: counts[name] for path, counts in by_path.items() if counts[name]}
         check(per_path, f"{name}: no main path launched it")
         rows.append({"name": name, "launches": sum(per_path.values()),
                      "launches_by_path": per_path, **rec})
+    print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -14,6 +14,10 @@ attribute (`.q`, `.scale`): layer products q [L, D, F] + scale [L, F] cross
 as q[l].T [F, D] + scale[l] [F], lm_head q [D, V] as q.T [V, D] with scale
 [V]; the per-row embedding q [V, D] + scale [V] and the norms cross as they
 are. The model is then built with `quantized=True`.
+
+An MoE tree's expert products [L, E, D, F] (quantized: q [L, E, D, F] +
+scale [L, E, F]) cross as [E, F, D] per layer, its router [L, D, E] as
+[E, D], never quantized.
 """
 
 from __future__ import annotations
@@ -31,7 +35,7 @@ from lws_tpu_torch.models.quant import QuantizedArray
 def config_from_jax(jcfg) -> LlamaConfig:
     """The port's LlamaConfig for a lws_tpu LlamaConfig (read by attribute;
     dtypes by numpy name). Raises on a feature the port does not have yet."""
-    for feature in ("n_experts", "context_parallel", "pipeline_microbatches"):
+    for feature in ("context_parallel", "pipeline_microbatches"):
         if getattr(jcfg, feature, None):
             raise ValueError(f"config_from_jax: {feature} is not ported yet")
     kw = {f.name: getattr(jcfg, f.name) for f in dataclasses.fields(LlamaConfig)
@@ -47,7 +51,10 @@ def _to_torch(a: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(a)
 
 
-def _to_numpy(t: torch.Tensor) -> np.ndarray:
+def to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A host copy of `t` as numpy; bf16 as ml_dtypes bfloat16 where
+    ml_dtypes is installed (JAX's own host type), else as its uint16 bits.
+    The bytes are the tensor's either way."""
     t = t.detach().cpu().contiguous()
     if t.dtype == torch.bfloat16:
         bits = t.view(torch.int16).numpy().view(np.uint16)
@@ -74,11 +81,11 @@ def _copy_weight(module, leaf, name: str, transpose: bool, index=None) -> None:
 
     if hasattr(leaf, "q"):
         q = part(leaf.q)
-        _copy(module.q, q.T if transpose else q, f"{name}.q")
+        _copy(module.q, q.transpose(-1, -2) if transpose else q, f"{name}.q")
         _copy(module.scale, part(leaf.scale), f"{name}.scale")
     else:
         w = part(leaf)
-        _copy(module.weight, w.T if transpose else w, name)
+        _copy(module.weight, w.transpose(-1, -2) if transpose else w, name)
 
 
 @torch.no_grad()
@@ -97,14 +104,16 @@ def params_from_jax(tree: dict, cfg: LlamaConfig, device: DeviceLike = None) -> 
         for name in LAYER_PRODUCTS:
             _copy_weight(getattr(block, name), layers[name], f"layers.{name}[{l}]",
                          transpose=True, index=l)
+        if block.router is not None:
+            _copy(block.router, _to_torch(layers["router"][l]).T, f"layers.router[{l}]")
     return model
 
 
 def _weight_to_numpy(module, transpose: bool):
     if hasattr(module, "q"):
-        return QuantizedArray(q=_to_numpy(module.q.T if transpose else module.q),
-                              scale=_to_numpy(module.scale))
-    return _to_numpy(module.weight.T if transpose else module.weight)
+        return QuantizedArray(q=to_numpy(module.q.transpose(-1, -2) if transpose else module.q),
+                              scale=to_numpy(module.scale))
+    return to_numpy(module.weight.transpose(-1, -2) if transpose else module.weight)
 
 
 def _stack(leaves: list):
@@ -116,17 +125,20 @@ def _stack(leaves: list):
 
 def params_to_numpy(model: Llama) -> dict:
     """The inverse bridge: the JAX tree layout (stacked layers, [in, out]
-    products) as numpy arrays, quantized weights as the port's
-    QuantizedArray of numpy q/scale; bf16 as ml_dtypes bfloat16 where
-    ml_dtypes is installed, else as its uint16 bits."""
+    products, [L, E, D, F] experts, [L, D, E] router) as numpy arrays,
+    quantized weights as the port's QuantizedArray of numpy q/scale; bf16 as
+    ml_dtypes bfloat16 where ml_dtypes is installed, else as its uint16
+    bits."""
     blocks = list(model.layers)
-    layers = {name: np.stack([_to_numpy(getattr(b, name)) for b in blocks])
+    layers = {name: np.stack([to_numpy(getattr(b, name)) for b in blocks])
               for name in LAYER_NORMS}
     layers.update({name: _stack([_weight_to_numpy(getattr(b, name), True) for b in blocks])
                    for name in LAYER_PRODUCTS})
+    if blocks[0].router is not None:
+        layers["router"] = np.stack([to_numpy(b.router.T) for b in blocks])
     return {
         "embed": _weight_to_numpy(model.embed, transpose=False),
         "layers": layers,
-        "final_norm": _to_numpy(model.final_norm),
+        "final_norm": to_numpy(model.final_norm),
         "lm_head": _weight_to_numpy(model.lm_head, transpose=True),
     }

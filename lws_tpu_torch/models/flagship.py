@@ -72,6 +72,9 @@ def init_quantized_params(cfg: LlamaConfig, generator: Optional[torch.Generator]
     uniform in [-127, 127], flat scales fan_in**-0.5 / 73.3, wo and w_down
     further damped by (2L)**-0.5 (lws_tpu/models/flagship.py:83-118). On
     device="meta" nothing is allocated or drawn: the shapes alone."""
+    if cfg.n_experts:
+        # As in the JAX package: this draws the dense flagship's leaves only.
+        raise ValueError("init_quantized_params: dense configs only (no router or experts)")
     model = Llama(cfg, device, quantized=True)
     dev = model.device
     if dev.type == "meta":

@@ -20,11 +20,22 @@ path against the plain path on the card, and the engines never pass it.
 
 The speculative-decoding forward and primitives (`forward_verify_paged`,
 `ngram_draft`, `speculative_accept`) and `forward_prefill_chunk` serve the
-paged engine's speculative and chunked-admission modes; their attention is
-stock torch, as JAX leaves it to XLA.
+paged engine's speculative and chunked-admission modes and the dense
+Engine's chunked, streamed and speculative paths; their attention is stock
+torch, as JAX leaves it to XLA. `forward_decode_slotted` is the
+BatchEngine's step: one token per slot at per-slot positions over a dense
+cache (the int8 decode kernel with a [B] pos on CUDA for an int8 cache).
 
-Left out here (lws_tpu/models/llama.py names): MoE, ring/context parallel,
-forward/loss_fn, forward_decode_slotted and all sharding specs.
+With cfg.n_experts the FFN is the GShard top-k MoE of
+lws_tpu/models/llama.py:_moe_ffn: static-shape dispatch/combine with a
+capacity of max(1, int(capacity_factor * S * top_k / n_experts)) tokens per
+expert and batch row, computed from the S of each forward; expert weights
+are stacked [E, out, in] (int8 with [E, out] scales when quantized) and the
+router [E, D] stays in param_dtype.
+
+Left out here (lws_tpu/models/llama.py names): ring/context parallel,
+forward/loss_fn (and the MoE aux loss, a training term) and all sharding
+specs.
 """
 
 from __future__ import annotations
@@ -37,7 +48,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from lws_tpu_torch._device import DeviceLike, resolve_device
-from lws_tpu_torch.models.quant import QuantizedWeight, embed_lookup, matmul
+from lws_tpu_torch.models.quant import QuantizedWeight, embed_lookup, expert_einsum, matmul
 from lws_tpu_torch.ops.attention import attention, reference_attention
 from lws_tpu_torch.ops.int8_attention import (
     int8_decode_attention,
@@ -54,8 +65,9 @@ from lws_tpu_torch.ops.paged_attention import (
 
 __all__ = [
     "LlamaConfig", "Llama", "LlamaBlock", "init_params", "rms_norm", "rope",
-    "rope_tables", "apply_rope",
+    "rope_tables", "apply_rope", "moe_capacity", "moe_ffn",
     "KVCache", "init_cache", "forward_prefill", "forward_with_cache", "forward_prefill_chunk",
+    "forward_decode_slotted",
     "PagedKVCache", "init_paged_cache", "paged_insert", "forward_decode_paged",
     "forward_verify_paged", "ngram_draft", "speculative_accept", "_cached_attention",
     "_quantize_kv", "_dequantize_kv", "LAYER_PRODUCTS", "LAYER_NORMS",
@@ -78,6 +90,10 @@ class LlamaConfig:
     max_seq_len: int = 8192
     dtype: torch.dtype = torch.bfloat16  # compute dtype
     param_dtype: torch.dtype = torch.float32
+    # MoE (0 experts = dense FFN everywhere).
+    n_experts: int = 0
+    top_k: int = 2
+    capacity_factor: float = 2.0
     # Serving: store the KV cache as int8 with per-(token, kv head) f32 scales.
     kv_quant: bool = False
 
@@ -89,7 +105,8 @@ class LlamaConfig:
         d, f, v = self.d_model, self.d_ff, self.vocab_size
         attn = d * self.n_heads * self.head_dim + 2 * d * self.n_kv_heads * self.head_dim \
             + self.n_heads * self.head_dim * d
-        per_layer = attn + 3 * d * f + 2 * d
+        ffn = self.n_experts * 3 * d * f + d * self.n_experts if self.n_experts else 3 * d * f
+        per_layer = attn + ffn + 2 * d
         return v * d * 2 + self.n_layers * per_layer + d
 
 
@@ -126,34 +143,100 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor
     return apply_rope(x, *rope_tables(positions, x.shape[-1], theta))
 
 
-def _linear(d_in: int, d_out: int, device, dtype, quantized: bool = False) -> nn.Module:
-    """A product weight [d_out, d_in]: nn.Linear in `dtype`, or int8 with
+class ExpertWeights(nn.Module):
+    """E stacked product weights, `.weight` [E, d_out, d_in] in `dtype`:
+    nn.Linear's layout per expert. Not initialized."""
+
+    def __init__(self, n_experts: int, d_in: int, d_out: int, device, dtype):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(n_experts, d_out, d_in, device=device, dtype=dtype))
+
+
+def _linear(d_in: int, d_out: int, device, dtype, quantized: bool = False,
+            n_experts: int = 0) -> nn.Module:
+    """A product weight [d_out, d_in] (with `n_experts`, [n_experts, d_out,
+    d_in]): nn.Linear (ExpertWeights) in `dtype`, or int8 with
     per-output-channel scales. Not initialized: init_params,
     init_quantized_params or the weight bridge writes it."""
     if quantized:
-        return QuantizedWeight(d_out, d_in, device)
+        return QuantizedWeight(d_out, d_in, device, n_experts)
+    if n_experts:
+        return ExpertWeights(n_experts, d_in, d_out, device, dtype)
     return nn.utils.skip_init(nn.Linear, d_in, d_out, bias=False, device=device, dtype=dtype)
+
+
+def moe_capacity(capacity_factor: float, S: int, top_k: int, n_experts: int) -> int:
+    """Tokens each expert takes per batch row in a forward of S positions
+    (lws_tpu/models/llama.py:232, Python's int truncation)."""
+    return max(1, int(capacity_factor * S * top_k / n_experts))
+
+
+def moe_ffn(x: torch.Tensor, router: torch.Tensor, w_gate, w_up, w_down, top_k: int,
+            capacity_factor: float, plain: bool = False) -> torch.Tensor:
+    """GShard top-k MoE with static-shape dense dispatch/combine
+    (lws_tpu/models/llama.py:_moe_ffn, without the aux loss): x [B, S, D],
+    router [E, D], expert weights [E, out, in] plain or quantized. Each
+    token's top-k experts are picked in order (argmax, first index on ties),
+    kept while the expert's running count in its batch row is below the
+    capacity C, and combined with their router probabilities renormalized
+    over the kept ones. Every expert computes its [B, C] slots, filled or
+    not. Returns [B, S, D] in x's dtype."""
+    B, S, _ = x.shape
+    E = router.shape[0]
+    C = moe_capacity(capacity_factor, S, top_k, E)
+    probs = torch.softmax(F.linear(x, router.to(x.dtype)).float(), dim=-1)  # [B, S, E]
+
+    remaining = probs
+    expert_count = torch.zeros(B, E, dtype=torch.float32, device=x.device)
+    dispatch = torch.zeros(B, S, E, C, dtype=x.dtype, device=x.device)
+    gates_sum = torch.zeros(B, S, dtype=torch.float32, device=x.device)
+    combine_gates = torch.zeros(B, S, E, dtype=torch.float32, device=x.device)
+    for _ in range(top_k):
+        onehot = F.one_hot(torch.argmax(remaining, dim=-1), E).float()  # [B, S, E]
+        pos = torch.cumsum(onehot, dim=1) - onehot + expert_count[:, None, :]
+        keep = onehot * (pos < C)
+        expert_count = expert_count + keep.sum(dim=1)
+        gate = (probs * keep).sum(dim=-1)  # [B, S]
+        pos_idx = (pos * keep).sum(dim=-1).long()
+        slot = F.one_hot(pos_idx, C).to(x.dtype) * keep.sum(dim=-1, keepdim=True).to(x.dtype)
+        dispatch = dispatch + keep.to(x.dtype)[..., None] * slot[:, :, None, :]
+        combine_gates = combine_gates + keep * gate[..., None]
+        gates_sum = gates_sum + gate
+        remaining = remaining * (1.0 - onehot)
+
+    denom = torch.clamp(gates_sum, min=1e-9)[..., None]
+    combine = (combine_gates / denom).to(x.dtype)[..., None] * dispatch  # [B, S, E, C]
+    expert_in = torch.einsum("bsec,bsd->ebcd", dispatch, x)
+    h = F.silu(expert_einsum(expert_in, w_gate, plain=plain)) \
+        * expert_einsum(expert_in, w_up, plain=plain)
+    expert_out = expert_einsum(h, w_down, plain=plain)  # [E, B, C, D]
+    return torch.einsum("bsec,ebcd->bsd", combine, expert_out)
 
 
 class LlamaBlock(nn.Module):
     """One decoder layer: RMSNorm, GQA attention with RoPE, RMSNorm, SwiGLU
-    FFN, both with residuals (lws_tpu/models/llama.py:_block_core, dense)."""
+    FFN (dense, or cfg.n_experts experts behind a top-k router), both with
+    residuals (lws_tpu/models/llama.py:_block_core)."""
 
     def __init__(self, cfg: LlamaConfig, device: torch.device, quantized: bool = False):
         super().__init__()
-        d, f, hd = cfg.d_model, cfg.d_ff, cfg.head_dim
+        d, f, hd, E = cfg.d_model, cfg.d_ff, cfg.head_dim, cfg.n_experts
         pd = cfg.param_dtype
         self.n_heads, self.n_kv_heads, self.head_dim = cfg.n_heads, cfg.n_kv_heads, hd
         self.norm_eps = cfg.norm_eps
+        self.top_k, self.capacity_factor = cfg.top_k, cfg.capacity_factor
         self.attn_norm = nn.Parameter(torch.ones(d, dtype=pd, device=device))
         self.wq = _linear(d, cfg.n_heads * hd, device, pd, quantized)
         self.wk = _linear(d, cfg.n_kv_heads * hd, device, pd, quantized)
         self.wv = _linear(d, cfg.n_kv_heads * hd, device, pd, quantized)
         self.wo = _linear(cfg.n_heads * hd, d, device, pd, quantized)
         self.ffn_norm = nn.Parameter(torch.ones(d, dtype=pd, device=device))
-        self.w_gate = _linear(d, f, device, pd, quantized)
-        self.w_up = _linear(d, f, device, pd, quantized)
-        self.w_down = _linear(f, d, device, pd, quantized)
+        # The router stays in param_dtype when the model is quantized
+        # (lws_tpu/models/quant.py:64: tiny and precision-critical).
+        self.router = nn.Parameter(torch.empty(E, d, dtype=pd, device=device)) if E else None
+        self.w_gate = _linear(d, f, device, pd, quantized, E)
+        self.w_up = _linear(d, f, device, pd, quantized, E)
+        self.w_down = _linear(f, d, device, pd, quantized, E)
 
     def forward(self, x: torch.Tensor, rope_cs: tuple[torch.Tensor, torch.Tensor],
                 attn_fn: Callable[[torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor],
@@ -172,9 +255,13 @@ class LlamaBlock(nn.Module):
         attn = attn_fn(q, k, v).reshape(B, S, nh * hd)
         x = x + matmul(attn, self.wo.weight, plain=plain)
         h = rms_norm(x, self.ffn_norm, self.norm_eps)
-        y = matmul(F.silu(matmul(h, self.w_gate.weight, plain=plain))
-                   * matmul(h, self.w_up.weight, plain=plain),
-                   self.w_down.weight, plain=plain)
+        if self.router is not None:
+            y = moe_ffn(h, self.router, self.w_gate.weight, self.w_up.weight, self.w_down.weight,
+                        self.top_k, self.capacity_factor, plain)
+        else:
+            y = matmul(F.silu(matmul(h, self.w_gate.weight, plain=plain))
+                       * matmul(h, self.w_up.weight, plain=plain),
+                       self.w_down.weight, plain=plain)
         return x + y
 
 
@@ -223,7 +310,8 @@ def init_params(cfg: LlamaConfig, generator: Optional[torch.Generator] = None,
                 device: DeviceLike = None) -> Llama:
     """Random dense weights with the scales of lws_tpu/models/llama.py:86-124
     (N(0,1) * fan_in**-0.5; wo and w_down further damped by (2L)**-0.5;
-    embed unscaled; norms ones), drawn from `generator` (seed 0 if None) in
+    embed unscaled; norms ones; with experts, the router and every expert's
+    products the same way), drawn from `generator` (seed 0 if None) in
     f32 on `device` and stored in cfg.param_dtype. The streams differ from
     jax.random's: tests that compare with JAX convert JAX's weights instead."""
     model = Llama(cfg, device)
@@ -242,6 +330,8 @@ def init_params(cfg: LlamaConfig, generator: Optional[torch.Generator] = None,
         fill(blk.wk.weight, d)
         fill(blk.wv.weight, d)
         fill(blk.wo.weight, cfg.n_heads * cfg.head_dim, depth_damp)
+        if blk.router is not None:
+            fill(blk.router, d)
         fill(blk.w_gate.weight, d)
         fill(blk.w_up.weight, d)
         fill(blk.w_down.weight, f, depth_damp)
@@ -292,18 +382,22 @@ def _quantize_kv(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return q, scale
 
 
-def _write_kv(cache, layer_idx: int, index: tuple, k: torch.Tensor, v: torch.Tensor) -> None:
+def _write_kv(cache, layer_idx: int, index: tuple, k: torch.Tensor, v: torch.Tensor,
+              dropped: Optional[torch.Tensor] = None) -> None:
     """Write K/V rows into `cache` (dense or paged) at cache.k[layer_idx][index],
-    quantizing them first when the cache holds int8."""
+    quantizing them first when the cache holds int8. Where the bool mask
+    `dropped` (over the index's leading dims) is set, the row keeps what it
+    holds."""
     if cache.k_scale is not None:
         (kq, ks), (vq, vs) = _quantize_kv(k), _quantize_kv(v)
-        cache.k[layer_idx][index] = kq
-        cache.v[layer_idx][index] = vq
-        cache.k_scale[layer_idx][index] = ks
-        cache.v_scale[layer_idx][index] = vs
+        pairs = ((cache.k, kq), (cache.v, vq), (cache.k_scale, ks), (cache.v_scale, vs))
     else:
-        cache.k[layer_idx][index] = k.to(cache.k.dtype)
-        cache.v[layer_idx][index] = v.to(cache.v.dtype)
+        pairs = ((cache.k, k.to(cache.k.dtype)), (cache.v, v.to(cache.v.dtype)))
+    for pool, new in pairs:
+        if dropped is not None:
+            keep = dropped.reshape(dropped.shape + (1,) * (new.dim() - dropped.dim()))
+            new = torch.where(keep, pool[layer_idx][index], new)
+        pool[layer_idx][index] = new
 
 
 @torch.no_grad()
@@ -339,7 +433,7 @@ def forward_prefill(params: Llama, tokens: torch.Tensor, cache: KVCache,
 
 
 def _forward_cached(params: Llama, tokens: torch.Tensor, cache: KVCache,
-                    plain: bool) -> torch.Tensor:
+                    plain: bool, pos: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The layers over tokens [B, S] appended at cache.pos: each layer writes
     its K/V at [pos, pos + S) in place, then its queries attend to keys <=
     their position (lws_tpu/models/llama.py:_block_with_cache :504): with an
@@ -348,44 +442,66 @@ def _forward_cached(params: Llama, tokens: torch.Tensor, cache: KVCache,
     cache, cached attention (the path JAX leaves to XLA). Advances cache.pos
     by S and returns the last layer's output [B, S, D], before the final
     norm. Writes must fit: pos + S past the cache's length raises (JAX would
-    clamp the write's start instead)."""
+    clamp the write's start instead).
+
+    `pos`, a [B] int32 device tensor, appends at those positions instead
+    (RoPE, the K/V writes and the mask all read it, with no host read) and
+    leaves cache.pos as it is: the caller owns the position. A position
+    past the cache writes nothing, as JAX's scatter drops an out-of-range
+    update (its row T-1 is written back with what it holds), and its query
+    attends to every key, which the int8 kernel reads as pos T-1. With
+    S > 1 the caller keeps the writes inside the cache."""
     cfg = params.cfg
     B, S = tokens.shape
-    pos = cache.pos
-    if pos + S > cache.max_len:
-        raise ValueError(f"{S} tokens at {pos} overflow a cache of {cache.max_len}")
-    positions = pos + torch.arange(S, device=tokens.device).expand(B, S)
+    steps = torch.arange(S, device=tokens.device)
+    if pos is None:
+        start = cache.pos
+        if start + S > cache.max_len:
+            raise ValueError(f"{S} tokens at {start} overflow a cache of {cache.max_len}")
+        positions = start + steps.expand(B, S)
+        index = (slice(None), slice(start, start + S))
+        dropped, kernel_pos = None, start
+    else:
+        start = pos
+        positions = pos.long()[:, None] + steps[None, :]
+        T = cache.max_len
+        dropped = positions >= T
+        index = (torch.arange(B, device=tokens.device)[:, None], positions.clamp(max=T - 1))
+        kernel_pos = pos.clamp(max=T - 1)
     rope_cs = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
     x = embed_lookup(params.embed.weight, tokens, cfg.dtype)
     decode_op = int8_decode_attention_reference if plain else int8_decode_attention
     for layer_idx, block in enumerate(params.layers):
 
         def attn_fn(q, k, v, layer_idx=layer_idx):
-            _write_kv(cache, layer_idx, (slice(None), slice(pos, pos + S)), k, v)
+            _write_kv(cache, layer_idx, index, k, v, dropped)
             if cache.k_scale is None:
-                return _cached_attention(q, cache.k[layer_idx], cache.v[layer_idx], pos)
+                return _cached_attention(q, cache.k[layer_idx], cache.v[layer_idx], start)
             layer = (cache.k[layer_idx], cache.k_scale[layer_idx],
                      cache.v[layer_idx], cache.v_scale[layer_idx])
             if S == 1:
-                return decode_op(q, *layer, pos)
+                return decode_op(q, *layer, kernel_pos)
             return _cached_attention(q, _dequantize_kv(layer[0], layer[1], cfg.dtype),
-                                     _dequantize_kv(layer[2], layer[3], cfg.dtype), pos)
+                                     _dequantize_kv(layer[2], layer[3], cfg.dtype), start)
 
         x = block(x, rope_cs, attn_fn, plain)
-    cache.pos += S
+    if pos is None:
+        cache.pos += S
     return x
 
 
 @torch.no_grad()
 def forward_with_cache(params: Llama, tokens: torch.Tensor, cache: KVCache,
-                       plain: bool = False, last_offset=None, all_logits: bool = False
-                       ) -> tuple[torch.Tensor, KVCache]:
+                       plain: bool = False, last_offset=None, all_logits: bool = False,
+                       pos: Optional[torch.Tensor] = None) -> tuple[torch.Tensor, KVCache]:
     """Append tokens [B, S] at cache.pos; returns (logits [B, V] f32 of the
     appended position `last_offset` (an int, or a [B] tensor of per-row
     offsets; S-1 if None: the true end of a padded suffix), the cache with
     pos advanced by S). With `all_logits`, the logits of every appended
-    position [B, S, V], the verification shape. lws_tpu/models/llama.py:561."""
-    x = _forward_cached(params, tokens, cache, plain)
+    position [B, S, V], the verification shape. With `pos` ([B] int32 on the
+    device), append there and leave cache.pos alone (_forward_cached).
+    lws_tpu/models/llama.py:561."""
+    x = _forward_cached(params, tokens, cache, plain, pos)
     if all_logits:
         return params.logits(x, plain), cache
     if last_offset is None:
@@ -407,6 +523,17 @@ def forward_prefill_chunk(params: Llama, tokens: torch.Tensor, cache: KVCache,
     chunk. lws_tpu/models/llama.py:599."""
     x = _forward_cached(params, tokens, cache, plain)
     return rms_norm(x, params.final_norm, params.cfg.norm_eps), cache
+
+
+def forward_decode_slotted(params: Llama, tokens: torch.Tensor, cache: KVCache,
+                           pos_b: torch.Tensor, plain: bool = False
+                           ) -> tuple[torch.Tensor, KVCache]:
+    """One decode step with per-slot positions over a dense cache (the
+    BatchEngine's step): tokens [B], pos_b [B] int32, each slot's current
+    length; forward_with_cache with `pos=pos_b` (a slot past the cache
+    writes nothing). Returns (logits [B, V] f32, cache).
+    lws_tpu/models/llama.py:696."""
+    return forward_with_cache(params, tokens[:, None], cache, plain=plain, pos=pos_b)
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,5 @@
 """Sampling for the port's engines (lws_tpu/serving/engine.py:72-143) and the
-dense `Engine` core (:162-320, :443-455, :821-886).
+dense `Engine` (:162-786, without mesh/TP and telemetry).
 
 JAX's threefry keys become `torch.Generator`s: one per request stream (one
 per Engine). The two frameworks draw different numbers from the same seed,
@@ -8,30 +8,41 @@ JAX's; greedy (temperature <= 0) is argmax in both and exact.
 
 The Engine serves one batch of equal-length prompts at a time over a dense
 KV cache [L, B, max_len, Hkv, hd] (int8 with scales when cfg.kv_quant),
-updated in place: prefill through forward_prefill, decode steps through
-forward_with_cache (on CUDA with an int8 cache, the int8 decode kernel; with
-quantized weights, the int8_matmul kernel). Left out of this slice: mesh/TP,
-chunked and streamed prefill, speculative generation (of it only the host
-drafter `_draft_ngram` is here, for the paged engine's oracle), telemetry.
+updated in place: prefill through forward_prefill (flash on CUDA), or in
+chunks through forward_prefill_chunk (`prefill_chunked`, and
+`prefill_chunked_stream`, which hands each chunk's K/V rows to a callback
+as they land); decode steps through forward_with_cache (on CUDA with an
+int8 cache, the int8 decode kernel; with quantized weights, the int8_matmul
+kernel). `generate_speculative` and `decode_speculative` run B = 1 greedy
+n-gram speculation with drafting, verification, acceptance and the cache
+rewind on the device: the verify pass appends at a device position, so the
+loop reads nothing back but each dispatch's packed tokens, and the host
+cache.pos is reconciled when the ring is flushed.
 """
 
 from __future__ import annotations
 
 import time
+from collections import deque
 from dataclasses import dataclass
 from typing import Optional, Sequence
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from lws_tpu_torch._device import DeviceLike, resolve_device
+from lws_tpu_torch.models.convert import to_numpy
 from lws_tpu_torch.models.llama import (
     KVCache,
     Llama,
     LlamaConfig,
     forward_prefill,
+    forward_prefill_chunk,
     forward_with_cache,
     init_cache,
+    ngram_draft,
+    speculative_accept,
 )
 from lws_tpu_torch.serving.pipeline import DecodePipeline
 
@@ -113,6 +124,8 @@ class GenerationResult:
     decode_s: float
     decode_steps: int
     decode_tokens_per_s: float
+    # generate_speculative: dispatches, drafted, accepted, tokens_per_dispatch.
+    spec_stats: Optional[dict] = None
 
 
 class Engine:
@@ -182,11 +195,96 @@ class Engine:
     @torch.no_grad()
     def prefill(self, tokens) -> tuple[torch.Tensor, KVCache]:
         """tokens [B, S] -> (first generated token [B] int32, cache at pos S)."""
-        tokens = torch.as_tensor(tokens).to(self.device).long()
+        tokens = self._tokens(tokens)
         if tokens.shape[1] > self.max_len:
             raise ValueError(f"prompt of {tokens.shape[1]} tokens exceeds max_len {self.max_len}")
         logits, cache = forward_prefill(self.params, tokens, self.new_cache())
         return self._sample(logits), cache
+
+    def _tokens(self, tokens) -> torch.Tensor:
+        """A host array or tensor of token ids as int64 on the engine's device."""
+        if isinstance(tokens, torch.Tensor):
+            return tokens.to(self.device).long()
+        return torch.tensor(np.asarray(tokens), dtype=torch.long, device=self.device)
+
+    @torch.no_grad()
+    def prefill_chunked(self, tokens, chunk_size: int = 256) -> tuple[torch.Tensor, KVCache]:
+        """Prefill in chunks of `chunk_size` through forward_prefill_chunk:
+        the same first token and cache rows as prefill(), with attention
+        memory O(chunk * max_len) instead of O(S^2). A prompt no longer than
+        one chunk goes to prefill(); the last chunk is padded, so the padded
+        length must fit in max_len, and pos rewinds to S afterwards: the
+        padding's K/V sit past it, masked until decode overwrites them
+        (lws_tpu/serving/engine.py:321)."""
+        tokens = self._tokens(tokens)
+        B, S = tokens.shape
+        if S <= chunk_size:
+            return self.prefill(tokens)
+        pad = (-S) % chunk_size
+        if S + pad > self.max_len:
+            raise ValueError(f"padded prompt {S + pad} exceeds max_len {self.max_len}; "
+                             f"use a chunk_size dividing max_len or a shorter prompt")
+        padded = F.pad(tokens, (0, pad))
+        cache = self.new_cache()
+        hidden = None
+        for i in range(0, S + pad, chunk_size):
+            hidden, cache = forward_prefill_chunk(self.params, padded[:, i:i + chunk_size], cache)
+        token = self._sample(self.params.head(hidden[:, (S - 1) % chunk_size]))
+        cache.pos = S
+        return token, cache
+
+    @torch.no_grad()
+    def prefill_chunked_stream(self, tokens, chunk_size: int, emit, ring_depth: int = 1
+                               ) -> tuple[torch.Tensor, KVCache, dict]:
+        """Chunked prefill whose K/V leave the device chunk by chunk: after
+        chunk N+1 is launched, chunk N's rows are copied to the host and
+        handed to `emit(lo, hi, arrays)`, so the gather of chunk N overlaps
+        the compute of chunk N+1. A ring of `ring_depth` chunks (0: gather
+        right after each chunk) bounds how far the gather trails. `arrays`
+        holds "k", "v" (and "k_scale", "v_scale" with cfg.kv_quant) as numpy
+        [L, B, hi - lo, Hkv(, hd)] cut to the true prompt rows, bf16 as
+        models.convert.to_numpy gives it, and "tokens", the prompt's
+        [B, lo:hi] slice: the shapes and bytes of JAX's arrays
+        (lws_tpu/serving/engine.py:360). A chunk's rows are copied on the
+        device before the next chunk runs. Returns (first token [B], the
+        cache at pos S, stats {"chunks", "gather_s"})."""
+        tokens_host = tokens.cpu().numpy() if isinstance(tokens, torch.Tensor) \
+            else np.asarray(tokens)
+        tokens = self._tokens(tokens)
+        B, S = tokens.shape
+        if S <= 0:
+            raise ValueError("empty prompt")
+        pad = (-S) % chunk_size
+        if S + pad > self.max_len:
+            raise ValueError(f"padded prompt {S + pad} exceeds max_len {self.max_len}; "
+                             f"use a chunk_size dividing max_len or a shorter prompt")
+        padded = F.pad(tokens, (0, pad))
+        cache = self.new_cache()
+        hidden = None
+        stats = {"chunks": 0, "gather_s": 0.0}
+        pending: deque = deque()
+
+        def drain_one() -> None:
+            lo, hi, slices = pending.popleft()
+            t0 = time.perf_counter()
+            host = {name: to_numpy(x) for name, x in slices.items()}  # the gather's fence
+            stats["gather_s"] += time.perf_counter() - t0
+            host["tokens"] = tokens_host[:, lo:hi]
+            emit(lo, hi, host)
+            stats["chunks"] += 1
+
+        for i in range(0, S + pad, chunk_size):
+            hidden, cache = forward_prefill_chunk(self.params, padded[:, i:i + chunk_size], cache)
+            lo, hi = i, min(i + chunk_size, S)
+            names = ("k", "v", "k_scale", "v_scale") if cache.k_scale is not None else ("k", "v")
+            pending.append((lo, hi, {n: getattr(cache, n)[:, :, lo:hi].clone() for n in names}))
+            while len(pending) > max(0, ring_depth):
+                drain_one()
+        while pending:
+            drain_one()
+        token = self._sample(self.params.head(hidden[:, (S - 1) % chunk_size]))
+        cache.pos = S
+        return token, cache, stats
 
     @torch.no_grad()
     def decode(self, tokens: torch.Tensor, cache: KVCache) -> tuple[torch.Tensor, KVCache]:
@@ -206,6 +304,161 @@ class Engine:
             tokens, cache = self.decode(tokens, cache)
             toks.append(tokens)
         return tokens, cache, torch.stack(toks, dim=1)
+
+    # ---- speculative decoding (n-gram drafts, B = 1) ------------------
+    def _spec_step(self, cache: KVCache, token, pos, hist, hist_len, rem, gamma: int, ngram: int):
+        """One device-resident speculative dispatch, with no host read: draft
+        gamma tokens from the history ring hist [1, H] (hist_len [1] tokens
+        recorded), verify the running token and the drafts in one pass
+        appended at the device position pos [1], accept the longest prefix
+        matching the pass's argmax (clamped by the budget rem [1]), and
+        advance pos (the rewind: rejected rows sit past it, masked until
+        overwritten), the running token, the history and the budget.
+        Returns them with the packed [gamma + 2] result: the tokens taken,
+        then the tokens produced (lws_tpu/serving/engine.py:_get_spec_step_dense)."""
+        S = gamma + 1
+        drafts = ngram_draft(hist, hist_len, ngram, gamma)  # [1, gamma]
+        tokens_in = torch.cat([token[:, None], drafts], dim=1)  # [1, S]
+        all_logits, _ = forward_with_cache(self.params, tokens_in, cache, all_logits=True, pos=pos)
+        greedy = torch.argmax(all_logits, dim=-1).to(torch.int32)
+        take, out = speculative_accept(drafts, greedy, rem)  # [1], [1, S]
+        token = out.gather(1, torch.clamp(take - 1, min=0)[:, None].long())[:, 0]
+        i = torch.arange(S, device=token.device)[None, :]
+        idx = (hist_len.long()[:, None] + i) % hist.shape[1]
+        hist = hist.scatter(1, idx, torch.where(i < take[:, None], out, hist.gather(1, idx)))
+        packed = torch.cat([take, out[0]])
+        return token, pos + take, hist, hist_len + take, rem - take, packed
+
+    def _seed_spec_history(self, context, token: torch.Tensor):
+        """The device history ring for a fresh speculative run: `context`
+        (the prompt, optional) then the running token, in a [1, max_len]
+        ring, so the drafting window holds the whole context and the device
+        drafts equal _draft_ngram's. Returns (hist, hist_len [1])."""
+        ctx = np.zeros((0,), np.int32) if context is None else \
+            np.asarray(context.cpu() if isinstance(context, torch.Tensor) else context,
+                       np.int32).reshape(-1)
+        n = len(ctx)
+        hist = np.zeros((1, self.max_len), np.int32)
+        hist[0, :n] = ctx
+        hist = torch.tensor(hist, device=self.device)
+        hist[0, n] = token[0].to(torch.int32)
+        return hist, torch.tensor([n + 1], dtype=torch.int32, device=self.device)
+
+    def _speculate_loop(self, cache: KVCache, token: torch.Tensor, needed: int, gamma: int,
+                        ngram: int, pos_start: int, context):
+        """Produce exactly `needed` greedy tokens after `token` with
+        speculative dispatches on the in-flight ring: the host commits each
+        dispatch's packed tokens when it lands and never reads anything
+        else. The budget lives on the device (acceptance is clamped by it),
+        so dispatches in flight never overshoot. A dispatch whose verify rows
+        could reach max_len in the worst case flushes first; once no full
+        run fits, the loop finishes with a fixed count of pipelined single
+        steps, computed from exact host truth (cache.pos reconciled at that
+        flush). Returns (tokens, cache, last token, stats)
+        (lws_tpu/serving/engine.py:_speculate_loop)."""
+        S = gamma + 1
+        hist, hist_len = self._seed_spec_history(context, token)
+        rem = torch.tensor([needed], dtype=torch.int32, device=self.device)
+        pos = torch.tensor([pos_start], dtype=torch.int32, device=self.device)
+        pipe = DecodePipeline(depth=self.pipeline_depth)
+        out: list[int] = []
+        acct = {"dispatches": 0, "drafted": 0, "accepted": 0}
+
+        def commit(host_packed):
+            t = int(host_packed[0])
+            if t > 0:
+                out.extend(int(x) for x in host_packed[1:1 + t])
+                acct["dispatches"] += 1
+                acct["drafted"] += gamma
+                acct["accepted"] += t - 1
+
+        guard = 0
+        while len(out) < needed:
+            guard += 1
+            if guard > 4 * needed + 16:
+                raise RuntimeError("speculative loop did not converge")
+            if pipe and len(out) + pipe.inflight_steps() >= needed:
+                # The chunks in flight may already cover the budget: consume
+                # instead of dispatching, so every dispatch has budget left.
+                pipe.flush()
+                continue
+            if pos_start + len(out) + pipe.inflight_steps() + S > self.max_len:
+                # Worst-case commits in flight could push a verify write past
+                # max_len: sync to exact truth, then recheck.
+                pipe.flush()
+                if pos_start + len(out) + S > self.max_len:
+                    break  # a genuine tail: single steps below
+                continue
+            with pipe.host_section():
+                token, pos, hist, hist_len, rem, packed = self._spec_step(
+                    cache, token, pos, hist, hist_len, rem, gamma, ngram)
+            pipe.push(S, packed, commit)
+        pipe.flush()
+        cache.pos = pos_start + len(out)  # the device pos, as host truth
+        # The tail: a fixed count from exact truth (the ring just flushed);
+        # counting len(out) inside the loop would lag the pushes in flight.
+        tail = min(needed - len(out), self.max_len - pos_start - len(out))
+        for _ in range(max(0, tail)):
+            with pipe.host_section():
+                token, cache = self.decode(token, cache)
+            pipe.push(1, token, lambda h: out.append(int(h[0])))
+            acct["dispatches"] += 1
+        pipe.flush()
+        return out, cache, token, acct
+
+    def _check_speculative(self) -> None:
+        if self.sampling.temperature > 0:
+            raise NotImplementedError("speculative decoding is greedy-only")
+        if self.batch_size != 1:
+            raise ValueError("speculative decoding is single-sequence (B=1)")
+
+    @torch.no_grad()
+    def decode_speculative(self, token: torch.Tensor, cache: KVCache, steps: int, gamma: int = 4,
+                           ngram: int = 3, pos: Optional[int] = None, context=None):
+        """Continue `cache` by exactly `steps` greedy tokens with speculative
+        dispatches: the tokens of decode_n (acceptance keeps only the model's
+        own argmax chain), in fewer dispatches on repetitive content. `pos`
+        is the cache's length (default cache.pos); `context` (the prompt)
+        seeds the drafting history. Returns (last token [1], cache, tokens
+        [1, steps] on the host) (lws_tpu/serving/engine.py:678)."""
+        self._check_speculative()
+        if pos is None:
+            pos = cache.pos
+        out, cache, token, _ = self._speculate_loop(cache, token, steps, gamma, ngram, pos, context)
+        return token, cache, np.asarray(out, np.int32)[None, :]
+
+    def generate_speculative(self, prompt, max_new_tokens: int, gamma: int = 8,
+                             ngram: int = 3) -> GenerationResult:
+        """Greedy generation with n-gram speculative decoding, B = 1: prefill
+        (timed to the first token on the host: TTFT), then _speculate_loop
+        for the rest (timed: decode). The same tokens as generate() but for
+        argmax near-ties between a [1, gamma + 1] verify pass and a [1, 1]
+        step. `decode_steps` counts dispatches (lws_tpu/serving/engine.py:704)."""
+        prompt = self._tokens(prompt)
+        if self.batch_size != 1 or prompt.shape[0] != 1:
+            raise ValueError("speculative decoding is single-sequence (B=1)")
+        self._check_speculative()
+        plen = prompt.shape[1]
+        if plen + max_new_tokens > self.max_len:
+            raise ValueError("prompt + max_new_tokens exceeds max_len")
+        t0 = time.perf_counter()
+        token, cache = self.prefill(prompt)
+        first = int(token[0])  # the first token's fence: TTFT
+        ttft = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        new, cache, _, acct = self._speculate_loop(
+            cache, token, max(0, max_new_tokens - 1), gamma, ngram, plen, prompt[0])
+        out = ([first] + new)[:max(1, max_new_tokens)]
+        dt = time.perf_counter() - t1
+        steps = len(out) - 1
+        return GenerationResult(
+            tokens=np.asarray([out], np.int32),
+            ttft_s=ttft,
+            decode_s=dt,
+            decode_steps=acct["dispatches"],
+            decode_tokens_per_s=steps / dt if steps else 0.0,
+            spec_stats={**acct, "tokens_per_dispatch": round(steps / max(acct["dispatches"], 1), 2)},
+        )
 
     def generate(self, prompt, max_new_tokens: int) -> GenerationResult:
         """Generation under the engine's SamplingParams (greedy by default):

@@ -555,3 +555,93 @@ def test_int8_decode_kernel_never_uses_rows_past_pos(dev, T, Hkv):
     torch.cuda.synchronize()
     assert bool(torch.isfinite(got).all())
     torch.testing.assert_close(got.float(), want.float(), atol=TOL, rtol=TOL)
+
+
+# ---------------------------------------------------------------------------
+# The batch-engine slice: per-slot int8 decode, per-expert products
+
+
+def test_slotted_int8_decode_kernel_vs_plain_at_differing_positions(dev):
+    """forward_decode_slotted over an int8 cache runs int8_decode_attention
+    once per layer with a [B] pos whose rows differ (one at the cache's last
+    row, one past it), held to the plain path."""
+    cfg = tl.LlamaConfig(vocab_size=512, d_model=512, n_layers=2, n_heads=4, n_kv_heads=2,
+                         d_ff=1024, max_seq_len=256, param_dtype=torch.bfloat16, kv_quant=True)
+    model = tflagship.init_quantized_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                                            device=dev)
+    g = torch.Generator(device=dev).manual_seed(1)
+    B, T = 6, 96
+    cache = tl.init_cache(cfg, B, T, dev)
+    raw_k, raw_v = randn(g, 2, B, T, 2, 128, dev=dev), randn(g, 2, B, T, 2, 128, dev=dev)
+    cache.k, cache.k_scale = tl._quantize_kv(raw_k)
+    cache.v, cache.v_scale = tl._quantize_kv(raw_v)
+    plain = tl.KVCache(cache.k.clone(), cache.v.clone(), 0, cache.k_scale.clone(),
+                       cache.v_scale.clone())
+    pos = torch.tensor([0, 15, 16, 57, T - 1, T], dtype=torch.int32, device=dev)
+    tokens = torch.randint(1, 512, (B,), generator=g, device=dev, dtype=torch.int32)
+    before = int8_decode_attention.launches
+    lk, cache = tl.forward_decode_slotted(model, tokens, cache, pos)
+    lp, plain = tl.forward_decode_slotted(model, tokens, plain, pos, plain=True)
+    torch.cuda.synchronize()
+    assert int8_decode_attention.launches == before + cfg.n_layers
+    assert ((lk - lp).abs().max() / lp.abs().max()).item() < 5e-2
+    # Each slot's row at its position is written from the path's own K (bf16
+    # products rounded differently): within 5e-2 of the plain path's, by
+    # norm; every other row, the dropped slot's included, untouched.
+    written = torch.zeros(B, T, dtype=torch.bool, device=dev)
+    written[torch.arange(B - 1, device=dev), pos[:-1].long()] = True
+    assert torch.equal(cache.k[:, ~written], plain.k[:, ~written])
+    assert torch.equal(cache.v_scale[:, ~written], plain.v_scale[:, ~written])
+    for name in ("k", "v"):
+        got, ref = ((getattr(c, name)[:, written].float()
+                     * getattr(c, name + "_scale")[:, written, :, None]) for c in (cache, plain))
+        assert (torch.linalg.vector_norm(got - ref) / torch.linalg.vector_norm(ref)).item() < 5e-2
+
+
+@pytest.mark.parametrize("rows", [8, 64, 256, 300])
+def test_expert_products_per_expert_route_vs_plain(dev, rows):
+    """expert_einsum with int8 experts on CUDA: one int8_matmul launch per
+    expert up to 256 rows, the dequantized product above, both held to the
+    plain version."""
+    from lws_tpu_torch.models.quant import QuantizedArray, expert_einsum
+
+    E, D, F = 4, 1024, 512
+    g = torch.Generator(device=dev).manual_seed(rows)
+    x = randn(g, E, 1, rows, D, dev=dev)
+    w = QuantizedArray(int8s(g, E, F, D, dev=dev),
+                       torch.rand(E, F, generator=g, device=dev) * D**-0.5 / 73.3)
+    before = int8_matmul.launches
+    got = expert_einsum(x, w)
+    want = expert_einsum(x, w, plain=True)
+    torch.cuda.synchronize()
+    assert int8_matmul.launches == before + (E if rows <= 256 else 0)
+    assert got.shape == (E, 1, rows, F)
+    mag = want.float().abs().max().item()
+    torch.testing.assert_close(got.float(), want.float(), atol=TOL * mag, rtol=TOL)
+
+
+def test_moe_model_logits_kernel_vs_plain(dev):
+    """A small int8 MoE model: prefill and a slotted decode step, kernel path
+    against the plain path; the experts' products take int8_matmul."""
+    from lws_tpu_torch.models.quant import quantize_params
+
+    cfg = tl.LlamaConfig(vocab_size=512, d_model=512, n_layers=2, n_heads=4, n_kv_heads=2,
+                         d_ff=1024, max_seq_len=256, param_dtype=torch.bfloat16, n_experts=4,
+                         kv_quant=True)
+    model = quantize_params(tl.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                                           device=dev))
+    tokens = torch.randint(1, 512, (1, 64), device=dev)
+    before = int8_matmul.launches
+    lk, ck = tl.forward_prefill(model, tokens, tl.init_cache(cfg, 1, 80, dev), last_pos=50)
+    lp, _ = tl.forward_prefill(model, tokens, tl.init_cache(cfg, 1, 80, dev), last_pos=50,
+                               plain=True)
+    # 4 attention products and 3 x 4 expert products per layer (capacity 64
+    # at S = 64: 64 rows per expert), one lm_head row.
+    assert int8_matmul.launches == before + (4 + 3 * 4) * cfg.n_layers + 1
+    assert ((lk - lp).abs().max() / lp.abs().max()).item() < 5e-2
+    pos = torch.tensor([51], dtype=torch.int32, device=dev)
+    tok = lk.argmax(-1).to(torch.int32)
+    plain = tl.KVCache(ck.k.clone(), ck.v.clone(), 0, ck.k_scale.clone(), ck.v_scale.clone())
+    dk, _ = tl.forward_decode_slotted(model, tok, ck, pos)
+    dp, _ = tl.forward_decode_slotted(model, tok, plain, pos, plain=True)
+    assert ((dk - dp).abs().max() / dp.abs().max()).item() < 5e-2

@@ -2,9 +2,12 @@
 PagedBatchEngine on the CPU: the same converted weights and prompts must give
 token-identical greedy streams, in the cases of tests/test_paged_kv.py
 (dense equality, staggered admission into freed blocks, backpressure and
-reuse, a half-size pool). The JAX side runs its Pallas paged kernel in
-interpret mode, as tests/test_paged_attention_kernel.py does. Also: the
-port's per-slot sampling against JAX's on the same logits."""
+reuse, a half-size pool) and the greedy-stream cases of
+tests/test_paged_sampling.py (a greedy slot beside a sampled one, a greedy
+request in a slot that served a sampled one). The JAX side runs its Pallas
+paged kernel in interpret mode, as tests/test_paged_attention_kernel.py
+does. Also: the port's per-slot sampling against JAX's on the same
+logits."""
 
 import jax
 import jax.numpy as jnp
@@ -176,6 +179,52 @@ def test_seeded_sampling_reproduces_and_top_k_1_is_greedy(small_model):
     greedy = run()
     assert run(temperature=0.8, seed=7) == run(temperature=0.8, seed=7)
     assert run(temperature=0.8, top_k=1, seed=3) == greedy
+
+
+@pytest.fixture(scope="module")
+def sampling_model():
+    """tests/test_paged_sampling.py's config."""
+    return build(jl.LlamaConfig(
+        vocab_size=128, d_model=64, n_layers=2, n_heads=4, n_kv_heads=2, d_ff=128,
+        max_seq_len=64, dtype=jnp.float32, remat=False,
+    ))
+
+
+PROMPT_A = np.array([5, 9, 2], np.int32)
+PROMPT_B = np.array([7, 7, 1, 4], np.int32)
+
+
+def test_greedy_slot_unperturbed_by_sampled_neighbors(sampling_model, jax_kernel):
+    """tests/test_paged_sampling.py:39: a greedy request decodes the same
+    tokens beside a sampled neighbor as alone, and JAX's greedy stream."""
+    jax_ref, ref = engines(sampling_model, slots=3, max_len=32, block_size=8)
+    want = jax_ref.submit(PROMPT_A, max_new_tokens=8)
+    jax_ref.run_until_drained()
+    a0 = ref.submit(PROMPT_A, max_new_tokens=8)
+    ref.run_until_drained()
+    _, eng = engines(sampling_model, slots=3, max_len=32, block_size=8)
+    a = eng.submit(PROMPT_A, max_new_tokens=8)
+    b = eng.submit(PROMPT_B, max_new_tokens=8, temperature=1.5, top_k=20, seed=7)
+    eng.run_until_drained()
+    assert eng.result(a) == ref.result(a0) == jax_ref.result(want)
+    assert len(eng.result(b)) == 8
+
+
+def test_sampling_survives_slot_reuse(sampling_model, jax_kernel):
+    """tests/test_paged_sampling.py:84: a greedy request admitted into a slot
+    that served a sampled one stays greedy, and equals JAX's stream."""
+    jax_ref, eng = engines(sampling_model, slots=1, max_len=32, block_size=8)
+    s = eng.submit(PROMPT_A, max_new_tokens=4, temperature=2.0, seed=9)
+    eng.run_until_drained()
+    assert len(eng.result(s)) == 4
+    g = eng.submit(PROMPT_B, max_new_tokens=8)  # same slot, greedy
+    eng.run_until_drained()
+    g0 = jax_ref.submit(PROMPT_B, max_new_tokens=8)
+    jax_ref.run_until_drained()
+    ref = PagedBatchEngine(*sampling_model[2:], slots=3, max_len=32, block_size=8, device="cpu")
+    g1 = ref.submit(PROMPT_B, max_new_tokens=8)
+    ref.run_until_drained()
+    assert eng.result(g) == ref.result(g1) == jax_ref.result(g0)
 
 
 def test_greedy_sampling_is_exact_argmax():
