@@ -76,6 +76,22 @@ no result line):
      (gamma 4, 3-gram lookup) on 8 echo prompts (a verify pass held column by
      column to decode steps; acceptance, tokens per dispatch and tok/s
      printed);
+ 12. (run before 11, whose 47 GB need the flagships freed) the disaggregated
+     handoff: the flagship with int8 weights and bf16 K/V as the port's
+     disagg_worker.build_model builds it, two Engine(batch_size=1) on those
+     weights as the prefill and decode roles, a KVServer on localhost: the
+     8 prompts of 5. hand off monolithic (LWS_TPU_KV_CHUNK=0), then with
+     chunks of 256 (the prompts over 256 tokens stream), each decoded for
+     32 steps through the decode role's pull_bundle + CacheAssembler +
+     _decode_bundle, and the longest once more to a gamma-4 speculative
+     leg; landed K/V bytes equal the bytes that left, bundle sizes are
+     exact, and each stream equals the decode engine's own prefill (or
+     prefill_chunked) + decode_n exactly. Then the prefix tiers on the
+     int8 model of 6. (int8 pool): the shared-prefix prompt's blocks spilled
+     to a KVHostArena, restored from it, and restored by a second engine
+     through a RemotePrefixSource over the first engine's KVServer: the
+     restored rows equal the spilled rows byte for byte, and the restored
+     streams equal the HBM-tier hit's;
  11. MoE: the Mixtral-8x7B geometry (32 layers, 8 experts, top-2, capacity
      factor 2.0) with random int8 weights built in place (~47 GB) and an
      int8 K/V pool: prefill and paged decode logits held to the plain path,
@@ -92,11 +108,14 @@ lines are a JSON line of per-kernel numbers, the card line, and
 from __future__ import annotations
 
 import argparse
+import importlib.util
 import json
 import os
 import statistics
+import struct
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -131,6 +150,10 @@ ECHO_SPAN = 12  # the span an echo prompt holds, and the tokens asked of it
 # the last padded) and the tokens asked of each speculative request; the
 # tokens asked of each MoE request.
 STAGGER, DENSE_PROMPT, SPEC_NEW, MOE_NEW_TOKENS = 4, 1000, 32, 32
+# The disaggregated handoff: decode steps of each handoff's decode leg; the
+# tokens asked of each prefix-tier request; the host arena of the tier
+# engine, which holds the shared prefix's blocks and those its restores spill.
+HANDOFF_STEPS, TIER_NEW, TIER_ARENA_MB = 32, 16, 128
 
 
 class SmokeFailure(RuntimeError):
@@ -1493,7 +1516,8 @@ def path_int8_dense_modes(torch, dev, cfg, model, batch_engine) -> dict:
     return launches
 
 
-def check_greedy_chain(torch, dev, cfg, model, prompt, stream) -> float:
+def check_greedy_chain(torch, dev, cfg, model, prompt, stream, what: str = "dense engine"
+                       ) -> float:
     """Holds a greedy `stream` generated after `prompt` [1, P] to an
     independent forward: the one-shot prefill of the prompt, then the
     stream's tokens appended in one forward (dequantized cached attention,
@@ -1508,9 +1532,373 @@ def check_greedy_chain(torch, dev, cfg, model, prompt, stream) -> float:
     logits = torch.cat([first[:, None], rest], 1)[0]  # [n, V] f32
     chosen = logits.gather(1, torch.tensor(stream, device=dev).long()[:, None])[:, 0]
     gap = ((logits.max(1).values - chosen) / logits.abs().max(1).values).max().item()
-    check(gap <= LOGITS_REL_TOL, f"dense engine: a max_len stream token is {gap:.3e} below its "
-                                 f"row's max (limit {LOGITS_REL_TOL})")
+    check(gap <= LOGITS_REL_TOL, f"{what}: a stream token is {gap:.3e} below its row's max "
+                                 f"(limit {LOGITS_REL_TOL})")
     return gap
+
+
+def spec_entry(name: str, dtype: str, shape) -> dict:
+    return {"name": name, "dtype": dtype, "shape": [int(d) for d in shape]}
+
+
+def payload_header_bytes(entries) -> int:
+    """Bytes of a KV-wire payload's spec header: !I(spec_len) + the spec
+    JSON (lws_tpu/serving/kv_transport.py:pack_payload's format)."""
+    return 4 + len(json.dumps({"arrays": entries}).encode())
+
+
+def run_in_thread(fn):
+    """Start fn() in a thread; returns a join() that re-raises its error."""
+    box = {}
+
+    def target():
+        try:
+            box["out"] = fn()
+        except BaseException as e:  # noqa: BLE001 — re-raised by join()
+            box["err"] = e
+
+    thread = threading.Thread(target=target, daemon=True)
+    thread.start()
+
+    def join(timeout: float = 600.0):
+        thread.join(timeout)
+        check(not thread.is_alive(), "a prefill role thread did not finish")
+        if "err" in box:
+            raise box["err"]
+        return box.get("out")
+
+    return join
+
+
+def one_handoff(torch, pre, dec, server, prompt, chunk: int, rid: str, gamma: int = 0) -> dict:
+    """One prefill -> decode handoff over the loopback KVServer, driven as
+    the workers drive it: the prefill role's leg (the streamed offer and
+    chunked prefill, or the monolithic prefill and offer) in a thread, and
+    the decode role's pull_bundle with a CacheAssembler on the card whose
+    process() runs _decode_bundle before the ack. Checks, before returning,
+    that the K/V bytes that landed on the decode side equal the bytes that
+    left (the monolithic payload, or every emitted chunk), and the bundle's
+    size: its spec headers plus pos x kv_row_bytes(cfg) (plus 4 bytes a
+    prompt token for a stream's "tokens") plus the pos and token tail.
+    Returns the handoff's record."""
+    from lws_tpu_torch.models.flagship import kv_row_bytes
+    from lws_tpu_torch.serving import disagg_worker as dw
+    from lws_tpu_torch.serving import kv_transport as kt
+
+    cfg, S = dec.cfg, len(prompt)
+    streamed = dw.use_streaming(S, chunk, dec.max_len)
+    emitted, landed = [], {}
+    if streamed:
+        stream_fn = pre.prefill_chunked_stream
+
+        def spy_stream(tokens, chunk_size, emit, **kw):  # keep what left, chunk by chunk
+            def keep(lo, hi, arrays):
+                emitted.append((lo, hi, arrays))
+                emit(lo, hi, arrays)
+            return stream_fn(tokens, chunk_size, emit=keep, **kw)
+
+        pre.prefill_chunked_stream = spy_stream
+        leg = lambda: dw._prefill_streamed(pre, server, {"id": rid}, rid, prompt, chunk, None)
+    else:
+        leg = lambda: dw._prefill_monolithic(pre, server, {"id": rid}, rid, prompt, None)
+    to_cache = kt.bundle_to_cache
+
+    def spy_to_cache(*a, **kw):  # keep what landed
+        landed["cache"], token = to_cache(*a, **kw)
+        return landed["cache"], token
+
+    kt.bundle_to_cache = spy_to_cache
+    rec = {"prompt": prompt, "chunk": chunk, "streamed": streamed, "gamma": gamma}
+    try:
+        t0 = time.perf_counter()
+        prefill = run_in_thread(leg)
+
+        def process(meta, payload):
+            rec["t_landed"] = time.perf_counter()
+            rec["toks"], rec["stats"], _ = dw._decode_bundle(dec, payload, HANDOFF_STEPS,
+                                                             gamma=gamma, ngram=NGRAM)
+            rec["meta"] = meta
+            landed["payload"] = payload
+            return True
+
+        got = kt.pull_bundle(("127.0.0.1", server.port), timeout=120.0, process=process,
+                             ack_timeout=600.0,
+                             receiver_factory=lambda m: kt.CacheAssembler(max_len=dec.max_len,
+                                                                          device=dec.device))
+        prefill()
+    finally:
+        kt.bundle_to_cache = to_cache
+        if streamed:
+            del pre.prefill_chunked_stream  # the class's method again
+    check(got is True, f"handoff {rid}: no bundle arrived")
+    rec["ttft_s"] = rec["t_landed"] - t0 + rec["stats"]["deserialize_s"]
+    meta, stats = rec["meta"], rec["stats"]
+    handoff = meta["handoff"]
+    check(handoff["pos"] == S and stats["bundle_bytes"] == handoff["bundle_bytes"],
+          f"handoff {rid}: pos {handoff['pos']}, bytes {stats['bundle_bytes']} vs "
+          f"{handoff['bundle_bytes']}")
+    L, Hkv, hd = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
+    kv = lambda rows: [spec_entry(n, "bfloat16", (L, 1, rows, Hkv, hd)) for n in ("k", "v")]
+    if streamed:
+        n_chunks = -(-S // chunk)
+        check(stats["chunks"] == handoff["chunks"] == len(emitted) == n_chunks,
+              f"handoff {rid}: {stats.get('chunks')} chunks, expected {n_chunks}")
+        want_bytes = sum(payload_header_bytes(kv(hi - lo) + [spec_entry("tokens", "int32",
+                                                                        (1, hi - lo))])
+                         + (hi - lo) * (kv_row_bytes(cfg) + 4) for lo, hi, _ in emitted)
+        check(meta["payload_bytes"] == want_bytes, f"handoff {rid}: {meta['payload_bytes']} "
+                                                   f"stream bytes, expected {want_bytes}")
+        bufs = landed["payload"]._bufs
+        for lo, hi, arrays in emitted:
+            for name in ("k", "v"):
+                check(kt.is_bfloat16(arrays[name]), f"handoff {rid}: {name} left untagged")
+                got_rows = kt.host_array(bufs[name][:, :, lo:hi])
+                check(got_rows.tobytes() == arrays[name].tobytes(),
+                      f"handoff {rid}: assembled {name} rows {lo}..{hi} differ from the chunk")
+    else:
+        payload = landed["payload"]
+        (hlen,) = struct.unpack("!I", payload[:4])
+        spec = json.loads(bytes(payload[4:4 + hlen]))["arrays"]
+        want_spec = kv(S) + [spec_entry("pos", "int32", ()), spec_entry("token", "int32", (1,))]
+        check(spec == want_spec, f"handoff {rid}: spec {spec}")
+        want_bytes = payload_header_bytes(want_spec) + S * kv_row_bytes(cfg) + 4 + 4
+        check(len(payload) == want_bytes, f"handoff {rid}: {len(payload)} bundle bytes, "
+                                          f"expected {want_bytes}")
+        sent = kt.bytes_to_arrays(payload)
+        for name in ("k", "v"):
+            got_rows = kt.host_array(getattr(landed["cache"], name)[:, :, :S])
+            check(got_rows.tobytes() == sent[name].tobytes(),
+                  f"handoff {rid}: landed {name} rows differ from the bundle's")
+    return rec
+
+
+def path_disagg(torch, dev, model8) -> dict:
+    """12. The disaggregated handoff at full width: the flagship with int8
+    weights and bf16 K/V (kv_quant off) as the port's disagg_worker builds
+    it, two Engine(batch_size=1, max_len=2048) on those weights, one the
+    prefill role and one the decode role, a KVServer on localhost between
+    them. The 8 paged-phase prompts hand off with LWS_TPU_KV_CHUNK=0 (all
+    monolithic) and CHUNK (prompts over CHUNK tokens stream), then the
+    longest streams once more to a gamma=GAMMA speculative decode leg;
+    then the prefix tiers on the int8 model (`model8`, int8 pool): a
+    PagedBatchEngine with a KVHostArena serves the shared-prefix prompt
+    (miss, then an HBM-tier hit), a filler evicts its blocks into the
+    arena, the prompt restores them from the arena, and a second engine
+    restores them through a RemotePrefixSource from the first engine's
+    KVServer. All of it under exact launch counts; then, outside the
+    count, each handoff's tokens against the decode engine's own prefill
+    (or prefill_chunked) + decode_n, the speculative stream against an
+    independent forward, and each restored stream against the HBM-tier
+    hit's. Returns the launches."""
+    from lws_tpu_torch.serving import disagg_worker as dw
+    from lws_tpu_torch.serving import kv_transport as kt
+    from lws_tpu_torch.serving.engine import Engine
+
+    t_path = time.perf_counter()
+    cfg, model = dw.build_model(MAX_LEN, dev, scale="full")
+    check(not cfg.kv_quant and cfg.dtype == torch.bfloat16, "disagg: the workers' K/V are bf16")
+    pre, dec = (Engine(cfg, model, batch_size=1, max_len=MAX_LEN, device=dev) for _ in range(2))
+    V, L = cfg.vocab_size, cfg.n_layers
+    rng = np.random.default_rng(16)
+    pre.generate(rng.integers(1, V, (1, 32)).astype(np.int32), 4)  # warm-up
+    prompts = [rng.integers(1, V, n).astype(np.int32) for n in paged_prompt_lens()]
+    ml = importlib.util.find_spec("ml_dtypes") is not None
+    server = kt.KVServer(port=0, host="127.0.0.1")
+    counted = {"spec_steps": 0, "tail_steps": 0}
+    torch.cuda.synchronize()
+    reset_counts()
+    try:
+        recs = [one_handoff(torch, pre, dec, server, p, chunk, f"c{chunk}-{len(p)}")
+                for chunk in (0, CHUNK) for p in prompts]
+        spec_step, decode = dec._spec_step, dec.decode
+
+        def count_spec(*a, **kw):
+            counted["spec_steps"] += 1
+            return spec_step(*a, **kw)
+
+        def count_tail(*a, **kw):
+            counted["tail_steps"] += 1
+            return decode(*a, **kw)
+
+        dec._spec_step, dec.decode = count_spec, count_tail
+        try:
+            spec = one_handoff(torch, pre, dec, server, prompts[-1], CHUNK, "spec", gamma=GAMMA)
+        finally:
+            del dec._spec_step, dec.decode
+    finally:
+        server.close()
+    tiers, tier_launch = path_prefix_tiers(torch, dev, model8)
+    launches = read_counts()
+    from lws_tpu_torch.ops.int8_matmul import MAX_ROWS
+    want = {"flash_attention": 0, "int8_matmul": 0}
+    for r in recs + [spec]:
+        S = len(r["prompt"])
+        if r["streamed"]:
+            want["int8_matmul"] += 7 * L * -(-S // CHUNK) + 1
+        else:
+            want["flash_attention"] += L
+            want["int8_matmul"] += 7 * L * (S <= MAX_ROWS) + 1
+        steps = (counted["spec_steps"] + counted["tail_steps"]) if r["gamma"] else HANDOFF_STEPS
+        want["int8_matmul"] += (7 * L + 1) * steps
+    for name, n in tier_launch.items():
+        want[name] = want.get(name, 0) + n
+    check_launches("disagg handoff", launches, want)
+    # Outside the counted run: the single-engine oracles, on the decode engine.
+    single_ttft = []
+    for r in recs:
+        p = r["prompt"][None]
+        t0 = time.perf_counter()
+        tok, cache = dec.prefill_chunked(p, chunk_size=CHUNK) if r["streamed"] else dec.prefill(p)
+        tok.cpu()
+        if not r["streamed"]:
+            single_ttft.append(time.perf_counter() - t0)
+        _, _, toks = dec.decode_n(tok, cache, HANDOFF_STEPS)
+        oracle = np.concatenate([tok.cpu().numpy()[:, None], toks.cpu().numpy()], axis=1)
+        mode = "streamed" if r["streamed"] else "monolithic"
+        check(np.array_equal(r["toks"], oracle),
+              f"disagg handoff: {mode} {r['prompt'].size}-token stream differs from the decode "
+              f"engine's own {'prefill_chunked' if r['streamed'] else 'prefill'} + decode_n at "
+              f"step {first_difference(r['toks'][0], oracle[0])}")
+    gap = check_greedy_chain(torch, dev, cfg, model, spec["prompt"][None], spec["toks"][0],
+                             "disagg speculative leg")
+    for r in recs + [spec]:
+        st, h = r["stats"], r["meta"]["handoff"]
+        mb = st["bundle_bytes"] / 1e6
+        wire = r["meta"]["wire_s"]
+        mode = ("streamed" if r["streamed"] else "monolithic") + (f" gamma={GAMMA}" if r["gamma"]
+                                                                  else "")
+        print(f"disagg handoff {mode} {r['prompt'].size} tokens: prefill {h['prefill_s'] * 1e3:.1f}"
+              f" ms, gather {h['gather_s'] * 1e3:.1f} ms, wire {wire * 1e3:.1f} ms "
+              f"({st['bundle_bytes'] / wire / 1e9:.2f} GB/s over loopback), deserialize "
+              f"{st['deserialize_s'] * 1e3:.1f} ms, decode {st['decode_s'] * 1e3:.1f} ms "
+              f"({HANDOFF_STEPS / st['decode_s']:.1f} tok/s), bundle {mb:.2f} MB, TTFT across "
+              f"the handoff {r['ttft_s'] * 1e3:.1f} ms")
+    for chunk in (0, CHUNK):
+        rs = [r for r in recs if r["chunk"] == chunk]
+        rate = statistics.median(HANDOFF_STEPS / r["stats"]["decode_s"] for r in rs)
+        print(f"disagg handoff, LWS_TPU_KV_CHUNK={chunk} ({sum(r['streamed'] for r in rs)} of "
+              f"{len(rs)} streamed): median TTFT across the handoff "
+              f"{statistics.median(r['ttft_s'] for r in rs) * 1e3:.1f} ms against the "
+              f"single-engine TTFT {statistics.median(single_ttft) * 1e3:.1f} ms (the decode "
+              f"engine's own one-shot prefill of the 8 prompts); decode role {rate:.1f} tok/s "
+              f"(median)")
+    print(f"disagg handoff: every monolithic and streamed stream ({len(recs)}) equals its "
+          f"single-engine oracle; landed K/V bytes equal the bytes that left; spec headers name "
+          f"bfloat16 (ml_dtypes {'importable' if ml else 'not installed'} here); speculative leg "
+          f"({counted['spec_steps']} verify passes + {counted['tail_steps']} single steps) within "
+          f"{gap:.3e} of each row's max under an independent forward")
+    print(tiers)
+    print(f"disagg handoff: path wall time {time.perf_counter() - t_path:.1f} s")
+    return launches
+
+
+def tier_rows(engine, blk: int) -> dict:
+    from lws_tpu_torch.serving.kv_transport import host_array
+
+    return {n: host_array(getattr(engine.cache, n)[:, blk]).tobytes()
+            for n in ("k", "v", "k_scale", "v_scale")}
+
+
+def path_prefix_tiers(torch, dev, model) -> tuple[str, dict]:
+    """The host-arena and remote prefix tiers on the int8 flagship (int8
+    pool), for path 12. Engine A (slots 2, one request's blocks + the null
+    block, a KVHostArena of TIER_ARENA_MB) serves the shared-prefix prompt
+    of prefix_mix (miss), then again (its 34 shareable blocks hit in HBM:
+    the oracle stream), then a filler whose admission evicts them all into
+    the arena, then the prompt again (restored from the arena). Engine B
+    (no arena) restores them through a RemotePrefixSource from A's
+    KVServer. Checks: the restored pool rows equal the rows spilled, byte
+    for byte, and each restored stream equals the HBM-tier hit's. Returns
+    (the summary line, the expected launches)."""
+    from lws_tpu_torch.serving import kv_transport as kt
+    from lws_tpu_torch.serving.kv_host_arena import KVHostArena
+    from lws_tpu_torch.serving.paged_engine import PagedBatchEngine, admission_route
+
+    cfg = model.cfg
+    prompt = prefix_mix(cfg)[1]  # the shared 512-token prefix + 40 tokens
+    filler = np.random.default_rng(17).integers(1, cfg.vocab_size, 600).astype(np.int32)
+    n_shared = (len(prompt) - 1) // BLOCK
+    nb = bucket_of(len(prompt)) // BLOCK + 1
+    arena = KVHostArena(TIER_ARENA_MB << 20)
+    restore_ms = {"host": [], "remote": []}
+
+    def engine(tier, **kw):
+        e = PagedBatchEngine(cfg, model, slots=2, max_len=MAX_LEN, block_size=BLOCK,
+                             num_blocks=nb, prefix_cache=True, device=dev, **kw)
+        restore = e._restore_block
+
+        def timed(d, arrays):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            blk = restore(d, arrays)
+            torch.cuda.synchronize()
+            restore_ms[tier].append((time.perf_counter() - t0) * 1e3)
+            return blk
+
+        e._restore_block = timed
+        return e
+
+    def serve(e, p):
+        rid = e.submit(p, TIER_NEW)
+        check(rid is not None, "prefix tiers: admission refused")
+        e.run_until_drained()
+        out = e.result(rid)
+        check(out is not None and len(out) == TIER_NEW, f"prefix tiers: {out and len(out)} tokens")
+        return out
+
+    a = engine("host", host_arena=arena)
+    digests = a._block_digests(prompt, n_shared)
+    serve(a, prompt)
+    hbm = serve(a, prompt)
+    check(a.stats_prefix["hit_blocks"] == n_shared, f"prefix tiers: {a.stats_prefix}")
+    spilled = {d: tier_rows(a, a._prefix_map[d]) for d in digests}
+    serve(a, filler)
+    check(not any(d in a._prefix_map for d in digests) and all(d in arena for d in digests),
+          f"prefix tiers: the filler did not spill the prefix ({a.stats_prefix})")
+    host = serve(a, prompt)
+    check(a.stats_prefix["host_hits"] == n_shared, f"prefix tiers: {a.stats_prefix}")
+    check(all(tier_rows(a, a._prefix_map[d]) == spilled[d] for d in digests),
+          "prefix tiers: host-restored pool rows differ from the spilled rows")
+    server = kt.KVServer(port=0, host="127.0.0.1")
+    fetch_s = []
+    try:
+        server.serve_prefixes(arena.get)
+        src = kt.RemotePrefixSource(endpoints=[("127.0.0.1", server.port)])
+        fetch = src.fetch
+
+        def timed_fetch(ds):
+            t0 = time.perf_counter()
+            found = fetch(ds)
+            fetch_s.append(time.perf_counter() - t0)
+            return found
+
+        src.fetch = timed_fetch
+        b = engine("remote", remote_prefix=src)
+        remote = serve(b, prompt)
+    finally:
+        server.close()
+    check(b.stats_prefix["remote_hits"] == n_shared and len(fetch_s) == 1,
+          f"prefix tiers: {b.stats_prefix}, {len(fetch_s)} fetches")
+    check(all(tier_rows(b, b._prefix_map[d]) == spilled[d] for d in digests),
+          "prefix tiers: remote-restored pool rows differ from the spilled rows")
+    check(host == hbm and remote == hbm,
+          f"prefix tiers: restored streams differ from the HBM-tier hit's (host at "
+          f"{first_difference(host, hbm)}, remote at {first_difference(remote, hbm)})")
+    block_bytes = sum(len(v) for v in spilled[digests[0]].values())
+    admissions = [(None, admission_route(len(p), hit * BLOCK, BLOCK, MAX_LEN, None))
+                  for p, hit in ((prompt, 0), (prompt, n_shared), (filler, 0),
+                                 (prompt, n_shared), (prompt, n_shared))]
+    steps = a.stats["decode_steps"] + b.stats["decode_steps"]
+    line = (f"prefix tiers: {n_shared} blocks of the shared prefix ({block_bytes / 1e6:.3f} MB "
+            f"each) spilled ({a.stats_prefix['spills']} spills), restored from the host arena at "
+            f"{statistics.mean(restore_ms['host']):.3f} ms a block (median "
+            f"{statistics.median(restore_ms['host']):.3f}) and from the sibling at "
+            f"{statistics.mean(restore_ms['remote']):.3f} ms a block after one "
+            f"{fetch_s[0] * 1e3:.1f} ms fetch of {n_shared * block_bytes / 1e6:.1f} MB "
+            f"({n_shared * block_bytes / fetch_s[0] / 1e9:.2f} GB/s over loopback); restored rows "
+            f"equal the spilled rows byte for byte and both restored streams equal the HBM-tier "
+            f"hit's; arena {arena.stats()}")
+    return line, expected_prefix_launches(cfg, admissions, steps, 0)
 
 
 def mixtral_config(torch):
@@ -1861,7 +2249,10 @@ def main(argv=None) -> int:
                                                                  paged_streams)
     by_path["int8 dense chunked/streamed/speculative"] = path_int8_dense_modes(
         torch, dev, cfg8, model8, batch_engine)
-    del batch_engine, model8  # the flagship goes before the MoE model is built
+    del batch_engine
+    torch.cuda.empty_cache()
+    by_path["disagg handoff"] = path_disagg(torch, dev, model8)
+    del model8  # the flagship goes before the MoE model is built
     torch.cuda.empty_cache()
     by_path["int8 MoE engines"], kernels["int8_matmul"]["moe_expert_rows"] = path_int8_moe(
         torch, dev, profile=args.profile)

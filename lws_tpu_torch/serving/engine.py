@@ -32,7 +32,6 @@ import torch
 import torch.nn.functional as F
 
 from lws_tpu_torch._device import DeviceLike, resolve_device
-from lws_tpu_torch.models.convert import to_numpy
 from lws_tpu_torch.models.llama import (
     KVCache,
     Llama,
@@ -44,6 +43,7 @@ from lws_tpu_torch.models.llama import (
     ngram_draft,
     speculative_accept,
 )
+from lws_tpu_torch.serving.kv_transport import host_array
 from lws_tpu_torch.serving.pipeline import DecodePipeline
 
 
@@ -242,11 +242,12 @@ class Engine:
         the compute of chunk N+1. A ring of `ring_depth` chunks (0: gather
         right after each chunk) bounds how far the gather trails. `arrays`
         holds "k", "v" (and "k_scale", "v_scale" with cfg.kv_quant) as numpy
-        [L, B, hi - lo, Hkv(, hd)] cut to the true prompt rows, bf16 as
-        models.convert.to_numpy gives it, and "tokens", the prompt's
-        [B, lo:hi] slice: the shapes and bytes of JAX's arrays
-        (lws_tpu/serving/engine.py:360). A chunk's rows are copied on the
-        device before the next chunk runs. Returns (first token [B], the
+        [L, B, hi - lo, Hkv(, hd)] cut to the true prompt rows, copied to
+        the host by kv_transport.host_array (bf16 as its uint16 bits tagged
+        to go on the wire as "bfloat16", whether ml_dtypes is installed or
+        not), and "tokens", the prompt's [B, lo:hi] slice: the shapes and
+        bytes of JAX's arrays (lws_tpu/serving/engine.py:360). A chunk's
+        rows are copied on the device before the next chunk runs. Returns (first token [B], the
         cache at pos S, stats {"chunks", "gather_s"})."""
         tokens_host = tokens.cpu().numpy() if isinstance(tokens, torch.Tensor) \
             else np.asarray(tokens)
@@ -267,10 +268,10 @@ class Engine:
         def drain_one() -> None:
             lo, hi, slices = pending.popleft()
             t0 = time.perf_counter()
-            host = {name: to_numpy(x) for name, x in slices.items()}  # the gather's fence
+            arrays = {name: host_array(x) for name, x in slices.items()}  # the gather's fence
             stats["gather_s"] += time.perf_counter() - t0
-            host["tokens"] = tokens_host[:, lo:hi]
-            emit(lo, hi, host)
+            arrays["tokens"] = tokens_host[:, lo:hi]
+            emit(lo, hi, arrays)
             stats["chunks"] += 1
 
         for i in range(0, S + pad, chunk_size):

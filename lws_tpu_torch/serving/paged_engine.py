@@ -26,7 +26,12 @@ Three serving modes, each off by default as in the JAX engine:
     position-binding hash chain; a prompt that shares a block-aligned prefix
     with an earlier one reuses its blocks and prefills only the suffix.
     Shared blocks are refcounted; at refcount 0 they park in an LRU (still
-    mapped) and are evicted only when allocation needs them;
+    mapped) and are evicted only when allocation needs them. Two more tiers
+    sit behind the pool (HBM): `host_arena` (a KVHostArena) receives each
+    evicted block's K/V, and `remote_prefix` (a RemotePrefixSource) fetches
+    blocks from a sibling over the KV wire; a prefix-map miss restores the
+    block from the first tier that holds it instead of recomputing it. The
+    blocks travel in the wire's `pack_payload` format;
   * `prefill_chunk=C`: a prompt longer than C is prefilled C tokens at a
     time into a dense cache, with `interleave_steps` decode steps for the
     active slots between chunks; the slot's table row stays on the null
@@ -45,11 +50,9 @@ The suffix, chunk and verify attention is stock torch, as JAX leaves it to
 XLA. A build or launch failure raises. There is no fallback path. With
 cfg.kv_quant the pool holds int8 K/V with per-(token, kv head) scales, and
 admission scatters the prefill cache's int8 values and scales into it
-unchanged. Left out of this slice: mesh/TP (`mesh`, with the multi-GPU
-slice), the host-arena and remote prefix tiers (`host_arena`,
-`remote_prefix`, with the disaggregated-handoff slice, since they store
-blocks in the KV wire's format), donation knobs (`donate_steps`: PyTorch
-updates the pool in place), the kernel probe and its fallback, telemetry.
+unchanged. Left out: mesh/TP (`mesh`, with the multi-GPU slice), donation
+knobs (`donate_steps`: PyTorch updates the pool in place), the kernel probe
+and its fallback, telemetry (the /debug/prefixes advertisement included).
 """
 
 from __future__ import annotations
@@ -80,7 +83,9 @@ from lws_tpu_torch.models.llama import (
     paged_insert,
     speculative_accept,
 )
+from lws_tpu_torch.serving import kv_host_arena
 from lws_tpu_torch.serving.engine import Engine, sample_logits_per_slot
+from lws_tpu_torch.serving.kv_transport import host_array, to_tensor
 from lws_tpu_torch.serving.pipeline import DecodePipeline, remaining_steps
 
 
@@ -153,6 +158,8 @@ class PagedBatchEngine:
         interleave_steps: int = 8,
         pipeline_depth: Optional[int] = None,
         spec_history: Optional[int] = None,
+        host_arena: Optional[kv_host_arena.KVHostArena] = None,
+        remote_prefix=None,
         device: DeviceLike = None,
     ):
         """`device` defaults to CUDA (raising without a GPU); `params` must
@@ -161,10 +168,13 @@ class PagedBatchEngine:
         not asynchronous and a ring buys nothing. `prefill_chunk` must be a
         power of two of at least one block, so every bucket is a whole
         number of chunks. `spec_history` is the per-slot token window the
-        device drafter searches (default max_len, the whole context). The
-        JAX engine's `mesh` comes with the multi-GPU slice, `host_arena` and
-        `remote_prefix` with the disaggregated-handoff slice; `donate_steps`
-        has no counterpart (the pool is updated in place)."""
+        device drafter searches (default max_len, the whole context). With
+        prefix_cache, `host_arena` (default: kv_host_arena.from_env(), None
+        unless LWS_TPU_KV_HOST_ARENA_MB is set) receives evicted prefix
+        blocks and `remote_prefix` (a kv_transport.RemotePrefixSource, or
+        set later by set_remote_prefix) fetches them from siblings. The JAX
+        engine's `mesh` comes with the multi-GPU slice; `donate_steps` has
+        no counterpart (the pool is updated in place)."""
         self.device = resolve_device(device)
         if params.device.type != self.device.type or (
             self.device.index is not None and params.device != self.device
@@ -205,7 +215,12 @@ class PagedBatchEngine:
         self._block_digest: dict[int, bytes] = {}
         self._block_refs: dict[int, int] = {}
         self._lru: dict[int, None] = {}
-        self.stats_prefix = {"hit_tokens": 0, "hit_blocks": 0, "evictions": 0}
+        self.stats_prefix = {"hit_tokens": 0, "hit_blocks": 0, "evictions": 0,
+                             "spills": 0, "host_hits": 0, "remote_hits": 0}
+        self._host_arena = host_arena
+        if prefix_cache and host_arena is None:
+            self._host_arena = kv_host_arena.from_env()
+        self._remote_prefix = remote_prefix
         # A request mid-chunked-admission holds blocks but is not active yet:
         # pool_accounting counts its blocks live.
         self._admitting: Optional[PagedRequest] = None
@@ -303,6 +318,10 @@ class PagedBatchEngine:
         self._dirty_table = True
 
     # ---- prefix caching -----------------------------------------------
+    def set_remote_prefix(self, source) -> None:
+        """Wire (or clear) the remote tier after construction."""
+        self._remote_prefix = source
+
     def _block_digests(self, prompt: np.ndarray, n: int) -> list[bytes]:
         """Position-binding hash chain over the first n full blocks: block
         i's digest commits to every token in [0, (i+1)*bs), so equal digests
@@ -339,10 +358,43 @@ class PagedBatchEngine:
             # Unmap only if the digest still points at this block.
             if digest is not None and self._prefix_map.get(digest) == blk:
                 del self._prefix_map[digest]
+                # Spill instead of drop: the flush above means no chunk in
+                # flight can still write this block, so the copy sees its
+                # final contents.
+                if self._host_arena is not None:
+                    self._spill_block(blk, digest)
             self._block_refs.pop(blk, None)
             self.stats_prefix["evictions"] += 1
             out.append(blk)
         return out
+
+    def _spill_block(self, blk: int, digest: bytes) -> None:
+        """An evicted parked block's pool rows -> the host arena, in the KV
+        wire's format. Eviction proceeds the same whether the arena took
+        the entry or dropped it as oversized."""
+        names = ("k", "v", "k_scale", "v_scale") if self.cfg.kv_quant else ("k", "v")
+        if self._host_arena.put(digest, {n: host_array(getattr(self.cache, n)[:, blk])
+                                         for n in names}):
+            self.stats_prefix["spills"] += 1
+
+    def _restore_block(self, digest: bytes, arrays: dict) -> Optional[int]:
+        """Upload one spilled or fetched block ([L, bs, Hkv(, hd)] arrays)
+        into a freshly allocated pool block, map its digest and take this
+        admission's ref on it (released by refcount, like an HBM hit).
+        None when the pool cannot supply a block: the caller's hit chain
+        ends there."""
+        got = self._alloc_blocks(1)
+        if got is None:
+            return None
+        blk = got[0]
+        rows = {n: to_tensor(a, self.device) for n, a in arrays.items()}
+        scales = (rows["k_scale"], rows["v_scale"]) if self.cfg.kv_quant else ()
+        paged_insert(self.cache, rows["k"], rows["v"],
+                     torch.tensor([blk], device=self.device), *scales)
+        self._prefix_map[digest] = blk
+        self._block_digest[blk] = digest
+        self._block_refs[blk] = self._block_refs.get(blk, 0) + 1
+        return blk
 
     def _dense_view(self, block_ids: torch.Tensor, pad: int, hit_len: int) -> KVCache:
         """A gathered COPY of pool blocks `block_ids` as a dense [L, 1,
@@ -541,16 +593,36 @@ class PagedBatchEngine:
         # the first-token logits exist.
         shareable_n = (plen - 1) // bs
         digests = self._block_digests(prompt, shareable_n)
-        # Each hit is pinned as the walk reaches it, so the allocation below
-        # cannot evict it; a failed allocation rolls every pin back.
+        # The tiered hit walk, in digest-chain order: the pool (hbm), then the
+        # host arena, then a sibling (remote); the first digest no tier holds
+        # ends the chain. Each hit is pinned as the walk reaches it, so a
+        # restore's allocation (which may evict) or the allocation below
+        # cannot take it; a failed allocation rolls every pin back.
         hits: list[int] = []
-        for d in digests:
+        tiers: list[str] = []
+        remote_found: Optional[dict] = None
+        for i, d in enumerate(digests):
             blk = self._prefix_map.get(d)
+            if blk is not None:
+                if self._block_refs.get(blk, 0) == 0:
+                    self._lru.pop(blk, None)
+                self._block_refs[blk] = self._block_refs.get(blk, 0) + 1
+                tiers.append("hbm")
+                hits.append(blk)
+                continue
+            tier = "host"
+            arrays = self._host_arena.get(d) if self._host_arena is not None else None
+            if arrays is None:
+                if self._remote_prefix is not None and remote_found is None:
+                    # One fetch per admission for the whole remaining chain.
+                    remote_found = self._remote_prefix.fetch(digests[i:]) or {}
+                tier, arrays = "remote", (remote_found or {}).get(d)
+                if arrays is None:
+                    break
+            blk = self._restore_block(d, arrays)  # pinned by the restore
             if blk is None:
-                break
-            if self._block_refs.get(blk, 0) == 0:
-                self._lru.pop(blk, None)
-            self._block_refs[blk] = self._block_refs.get(blk, 0) + 1
+                break  # the pool is exhausted: the chain ends here
+            tiers.append(tier)
             hits.append(blk)
         hit_len = len(hits) * bs
         new_blocks = self._alloc_blocks(n_blocks - len(hits))
@@ -598,6 +670,8 @@ class PagedBatchEngine:
             req.shared_blocks.append(blk)
         self.stats_prefix["hit_tokens"] += hit_len
         self.stats_prefix["hit_blocks"] += len(hits)
+        self.stats_prefix["host_hits"] += tiers.count("host")
+        self.stats_prefix["remote_hits"] += tiers.count("remote")
         return self._finish_admission(req, first)
 
     def _admit_chunked(self, req: PagedRequest, gen, bucket: int, hit_len: int,

@@ -25,6 +25,7 @@ from lws_tpu.models import llama as jl
 from lws_tpu.serving import Engine as JaxEngine
 from lws_tpu.serving.paged_engine import PagedBatchEngine as JaxPagedBatchEngine
 from lws_tpu_torch.models.convert import config_from_jax, params_from_jax
+from lws_tpu_torch.serving import kv_transport as kt
 from lws_tpu_torch.serving.engine import Engine
 from lws_tpu_torch.serving.paged_engine import PagedBatchEngine
 
@@ -124,6 +125,17 @@ def assert_same_bytes(a, b):
     assert a.tobytes() == b.tobytes()
 
 
+def wire_name(a) -> str:
+    """The dtype name an array goes on the KV wire under: the port's bf16
+    (uint16 bits tagged BF16) and JAX's ml_dtypes bf16 are both "bfloat16"."""
+    return "bfloat16" if kt.is_bfloat16(a) else a.dtype.name
+
+
+def as_f32(a) -> np.ndarray:
+    return (kt.to_tensor(a, torch.device("cpu")).float().numpy() if kt.is_bfloat16(a)
+            else a.astype(np.float32))
+
+
 def jax_stream(stream_model, prompt, chunk):
     _, (jcfg, jparams, _, _) = stream_model
     return stream(JaxEngine(jcfg, jparams, batch_size=1, max_len=64), jnp.asarray(prompt), chunk)
@@ -143,7 +155,7 @@ def test_stream_emits_the_final_cache_rows_and_matches_prefill_chunked(stream_mo
     for lo, hi, arrays in out:
         assert sorted(arrays) == sorted(keys)
         for key in keys[:-1]:
-            assert_same_bytes(arrays[key], tengine.to_numpy(getattr(cache, key)[:, :, lo:hi]))
+            assert_same_bytes(arrays[key], kt.host_array(getattr(cache, key)[:, :, lo:hi]))
         assert_same_bytes(arrays["tokens"], PROMPT[:, lo:hi])
     t_chunk, c_chunk = Engine(tcfg, tparams, batch_size=1, max_len=64,
                               device="cpu").prefill_chunked(PROMPT, chunk_size=8)
@@ -168,8 +180,8 @@ def test_stream_matches_jax_arrays(stream_model):
         assert (lo, hi) == (jlo, jhi) and sorted(a) == sorted(b)
         assert_same_bytes(a["tokens"], b["tokens"])
         for key in ("k", "v"):
-            assert a[key].dtype == b[key].dtype and a[key].shape == b[key].shape
-            x, y = a[key].astype(np.float32), b[key].astype(np.float32)
+            assert wire_name(a[key]) == wire_name(b[key]) and a[key].shape == b[key].shape
+            x, y = as_f32(a[key]), as_f32(b[key])
             if name == "int8":
                 assert np.abs(x - y).max() <= 1
                 np.testing.assert_allclose(a[key + "_scale"], b[key + "_scale"], rtol=2e-5)
@@ -207,8 +219,8 @@ def test_stream_bytes_equal_jax_given_the_same_cache(stream_model, monkeypatch):
     assert len(got) == len(want) == 3
     for (lo, hi, a), (jlo, jhi, b) in zip(got, want):
         assert (lo, hi) == (jlo, jhi) and sorted(a) == sorted(b)
-        for key in a:
-            assert_same_bytes(a[key], b[key])
+        for key in a:  # same dtype name, shape and bytes on the wire
+            assert kt.arrays_to_bytes(x=a[key]) == kt.arrays_to_bytes(x=b[key]), key
 
 
 def test_stream_refuses_an_empty_or_oversized_prompt(model):

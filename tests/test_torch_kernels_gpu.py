@@ -645,3 +645,60 @@ def test_moe_model_logits_kernel_vs_plain(dev):
     dk, _ = tl.forward_decode_slotted(model, tok, ck, pos)
     dp, _ = tl.forward_decode_slotted(model, tok, plain, pos, plain=True)
     assert ((dk - dp).abs().max() / dp.abs().max()).item() < 5e-2
+
+
+# ---------------------------------------------------------------------------
+# The KV wire's device seams onto the card (no kernel: byte-exact copies)
+
+
+@pytest.mark.parametrize("kv_quant", [False, True])
+def test_bundle_to_cache_and_assembler_onto_cuda_rows_exact(dev, kv_quant):
+    """A bf16 (or int8 with scales) cache cut to its pos rows, shipped as a
+    monolithic bundle and as a chunked stream, lands on the card with the
+    same rows, zeros past pos, and the token."""
+    from lws_tpu_torch.serving import kv_transport as kt
+
+    cfg = tl.LlamaConfig(vocab_size=64, d_model=256, n_layers=2, n_heads=2, n_kv_heads=2,
+                         d_ff=256, max_seq_len=64, param_dtype=torch.bfloat16, kv_quant=kv_quant)
+    g = torch.Generator(device=dev).manual_seed(7)
+    src = tl.init_cache(cfg, 1, 40, dev)
+    if kv_quant:
+        src.k.copy_(int8s(g, *src.k.shape, dev=dev))
+        src.v.copy_(int8s(g, *src.v.shape, dev=dev))
+        src.k_scale.copy_(torch.rand(*src.k_scale.shape, generator=g, device=dev))
+        src.v_scale.copy_(torch.rand(*src.v_scale.shape, generator=g, device=dev))
+    else:
+        src.k.copy_(randn(g, *src.k.shape, dev=dev))
+        src.v.copy_(randn(g, *src.v.shape, dev=dev))
+    src.pos = 29
+    token = torch.tensor([17], dtype=torch.int32, device=dev)
+    names = ("k", "v", "k_scale", "v_scale") if kv_quant else ("k", "v")
+    cache, tok = kt.bundle_to_cache(kt.cache_to_bundle(src, token), max_len=64, device=dev)
+    asm = kt.CacheAssembler(max_len=64, device=dev)
+    for lo in range(0, 29, 8):
+        hi = min(lo + 8, 29)
+        asm.chunk({"pos_range": [lo, hi]}, kt.bytes_to_arrays(kt.arrays_to_bytes(
+            **{n: getattr(src, n)[:, :, lo:hi] for n in names})))
+    asm.finish({}, {"token": token.cpu().numpy(), "pos": np.asarray(29, np.int32)})
+    streamed, stok, pos, _ = asm.take()
+    assert pos == cache.pos == 29 and torch.equal(tok, token) and torch.equal(stok, token)
+    for c in (cache, streamed):
+        for n in names:
+            got, want = getattr(c, n), getattr(src, n)
+            assert got.device.type == "cuda" and got.dtype == want.dtype and got.shape[2] == 64
+            assert torch.equal(got[:, :, :29], want[:, :, :29]), n
+            assert not got[:, :, 29:].any(), n
+
+
+def test_bf16_bundle_roundtrips_into_a_cuda_tensor(dev):
+    """bf16 crosses the wire under the name "bfloat16" with no ml_dtypes on
+    the card, and comes back as the same bf16 tensor on the device."""
+    from lws_tpu_torch.serving import kv_transport as kt
+
+    x = randn(torch.Generator(device=dev).manual_seed(3), 2, 5, 8, dev=dev)
+    data = kt.arrays_to_bytes(x=x)
+    assert b'"bfloat16"' in data
+    arr = kt.bytes_to_arrays(data)["x"]
+    assert kt.is_bfloat16(arr) and arr.shape == (2, 5, 8)
+    back = kt.to_tensor(arr, dev)
+    assert back.device.type == "cuda" and back.dtype == torch.bfloat16 and torch.equal(back, x)
