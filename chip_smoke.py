@@ -9,10 +9,13 @@ kernels to their plain PyTorch versions.
                                        # and the MoE engine, and of steady verify passes
 
 Phases (each raises on failure; the script then exits non-zero and prints
-no result line):
+no result line): 1-4 build and hold the kernels, 5-13 drive the engine
+paths.
   1. the card (nvidia-smi name and power limit, CUDA version) and the build of
      every CUDA source in lws_tpu_torch/csrc/ for sm_90a, one nvcc per source,
-     started together;
+     started together; the compile ledger (lws_tpu_torch/obs/device.py) must
+     then hold exactly one `first` record per source that build compiled
+     (all four when _build/ was cold, none when warm);
   2. the flash prefill kernel against reference_attention at the flagship's
      attention shapes (H=32, Hkv=8, D=128, bf16, causal): B=1 at several S
      (the paged engines' prefills, and S = 127, 129, 257 for ragged 128-row
@@ -43,7 +46,9 @@ no result line):
      held to the plain path's on the same weights; then
      PagedBatchEngine(slots=8, max_len=2048, block_size=16) serves 8 greedy
      requests (prompts of 100..1000 tokens, 64 new tokens each), three
-     rounds;
+     rounds; then the telemetry cost: run_until_drained over the 8 requests
+     with tracing on and off, alternated in pairs, both tok/s medians
+     printed (not gated);
   6. the int8 paged engine: the bf16 model is freed, then
      flagship_config("full", kv_quant=True) with init_quantized_params (int8
      weights, int8 KV) serves the same requests the same way;
@@ -98,11 +103,32 @@ no result line):
      int8_matmul held to its plain version at every per-expert row count the
      path gives it (timed beside its bound and bf16 F.linear), then
      PagedBatchEngine(slots=8, block_size=16, max_len=2048) serving the 8
-     prompts (32 new tokens each) and one Engine.generate.
+     prompts (32 new tokens each) and one Engine.generate;
+ 13. (run after 12, on the int8 model of 6.) the open-loop load runner: the
+     JAX package's built-in shared_prefix scenario (seed 0) through
+     lws_tpu_torch.loadgen.run_schedule against an EngineTarget over
+     PagedBatchEngine(slots=8, max_len=2048, block_size=16,
+     prefix_cache=True); it prints the schedule digest, the completions
+     (the client ledger and the engine's server-side TTFT histogram must
+     agree), TTFT p50/p99 and goodput per class; then
+     build_local_target(kind, spec) with no device, for each engine kind,
+     serves the schedule's first 6 requests on the card (bf16, head dim
+     128), after the path's launch counts are read.
 Every engine path is driven with all kernels' launch counts set to 0 just
-before it and read just after, and the counts are checked exactly. The last
-lines are a JSON line of per-kernel numbers, the card line, and
-{"ok": true, "device": {...}}.
+before it and read just after, and the counts are checked exactly. The
+port's telemetry is armed for paths 5-13 (tracing on, a fresh SLO recorder
+per path) and held after each path to what the path did, counted by spies
+on the engines' entry points: serving_requests_total{engine} rose by the
+requests admitted, the TTFT and queue-wait counts by the same number (a
+dense request has no queue wait), the dispatch-duration count equals the
+decode dispatches, serving_transfer_bytes_total at paged.dispatch_inputs
+equals the bytes of the device inputs the engine rebuilt, every TTFT
+exemplar names a span in the tracer and serving_active_slots ends at 0. After 5 and 6,
+refresh_device_memory() and the pool gauges: kv equals the pool tensors'
+bytes, weights the model's; gpu:0 in use within peak and limit, the
+workspace residual >= 0. Path 12's prefix tiers count exactly the bytes
+they restore. The last lines are a JSON line of per-kernel numbers, the
+card line, and {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -786,6 +812,323 @@ def check_launches(what: str, got: dict, want: dict) -> None:
         check(n == want.get(name, 0), f"{what}: {name} launched {n} times, expected "
                                       f"{want.get(name, 0)}")
     print(f"{what}: launches " + ", ".join(f"{k}={v}" for k, v in got.items() if v))
+
+
+# The loadgen path: the JAX package's built-in shared-prefix scenario and its
+# seed, and the bound on its drain.
+LOADGEN_SCENARIO, LOADGEN_SEED, LOADGEN_MAX_WALL_S = "shared_prefix", 0, 60.0
+LOCAL_TARGET_REQUESTS = 6  # requests each build_local_target kind serves
+COST_PAIRS = 3  # tracing-on/off pairs of the telemetry-cost measurement
+
+
+def hist_count(registry, name: str, match: dict) -> float:
+    """Sum of a histogram's `_count` over the series whose labels contain
+    `match`."""
+    from lws_tpu_torch.core import metrics
+
+    fam = metrics.parse_exposition(registry.render()).get(name)
+    if fam is None:
+        return 0.0
+    return sum(v for n, labels, v, _ in fam["samples"] if n == f"{name}_count"
+               and all(labels.get(k) == w for k, w in match.items()))
+
+
+class TelemetryWatch:
+    """Arms the port's telemetry for the engine paths and holds each path's
+    telemetry to what the path did. Tracing is on (a tracer whose ring holds
+    every span of a path), and every path gets a fresh SLO recorder with its
+    own registry, so its TTFT exemplars can only name its own spans. What a
+    path did is counted independently of the metrics, by thin spies on the
+    engines' entry points: requests admitted (PagedBatchEngine.submit and
+    BatchEngine.submit returning an id; each Engine.generate and
+    generate_speculative), decode dispatches (step_n returning n > 0; a
+    BatchEngine.step that pushed onto its ring) and the bytes of the paged
+    engine's dirty dispatch-input uploads."""
+
+    UPLOAD_SITE = {"site": "paged.dispatch_inputs", "direction": "h2d"}
+
+    def __init__(self):
+        from lws_tpu_torch.core import trace
+        from lws_tpu_torch.serving.batch_engine import BatchEngine
+        from lws_tpu_torch.serving.engine import Engine
+        from lws_tpu_torch.serving.paged_engine import PagedBatchEngine
+
+        self.tracer = trace.Tracer(ring=1 << 17, enabled=True, sample_rate=1.0)
+        trace.TRACER = self.tracer
+        self.requests, self.dispatches, self.uploads = {}, {}, [0]
+        watch = self
+
+        def count(d, label, n=1):
+            d[label] = d.get(label, 0) + n
+
+        def spy_submit(cls, label):
+            orig = cls.submit
+
+            def submit(eng, *a, **kw):
+                rid = orig(eng, *a, **kw)
+                if rid is not None:
+                    count(watch.requests, label)
+                return rid
+            cls.submit = submit
+
+        def spy_generate(name):
+            orig = getattr(Engine, name)
+
+            def generate(eng, *a, **kw):
+                out = orig(eng, *a, **kw)
+                count(watch.requests, "dense")
+                return out
+            setattr(Engine, name, generate)
+
+        step_n, step, dispatch_inputs = (PagedBatchEngine.step_n, BatchEngine.step,
+                                         PagedBatchEngine._dispatch_inputs)
+
+        def spy_step_n(eng, n):
+            got = step_n(eng, n)
+            if got:
+                count(watch.dispatches, "paged")
+            return got
+
+        def spy_step(eng):
+            before = eng._pipeline.stats["dispatched"]
+            step(eng)
+            count(watch.dispatches, "batch", eng._pipeline.stats["dispatched"] - before)
+
+        def device_inputs(eng) -> list:
+            return [eng._active_dev, eng._table_dev, *(eng._sampling_dev or ())]
+
+        def spy_dispatch_inputs(eng):
+            # The bytes that reached the card: every device input the call
+            # rebuilt (a new tensor object), whatever the engine's flags say.
+            before = [t for t in device_inputs(eng) if t is not None]
+            out = dispatch_inputs(eng)
+            for t in device_inputs(eng):
+                if not any(t is b for b in before):
+                    check(t.is_cuda, "dispatch inputs: an input was rebuilt off the card")
+                    watch.uploads[0] += t.numel() * t.element_size()
+            return out
+
+        spy_submit(PagedBatchEngine, "paged")
+        spy_submit(BatchEngine, "batch")
+        spy_generate("generate")
+        spy_generate("generate_speculative")
+        PagedBatchEngine.step_n, BatchEngine.step = spy_step_n, spy_step
+        PagedBatchEngine._dispatch_inputs = spy_dispatch_inputs
+
+    def begin(self) -> None:
+        from lws_tpu_torch.core import metrics, slo
+
+        self.requests.clear()
+        self.dispatches.clear()
+        self.uploads[0] = 0
+        self.recorder = slo.RECORDER = slo.SLORecorder(registry=metrics.MetricsRegistry())
+        reg = metrics.REGISTRY
+        self.before = {
+            "requests": {e: reg.counter_value("serving_requests_total", {"engine": e})
+                         for e in ("paged", "batch", "dense")},
+            "dispatches": {e: hist_count(reg, "serving_decode_dispatch_duration_seconds",
+                                         {"engine": e}) for e in ("paged", "batch")},
+            "uploads": reg.counter_value("serving_transfer_bytes_total", self.UPLOAD_SITE),
+        }
+
+    def end(self, what: str) -> dict:
+        """The path's checks: serving_requests_total, the TTFT and
+        queue-wait counts (a dense request has no queue: 0, as in the JAX
+        engine), the dispatch histogram's count, the dispatch-input upload
+        bytes, every TTFT exemplar resolving in the tracer, and every
+        engine's active slots back at 0."""
+        from lws_tpu_torch.core import metrics
+
+        reg, own = metrics.REGISTRY, self.recorder._registry
+        for e in ("paged", "batch", "dense"):
+            n = self.requests.get(e, 0)
+            got = reg.counter_value("serving_requests_total", {"engine": e}) - \
+                self.before["requests"][e]
+            check(got == n, f"{what}: serving_requests_total{{engine={e}}} rose by {got}, the "
+                            f"path admitted {n}")
+            ttft = hist_count(own, "serving_ttft_seconds", {"engine": e})
+            queue = hist_count(own, "serving_queue_wait_seconds", {"engine": e})
+            check(ttft == n and queue == (0 if e == "dense" else n),
+                  f"{what}: {e}: TTFT count {ttft}, queue-wait count {queue}, {n} requests")
+            if e != "dense":
+                d = hist_count(reg, "serving_decode_dispatch_duration_seconds", {"engine": e}) \
+                    - self.before["dispatches"][e]
+                check(d == self.dispatches.get(e, 0),
+                      f"{what}: {e}: {d} dispatch-duration observations, "
+                      f"{self.dispatches.get(e, 0)} dispatches")
+            if n or self.dispatches.get(e):
+                slots = reg.gauge_value("serving_active_slots", {"engine": e})
+                check(slots == 0, f"{what}: serving_active_slots{{engine={e}}} ends at {slots}")
+        uploads = reg.counter_value("serving_transfer_bytes_total", self.UPLOAD_SITE) - \
+            self.before["uploads"]
+        check(uploads == self.uploads[0], f"{what}: {uploads} B counted at "
+                                          f"paged.dispatch_inputs, {self.uploads[0]} B uploaded")
+        known = {sp["trace_id"] for sp in self.tracer.spans()}
+        exemplars = {line.split('trace_id="')[1].split('"')[0] for line in own.render().splitlines()
+                     if line.startswith("serving_ttft_seconds_bucket") and 'trace_id="' in line}
+        check(exemplars <= known, f"{what}: {len(exemplars - known)} TTFT exemplars name no span "
+                                  f"in the tracer")
+        check(bool(exemplars) or not (self.requests.get("paged") or self.requests.get("dense")),
+              f"{what}: no TTFT exemplar")
+        print(f"{what}: telemetry: requests {self.requests}, each with its TTFT (and queue wait "
+              f"but dense); decode dispatches {self.dispatches}, each observed once; "
+              f"{len(exemplars)} TTFT exemplars resolve in the tracer; dispatch-input uploads "
+              f"{uploads:.0f} B; active slots end at 0")
+        return dict(self.requests)
+
+
+def check_pools(torch, engine, what: str) -> None:
+    """serving_hbm_pool_bytes after refresh_device_memory(): kv equals the
+    pool tensors' bytes (num_blocks x block x kv_row_bytes), weights the
+    model's tensors' bytes; gpu:0's in-use within its peak and limit, and
+    the workspace residual (in-use minus both pools) >= 0."""
+    from lws_tpu_torch.core import metrics
+    from lws_tpu_torch.models.flagship import kv_row_bytes
+    from lws_tpu_torch.obs import device as devicemod
+
+    n = devicemod.refresh_device_memory()
+    check(n == torch.cuda.device_count(), f"{what}: device memory refreshed for {n} devices")
+    c = engine.cache
+    kv = sum(t.numel() * t.element_size() for t in (c.k, c.v, c.k_scale, c.v_scale)
+             if t is not None)
+    weights = sum(t.numel() * t.element_size() for t in engine.params.state_dict().values())
+    g = metrics.REGISTRY.gauge_value
+    got_kv, got_w = g("serving_hbm_pool_bytes", {"pool": "kv"}), g("serving_hbm_pool_bytes",
+                                                                   {"pool": "weights"})
+    check(kv == engine.num_blocks * BLOCK * kv_row_bytes(engine.cfg) and got_kv == kv,
+          f"{what}: kv pool gauge {got_kv}, pool tensors {kv} B")
+    check(got_w == weights, f"{what}: weights pool gauge {got_w}, model tensors {weights} B")
+    dev = {"device": "gpu:0"}
+    in_use, limit = g("serving_hbm_bytes_in_use", dev), g("serving_hbm_bytes_limit", dev)
+    peak, workspace = g("serving_hbm_peak_bytes", dev), g("serving_hbm_pool_bytes",
+                                                          {"pool": "workspace"})
+    check(in_use <= peak and in_use <= limit, f"{what}: gpu:0 in use {in_use}, peak {peak}, "
+                                              f"limit {limit}")
+    check(in_use - weights - kv >= 0 and workspace == in_use - weights - kv,
+          f"{what}: workspace residual {in_use - weights - kv}, gauge {workspace}")
+    print(f"{what}: pools: kv {kv} B ({engine.num_blocks} blocks of {BLOCK} tokens, "
+          f"{kv_row_bytes(engine.cfg)} B a token), weights {weights} B; gpu:0 in use "
+          f"{in_use / 1e9:.3f} GB, peak {peak / 1e9:.3f} GB, limit {limit / 1e9:.3f} GB, "
+          f"workspace {workspace / 1e9:.3f} GB")
+
+
+def telemetry_cost(torch, engine, prompts, pairs: int = COST_PAIRS) -> None:
+    """Decode tok/s of run_until_drained over the same 8 requests with
+    tracing on and off, alternated in pairs (the order flips every pair).
+    Printed, not gated: engine tok/s moves 1.3-1.8x between calls."""
+    from lws_tpu_torch.core import trace
+
+    rates = {True: [], False: []}
+    for i in range(pairs):
+        for on in ((True, False) if i % 2 == 0 else (False, True)):
+            trace.set_enabled(on)
+            ids = [engine.submit(p, NEW_TOKENS) for p in prompts]
+            check(all(r is not None for r in ids), "telemetry cost: admission refused")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            engine.run_until_drained()
+            torch.cuda.synchronize()
+            rates[on].append(SLOTS * (NEW_TOKENS - 1) / (time.perf_counter() - t0))
+    trace.set_enabled(True)
+    on, off = statistics.median(rates[True]), statistics.median(rates[False])
+    pair = statistics.median(a / b for a, b in zip(rates[True], rates[False]))
+    print(f"telemetry cost (bf16 paged engine, {pairs} pairs of run_until_drained, 8 x "
+          f"{NEW_TOKENS} tokens): tracing on {on:.1f} tok/s (runs "
+          + ", ".join(f"{r:.1f}" for r in rates[True]) + f"), off {off:.1f} tok/s (runs "
+          + ", ".join(f"{r:.1f}" for r in rates[False])
+          + f"); on/off of the medians {on / off:.4f}, median of the pairs' on/off {pair:.4f} "
+            f"(the JAX package's budget: under 2 % of decode tok/s)")
+
+
+def path_loadgen(torch, dev, cfg, model, recorder) -> dict:
+    """13. The open-loop load runner at full width: the built-in
+    shared-prefix scenario (seed 0) through lws_tpu_torch.loadgen's
+    run_schedule against EngineTarget(PagedBatchEngine(int8 flagship,
+    slots=8, max_len=2048, block_size=16, prefix_cache=True)), its class
+    targets installed in the path's SLO recorder. The client ledger and the
+    engine's server-side SLO histograms must agree on the completions.
+    Returns the launches."""
+    from lws_tpu_torch import loadgen
+    from lws_tpu_torch.serving.paged_engine import PagedBatchEngine
+
+    t_path = time.perf_counter()
+    spec = loadgen.load_scenario(LOADGEN_SCENARIO)
+    schedule = loadgen.build_schedule(spec, LOADGEN_SEED)
+    targets = loadgen.install_class_targets(spec, recorder)
+    engine = PagedBatchEngine(cfg, model, slots=SLOTS, max_len=MAX_LEN, block_size=BLOCK,
+                              prefix_cache=True, device=dev)
+    torch.cuda.synchronize()
+    reset_counts()
+    result = loadgen.run_schedule(schedule, loadgen.EngineTarget(engine, "paged"),
+                                  max_wall_s=LOADGEN_MAX_WALL_S)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    report = loadgen.summarize(result, targets, spec["horizon_s"], spec["name"], LOADGEN_SEED)
+    n, done = len(schedule), report["all"]["completed"]
+    check(done == n, f"loadgen: {done} of {n} requests completed in {LOADGEN_MAX_WALL_S} s")
+    check(report["all"]["tokens"] == sum(r.max_new_tokens for r in schedule),
+          f"loadgen: {report['all']['tokens']} tokens delivered")
+    outs = [r.tokens for r in engine._completed.values()]
+    check(len(outs) == n and all(0 <= t < cfg.vocab_size for o in outs for t in o),
+          "loadgen: an engine stream is missing or holds a token outside the vocabulary")
+    own = recorder._registry
+    for klass in sorted(report["classes"]):
+        labels = {"engine": "paged", "klass": klass}
+        server = hist_count(own, "serving_ttft_seconds", labels)
+        client = report["classes"][klass]["completed"]
+        check(server == client, f"loadgen: class {klass}: the engine's TTFT histogram counts "
+                                f"{server} requests, the client ledger {client}")
+        check(own.counter_value("serving_tokens_total", labels) ==
+              report["classes"][klass]["tokens"], f"loadgen: class {klass}: token ledgers differ")
+    L, steps, hits = cfg.n_layers, engine.stats["decode_steps"], engine.stats_prefix["hit_blocks"]
+    # Every prompt is 20-28 tokens: at most one shareable block, so each
+    # hit is one suffix admission and the rest are one-shot misses (flash);
+    # every admission's forward and each decode step run their 7L products
+    # and one lm_head row through int8_matmul (<= 256 rows).
+    check_launches("loadgen", launches, {
+        "flash_attention": L * (n - hits),
+        "paged_decode_attention_int8": L * steps,
+        "int8_matmul": (7 * L + 1) * (steps + n),
+    })
+    print(f"loadgen: scenario {spec['name']} seed {LOADGEN_SEED}, schedule digest "
+          f"{loadgen.schedule_digest(schedule)}: {done} of {n} requests completed "
+          f"(client ledger) = {done} TTFT observations (server-side SLO histograms), "
+          f"{hits} prefix-hit admissions, {steps} decode steps, run wall "
+          f"{result.wall_s:.2f} s, achieved {report['achieved_rps']:.2f} rps of "
+          f"{report['offered_rps']:.2f} offered")
+    for klass, c in sorted(report["classes"].items()):
+        print(f"loadgen: class {klass}: TTFT p50 {c['ttft_p50'] * 1e3:.1f} ms, p99 "
+              f"{c['ttft_p99'] * 1e3:.1f} ms; ITL p50 {c['itl_p50'] * 1e3:.2f} ms; goodput "
+              f"{c['good_tokens']}/{c['tokens']} tokens = {c['goodput_fraction']:.1%}, "
+              f"attainment {c['attainment']:.1%} (targets ttft {targets[klass].ttft_s} s, itl "
+              f"{targets[klass].itl_s} s, queue {targets[klass].queue_wait_s} s)")
+    drive_local_targets(torch, loadgen, spec, schedule[:LOCAL_TARGET_REQUESTS])
+    print(f"loadgen: path wall time {time.perf_counter() - t_path:.1f} s")
+    return launches
+
+
+def drive_local_targets(torch, loadgen, spec, schedule) -> None:
+    """build_local_target(kind, spec) with no device, for each engine kind:
+    the target lands on the card at the smallest shape the kernels take and
+    serves the schedule's first requests through its prefill kernel. Runs
+    after path 13's launch counts are read, so they count only the flagship."""
+    flash_fn = kernel_counters()["flash_attention"]
+    for kind in ("dense", "batch", "paged"):
+        target = loadgen.build_local_target(kind, spec)
+        check(target.engine.device.type == "cuda", f"loadgen: local {kind} target off the card")
+        flash0 = flash_fn.launches
+        result = loadgen.run_schedule(schedule, target, max_wall_s=LOADGEN_MAX_WALL_S)
+        torch.cuda.synchronize()
+        report = loadgen.summarize(result, loadgen.class_targets(spec), spec["horizon_s"])
+        flash = flash_fn.launches - flash0
+        check(report["all"]["completed"] == len(schedule) and report["all"]["tokens"] ==
+              sum(r.max_new_tokens for r in schedule) and flash > 0,
+              f"loadgen: local {kind} target completed {report['all']['completed']} of "
+              f"{len(schedule)} requests, {report['all']['tokens']} tokens, {flash} flash "
+              f"launches")
+        print(f"loadgen: build_local_target({kind!r}) on the card (d_model "
+              f"{target.engine.cfg.d_model}, bf16): {len(schedule)} of {len(schedule)} "
+              f"requests completed, {report['all']['tokens']} tokens, {flash} flash launches")
 
 
 def path_bf16_paged(torch, dev, cfg) -> tuple:
@@ -1810,11 +2153,15 @@ def path_prefix_tiers(torch, dev, model) -> tuple[str, dict]:
     KVServer. Checks: the restored pool rows equal the rows spilled, byte
     for byte, and each restored stream equals the HBM-tier hit's. Returns
     (the summary line, the expected launches)."""
+    from lws_tpu_torch.core import metrics
     from lws_tpu_torch.serving import kv_transport as kt
     from lws_tpu_torch.serving.kv_host_arena import KVHostArena
     from lws_tpu_torch.serving.paged_engine import PagedBatchEngine, admission_route
 
     cfg = model.cfg
+    spill_bytes = {d: metrics.REGISTRY.counter_value("serving_kv_spill_bytes_total",
+                                                     {"direction": d})
+                   for d in ("spill", "restore")}
     prompt = prefix_mix(cfg)[1]  # the shared 512-token prefix + 40 tokens
     filler = np.random.default_rng(17).integers(1, cfg.vocab_size, 600).astype(np.int32)
     n_shared = (len(prompt) - 1) // BLOCK
@@ -1885,6 +2232,13 @@ def path_prefix_tiers(torch, dev, model) -> tuple[str, dict]:
           f"prefix tiers: restored streams differ from the HBM-tier hit's (host at "
           f"{first_difference(host, hbm)}, remote at {first_difference(remote, hbm)})")
     block_bytes = sum(len(v) for v in spilled[digests[0]].values())
+    spill_bytes = {d: metrics.REGISTRY.counter_value("serving_kv_spill_bytes_total",
+                                                     {"direction": d}) - b
+                   for d, b in spill_bytes.items()}
+    check(spill_bytes["restore"] == 2 * n_shared * block_bytes,
+          f"prefix tiers: serving_kv_spill_bytes_total{{direction=restore}} rose by "
+          f"{spill_bytes['restore']}, the tiers restored {2 * n_shared} blocks of "
+          f"{block_bytes} B")
     admissions = [(None, admission_route(len(p), hit * BLOCK, BLOCK, MAX_LEN, None))
                   for p, hit in ((prompt, 0), (prompt, n_shared), (filler, 0),
                                  (prompt, n_shared), (prompt, n_shared))]
@@ -1897,7 +2251,9 @@ def path_prefix_tiers(torch, dev, model) -> tuple[str, dict]:
             f"{fetch_s[0] * 1e3:.1f} ms fetch of {n_shared * block_bytes / 1e6:.1f} MB "
             f"({n_shared * block_bytes / fetch_s[0] / 1e9:.2f} GB/s over loopback); restored rows "
             f"equal the spilled rows byte for byte and both restored streams equal the HBM-tier "
-            f"hit's; arena {arena.stats()}")
+            f"hit's; arena {arena.stats()}; serving_kv_spill_bytes_total counted "
+            f"{spill_bytes['restore']:.0f} B restored (= the restored blocks' bytes) and "
+            f"{spill_bytes['spill']:.0f} B spilled")
     return line, expected_prefix_launches(cfg, admissions, steps, 0)
 
 
@@ -2165,6 +2521,25 @@ def phase_profile(torch, engine, prompts, what: str, steps: int = 16,
         print(f"profile {what}:   {us / 1e3:9.3f} ms  x{count:<6d} {name[:90]}")
 
 
+def check_compile_ledger(sources, reports) -> dict:
+    """The compile ledger holds exactly one `first` record per source the
+    build compiled (every source when _build/ was cold, none when warm) and
+    no other record. Returns its per-source counts."""
+    from lws_tpu_torch.obs import device as devicemod
+
+    snap = devicemod.LEDGER.snapshot()
+    execs = snap["executables"]
+    check(sorted(execs) == sorted(reports)
+          and all(c["first"] == 1 and c["recompiles"] == 0 for c in execs.values())
+          and len(snap["records"]) == len(reports),
+          f"compile ledger: {execs} for the build of {sorted(reports)}")
+    case = (f"cold _build/: {len(reports)} of {len(sources)} sources compiled" if reports
+            else "warm _build/: every library found by its hash, nothing compiled")
+    print(f"compile ledger: {case}; {len(snap['records'])} first records "
+          + ", ".join(f"{r['executable']} {r['seconds']:.2f} s" for r in snap["records"]))
+    return execs
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernels", action="store_true",
@@ -2202,6 +2577,7 @@ def main(argv=None) -> int:
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "error" in line.lower():
                 print(f"build[{name}]: {line.strip()}")
+    ledger = check_compile_ledger(sources, reports)
 
     cfg = flagship_config("full")
     kernels = {
@@ -2228,34 +2604,60 @@ def main(argv=None) -> int:
         print(json.dumps({"kernels": kernels}))
         return 0
     by_path = {}
+    watch = TelemetryWatch()  # tracing on, spies on the engines' entry points
+    watch.begin()
     by_path["bf16 paged engine"], engine, prompts = path_bf16_paged(torch, dev, cfg)
+    watch.end("bf16 paged engine")
+    check_pools(torch, engine, "bf16 paged engine")
+    telemetry_cost(torch, engine, prompts)
     if args.profile:
         phase_profile(torch, engine, prompts, "bf16 engine")
     del engine  # the bf16 weights and pool go before the int8 model is built
     torch.cuda.empty_cache()
     cfg8 = flagship_config("full", kv_quant=True)
+    watch.begin()
     by_path["int8 paged engine"], engine, paged_streams = path_int8_paged(torch, dev, cfg8, prompts)
+    watch.end("int8 paged engine")
+    check_pools(torch, engine, "int8 paged engine")
     if args.profile:
         phase_profile(torch, engine, prompts, "int8 engine")
     model8 = engine.params
     del engine  # its pool goes before the next engine's is built
     torch.cuda.empty_cache()
+    watch.begin()
     by_path["int8 prefix/chunked/speculative engine"] = path_int8_prefix_spec(
         torch, dev, cfg8, model8, profile=args.profile)
+    watch.end("int8 prefix/chunked/speculative engine")
     torch.cuda.empty_cache()
+    watch.begin()
     by_path["int8 dense engine"] = path_int8_dense(torch, dev, cfg8, model8)
+    watch.end("int8 dense engine")
     torch.cuda.empty_cache()
+    watch.begin()
     by_path["int8 batch engine"], batch_engine = path_int8_batch(torch, dev, cfg8, model8, prompts,
                                                                  paged_streams)
+    watch.end("int8 batch engine")
+    watch.begin()
     by_path["int8 dense chunked/streamed/speculative"] = path_int8_dense_modes(
         torch, dev, cfg8, model8, batch_engine)
+    watch.end("int8 dense chunked/streamed/speculative")
     del batch_engine
     torch.cuda.empty_cache()
+    watch.begin()
     by_path["disagg handoff"] = path_disagg(torch, dev, model8)
+    watch.end("disagg handoff")
+    torch.cuda.empty_cache()
+    watch.begin()
+    by_path["load runner"] = path_loadgen(torch, dev, cfg8, model8, watch.recorder)
+    watch.end("load runner")
     del model8  # the flagship goes before the MoE model is built
     torch.cuda.empty_cache()
+    watch.begin()
     by_path["int8 MoE engines"], kernels["int8_matmul"]["moe_expert_rows"] = path_int8_moe(
         torch, dev, profile=args.profile)
+    watch.end("int8 MoE engines")
+    check(ledger == check_compile_ledger(sources, reports),
+          "compile ledger: a kernel compiled on an engine path")
     rows = []
     for name, rec in kernels.items():
         per_path = {path: counts[name] for path, counts in by_path.items() if counts[name]}

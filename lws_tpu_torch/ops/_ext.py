@@ -8,6 +8,7 @@ with ctypes. No PyTorch
 header is compiled: a source with a plain C interface builds in seconds,
 where one that includes torch/extension.h takes minutes. Importing this
 module needs no nvcc; `build()` and `load()` do, and raise without it.
+Every source compiled is recorded in the compile ledger (obs/device.py).
 
 Every C entry point launches on the stream it is given, returns the
 `cudaError_t` of the launch, and allocates nothing; the Python wrapper
@@ -23,6 +24,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 from typing import Iterable
 
@@ -82,27 +84,47 @@ def _library_path(name: str) -> Path:
 def build(names: Iterable[str]) -> dict[str, str]:
     """Compile every named source that is not built yet, one nvcc process
     per source, all started together. Returns {name: ptxas report} for the
-    sources compiled by this call (registers, shared memory, spills)."""
+    sources compiled by this call (registers, shared memory, spills).
+
+    Each source compiled records one entry in the compile ledger
+    (obs/device.py: `LEDGER.observe(seconds, executable=name)`), on the
+    calling thread, so an ambient `compile_site` attributes it; `seconds` is
+    the wall time from the common start to that nvcc's exit. A library
+    already built (found by its hash) records nothing."""
+    from lws_tpu_torch.obs import device as devicemod
+
     todo = [n for n in names if not _library_path(n).exists()]
     if not todo:
         return {}
     nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    procs = {}
+    t0 = time.perf_counter()
+    procs, done = {}, {}
     for n in todo:
         out = _library_path(n)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(source_path(n))]
         procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                      text=True), tmp, out)
+
+    def reap(n: str, proc) -> None:  # one reaper per nvcc: each exit is timed as it happens
+        log, _ = proc.communicate()
+        done[n] = (log, time.perf_counter() - t0)
+
+    reapers = [threading.Thread(target=reap, args=(n, p)) for n, (p, _, _) in procs.items()]
+    for t in reapers:
+        t.start()
+    for t in reapers:
+        t.join()
     reports, failures = {}, []
     for n, (proc, tmp, out) in procs.items():
-        log, _ = proc.communicate()
+        log, seconds = done[n]
         if proc.returncode != 0:
             failures.append(f"{n}: nvcc exited {proc.returncode}\n{log}")
             continue
         os.replace(tmp, out)  # atomic: a reader never sees a half-written library
         reports[n] = log
+        devicemod.LEDGER.observe(seconds, executable=n)
     if failures:
         raise RuntimeError("lws_tpu_torch: kernel build failed\n" + "\n".join(failures))
     return reports

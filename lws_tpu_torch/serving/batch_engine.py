@@ -15,13 +15,20 @@ implementation.
 
 Decode steps ride the in-flight ring (serving/pipeline.py): step() never
 waits for its own tokens, and a step that would run the soonest-finishing
-slot past its budget flushes the ring first. Left out: telemetry (SLO
-timelines, spans, metrics).
+slot past its budget flushes the ring first.
+
+Telemetry rides the JAX engine's seams with its names and labels: each
+request's SLO timeline (queue wait and first token at submit, one ITL
+observation per committed step, finish at retire), the `serve.admission`,
+`serve.prefill` and `serve.decode_dispatch` spans with `compile_site`s, and
+`serving_requests_total`, the admission and dispatch durations and
+`serving_active_slots{engine="batch"}`.
 """
 
 from __future__ import annotations
 
 import itertools
+import time
 from dataclasses import dataclass, field
 from typing import Optional
 
@@ -29,6 +36,7 @@ import numpy as np
 import torch
 
 from lws_tpu_torch._device import DeviceLike, resolve_device
+from lws_tpu_torch.core import metrics, slo, trace
 from lws_tpu_torch.models.llama import (
     Llama,
     LlamaConfig,
@@ -36,6 +44,7 @@ from lws_tpu_torch.models.llama import (
     forward_prefill,
     init_cache,
 )
+from lws_tpu_torch.obs import device as devicemod
 from lws_tpu_torch.serving.paged_engine import pow2_rows
 from lws_tpu_torch.serving.pipeline import DecodePipeline, remaining_steps
 
@@ -47,6 +56,8 @@ class Request:
     max_new_tokens: int
     tokens: list[int] = field(default_factory=list)
     slot: int = -1
+    # Per-request SLO timeline (queue wait / TTFT / ITL; core/slo.py).
+    slo: "slo.RequestTimeline | None" = None
 
     @property
     def done(self) -> bool:
@@ -78,7 +89,7 @@ class BatchEngine:
         self._completed: dict[int, Request] = {}
         if pipeline_depth is None:
             pipeline_depth = 2 if self.device.type == "cuda" else 0
-        self._pipeline = DecodePipeline(depth=pipeline_depth)
+        self._pipeline = DecodePipeline(depth=pipeline_depth, engine="batch")
         self.cache = init_cache(cfg, slots, max_len, self.device)
         self.pos_b = torch.zeros(slots, dtype=torch.int32, device=self.device)
         self.tokens = torch.zeros(slots, dtype=torch.int32, device=self.device)
@@ -109,9 +120,13 @@ class BatchEngine:
         self.tokens[slot] = first[0]
 
     @torch.no_grad()
-    def submit(self, prompt: np.ndarray, max_new_tokens: int) -> Optional[int]:
+    def submit(self, prompt: np.ndarray, max_new_tokens: int, klass: str = "",
+               arrival_t: Optional[float] = None) -> Optional[int]:
         """Admit a request into a free slot; returns its id (None: no free
-        slot). The first token is on the host when this returns."""
+        slot). The first token is on the host when this returns. `klass`
+        labels the request's SLO/goodput series by workload class;
+        `arrival_t` (a time.perf_counter() stamp) backdates the SLO arrival
+        clock, so open-loop admission delay shows up as queue wait."""
         if not self._free and self._pipeline:
             # A completion may be sitting unconsumed in the in-flight ring.
             self._pipeline.flush()
@@ -120,30 +135,50 @@ class BatchEngine:
         if len(prompt) + max_new_tokens > self.max_len:
             raise ValueError("prompt + max_new_tokens exceeds max_len")
         slot = self._free.pop(0)
-        req = Request(next(self._ids), np.asarray(prompt), max_new_tokens, slot=slot)
+        req = Request(next(self._ids), np.asarray(prompt), max_new_tokens, slot=slot,
+                      slo=slo.request("batch", arrival_t, klass=klass))
         plen = len(prompt)
-        # A power-of-two bucket of at least 8 rows (lws_tpu/serving/batch_engine.py:147).
-        padded = np.zeros((1, min(pow2_rows(plen, 8), self.max_len)), np.int64)
-        padded[0, :plen] = prompt
-        first, slot_cache = self._prefill_one(torch.tensor(padded, device=self.device), plen - 1)
-        self._insert(slot_cache, slot, plen, first)
+        t0 = time.perf_counter()
+        with trace.span("serve.admission", engine="batch", prompt_len=plen):
+            # A power-of-two bucket of at least 8 rows (lws_tpu/serving/batch_engine.py:147).
+            bucket = min(pow2_rows(plen, 8), self.max_len)
+            padded = np.zeros((1, bucket), np.int64)
+            padded[0, :plen] = prompt
+            with trace.span("serve.prefill", chunked=False, prompt_len=plen), \
+                    devicemod.compile_site("batch.prefill", engine="batch", shape=f"b{bucket}",
+                                           request_id=req.slo.request_id):
+                first, slot_cache = self._prefill_one(torch.tensor(padded, device=self.device),
+                                                      plen - 1)
+            self._insert(slot_cache, slot, plen, first)
+        metrics.inc("serving_requests_total", {"engine": "batch"})
+        metrics.observe("serving_admission_duration_seconds", time.perf_counter() - t0,
+                        {"engine": "batch"})
         req.tokens.append(int(first[0]))
+        # Queue wait (arrival -> slot) and TTFT (arrival -> prefill token):
+        # for this engine both end at submit(); with a backdated arrival the
+        # wait is the real arrival -> submit gap.
+        req.slo.queue_wait(0.0 if arrival_t is None else max(0.0, t0 - arrival_t))
+        req.slo.first_token()
         if req.done:  # max_new_tokens == 1: the prefill token alone finishes it
+            req.slo.finish()
             self._completed[req.request_id] = req
             self._free.append(slot)
         else:
             self._active[slot] = req
             self._active_mask[slot] = True
+        metrics.set("serving_active_slots", len(self._active), {"engine": "batch"})
         return req.request_id
 
     def _retire(self, slot: int, req: Request) -> None:
         """Complete a request and free its slot. Identity-guarded: a request
         retired by an earlier commit is not freed twice."""
+        req.slo.finish()
         self._completed[req.request_id] = req
         if self._active.get(slot) is req:
             del self._active[slot]
             self._active_mask[slot] = False
             self._free.append(slot)
+            metrics.set("serving_active_slots", len(self._active), {"engine": "batch"})
 
     @torch.no_grad()
     def step(self) -> None:
@@ -160,25 +195,32 @@ class BatchEngine:
             self._pipeline.flush()
             if not self._active:
                 return
-        with self._pipeline.host_section():
-            active = torch.tensor(self._active_mask, device=self.device)  # a copy
-            logits, self.cache = forward_decode_slotted(self.params, self.tokens, self.cache,
-                                                        self.pos_b)
-            nxt = torch.argmax(logits, dim=-1).to(torch.int32)
-            self.tokens = torch.where(active, nxt, self.tokens)
-            self.pos_b = torch.where(active, self.pos_b + 1, self.pos_b)
-            self.stats["decode_steps"] += 1
+        t0 = time.perf_counter()
+        with trace.span("serve.decode_dispatch", engine="batch", steps=1,
+                        active=len(self._active), inflight=len(self._pipeline)):
+            with self._pipeline.host_section():
+                active = torch.tensor(self._active_mask, device=self.device)  # a copy
+                with devicemod.compile_site("batch.step", engine="batch"):
+                    logits, self.cache = forward_decode_slotted(self.params, self.tokens,
+                                                                self.cache, self.pos_b)
+                    nxt = torch.argmax(logits, dim=-1).to(torch.int32)
+                    self.tokens = torch.where(active, nxt, self.tokens)
+                    self.pos_b = torch.where(active, self.pos_b + 1, self.pos_b)
+                self.stats["decode_steps"] += 1
             # Only requests active at dispatch get a token from this step.
             snapshot = dict(self._active)
 
             def commit(host_tokens, snapshot=snapshot):
                 for slot, req in snapshot.items():
                     req.tokens.append(int(host_tokens[slot]))
+                    req.slo.tokens(1)  # ITL: the gap since this request's last commit
                     # The position is host-derivable: prompt + generated tokens.
                     if req.done or len(req.prompt) + len(req.tokens) >= self.max_len:
                         self._retire(slot, req)
 
             self._pipeline.push(1, self.tokens, commit)
+        metrics.observe("serving_decode_dispatch_duration_seconds", time.perf_counter() - t0,
+                        {"engine": "batch"})
 
     def run_until_drained(self, max_steps: int = 10000) -> None:
         for _ in range(max_steps):

@@ -101,13 +101,14 @@ def _decode_bundle(engine: Engine, payload, steps: int, gamma: int = 0,
     t0 = time.perf_counter()
     if gamma > 0:
         _, _, out["toks"] = engine.decode_speculative(token, cache, steps, gamma=gamma,
-                                                      ngram=ngram, pos=pos, context=context)
+                                                      ngram=ngram, pos=pos, context=context,
+                                                      engine_label="disagg")
         spec_stats = {"spec_gamma": gamma}
         first = token.cpu().numpy()
     else:
         # Dispatch first, then copy the first token to the host while the
         # decode chunk runs on the device.
-        pipe = DecodePipeline(depth=1)
+        pipe = DecodePipeline(depth=1, engine="disagg")
         with pipe.host_section():
             _, _, tokens = engine.decode_n(token, cache, steps)
         pipe.push(steps, tokens, lambda h: out.__setitem__("toks", h))

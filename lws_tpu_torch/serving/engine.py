@@ -1,5 +1,5 @@
 """Sampling for the port's engines (lws_tpu/serving/engine.py:72-143) and the
-dense `Engine` (:162-786, without mesh/TP and telemetry).
+dense `Engine` (:162-886, without mesh/TP).
 
 JAX's threefry keys become `torch.Generator`s: one per request stream (one
 per Engine). The two frameworks draw different numbers from the same seed,
@@ -18,12 +18,21 @@ n-gram speculation with drafting, verification, acceptance and the cache
 rewind on the device: the verify pass appends at a device position, so the
 loop reads nothing back but each dispatch's packed tokens, and the host
 cache.pos is reconciled when the ring is flushed.
+
+Telemetry rides the JAX engine's seams with its names and labels: a
+`serve.request` span, an SLO timeline (first token after the prefill, one
+ITL observation for the decode; a dense request has no queue) and
+`serving_active_slots{engine="dense"}` around each generate, `serve.prefill`
+and `serve.decode_dispatch` spans, `serve.spec_verify` spans and
+`serving_spec_tokens_total` per speculative commit, and
+`serving_requests_total` per request.
 """
 
 from __future__ import annotations
 
 import time
 from collections import deque
+from contextlib import contextmanager
 from dataclasses import dataclass
 from typing import Optional, Sequence
 
@@ -32,6 +41,7 @@ import torch
 import torch.nn.functional as F
 
 from lws_tpu_torch._device import DeviceLike, resolve_device
+from lws_tpu_torch.core import metrics, slo, trace
 from lws_tpu_torch.models.llama import (
     KVCache,
     Llama,
@@ -115,6 +125,18 @@ def sample_logits_per_slot(
 def host_sync(x: torch.Tensor) -> None:
     """Wait for `x` by copying it to the host (a named fence)."""
     x.cpu()
+
+
+@contextmanager
+def _occupancy_gauge(engine: str):
+    """serving_active_slots for the request-scoped dense engine: 1 while a
+    generate holds the batch, back to 0 on any exit (an exception
+    mid-request must not leave a phantom active slot)."""
+    metrics.set("serving_active_slots", 1.0, {"engine": engine})
+    try:
+        yield
+    finally:
+        metrics.set("serving_active_slots", 0.0, {"engine": engine})
 
 
 @dataclass
@@ -227,9 +249,12 @@ class Engine:
         padded = F.pad(tokens, (0, pad))
         cache = self.new_cache()
         hidden = None
-        for i in range(0, S + pad, chunk_size):
-            hidden, cache = forward_prefill_chunk(self.params, padded[:, i:i + chunk_size], cache)
-        token = self._sample(self.params.head(hidden[:, (S - 1) % chunk_size]))
+        with trace.span("serve.prefill", chunked=True, prompt_len=S,
+                        chunks=(S + pad) // chunk_size):
+            for i in range(0, S + pad, chunk_size):
+                hidden, cache = forward_prefill_chunk(self.params, padded[:, i:i + chunk_size],
+                                                      cache)
+            token = self._sample(self.params.head(hidden[:, (S - 1) % chunk_size]))
         cache.pos = S
         return token, cache
 
@@ -346,7 +371,7 @@ class Engine:
         return hist, torch.tensor([n + 1], dtype=torch.int32, device=self.device)
 
     def _speculate_loop(self, cache: KVCache, token: torch.Tensor, needed: int, gamma: int,
-                        ngram: int, pos_start: int, context):
+                        ngram: int, pos_start: int, context, engine_label: str):
         """Produce exactly `needed` greedy tokens after `token` with
         speculative dispatches on the in-flight ring: the host commits each
         dispatch's packed tokens when it lands and never reads anything
@@ -361,17 +386,23 @@ class Engine:
         hist, hist_len = self._seed_spec_history(context, token)
         rem = torch.tensor([needed], dtype=torch.int32, device=self.device)
         pos = torch.tensor([pos_start], dtype=torch.int32, device=self.device)
-        pipe = DecodePipeline(depth=self.pipeline_depth)
+        pipe = DecodePipeline(depth=self.pipeline_depth, engine=engine_label)
         out: list[int] = []
         acct = {"dispatches": 0, "drafted": 0, "accepted": 0}
 
         def commit(host_packed):
-            t = int(host_packed[0])
-            if t > 0:
-                out.extend(int(x) for x in host_packed[1:1 + t])
-                acct["dispatches"] += 1
-                acct["drafted"] += gamma
-                acct["accepted"] += t - 1
+            with trace.span("serve.spec_verify", engine=engine_label, gamma=gamma) as sp:
+                t = int(host_packed[0])
+                if t > 0:
+                    out.extend(int(x) for x in host_packed[1:1 + t])
+                    acct["dispatches"] += 1
+                    acct["drafted"] += gamma
+                    acct["accepted"] += t - 1
+                sp.set(accepted=max(t - 1, 0))
+            metrics.inc("serving_spec_tokens_total", {"engine": engine_label, "kind": "drafted"},
+                        value=float(gamma if t > 0 else 0))
+            metrics.inc("serving_spec_tokens_total", {"engine": engine_label, "kind": "accepted"},
+                        value=float(max(t - 1, 0)))
 
         guard = 0
         while len(out) < needed:
@@ -390,19 +421,24 @@ class Engine:
                 if pos_start + len(out) + S > self.max_len:
                     break  # a genuine tail: single steps below
                 continue
-            with pipe.host_section():
-                token, pos, hist, hist_len, rem, packed = self._spec_step(
-                    cache, token, pos, hist, hist_len, rem, gamma, ngram)
-            pipe.push(S, packed, commit)
+            t0 = time.perf_counter()
+            with trace.span("serve.decode_dispatch", engine=engine_label, steps=S,
+                            speculative=True, inflight=len(pipe)):
+                with pipe.host_section():
+                    token, pos, hist, hist_len, rem, packed = self._spec_step(
+                        cache, token, pos, hist, hist_len, rem, gamma, ngram)
+                pipe.push(S, packed, commit)
+            metrics.observe("serving_spec_verify_duration_seconds", time.perf_counter() - t0)
         pipe.flush()
         cache.pos = pos_start + len(out)  # the device pos, as host truth
         # The tail: a fixed count from exact truth (the ring just flushed);
         # counting len(out) inside the loop would lag the pushes in flight.
         tail = min(needed - len(out), self.max_len - pos_start - len(out))
         for _ in range(max(0, tail)):
-            with pipe.host_section():
-                token, cache = self.decode(token, cache)
-            pipe.push(1, token, lambda h: out.append(int(h[0])))
+            with trace.span("serve.decode_dispatch", engine=engine_label, steps=1):
+                with pipe.host_section():
+                    token, cache = self.decode(token, cache)
+                pipe.push(1, token, lambda h: out.append(int(h[0])))
             acct["dispatches"] += 1
         pipe.flush()
         return out, cache, token, acct
@@ -415,21 +451,24 @@ class Engine:
 
     @torch.no_grad()
     def decode_speculative(self, token: torch.Tensor, cache: KVCache, steps: int, gamma: int = 4,
-                           ngram: int = 3, pos: Optional[int] = None, context=None):
+                           ngram: int = 3, pos: Optional[int] = None, context=None,
+                           engine_label: str = "dense"):
         """Continue `cache` by exactly `steps` greedy tokens with speculative
         dispatches: the tokens of decode_n (acceptance keeps only the model's
         own argmax chain), in fewer dispatches on repetitive content. `pos`
         is the cache's length (default cache.pos); `context` (the prompt)
-        seeds the drafting history. Returns (last token [1], cache, tokens
-        [1, steps] on the host) (lws_tpu/serving/engine.py:678)."""
+        seeds the drafting history; `engine_label` labels the loop's metrics
+        and spans. Returns (last token [1], cache, tokens [1, steps] on the
+        host) (lws_tpu/serving/engine.py:678)."""
         self._check_speculative()
         if pos is None:
             pos = cache.pos
-        out, cache, token, _ = self._speculate_loop(cache, token, steps, gamma, ngram, pos, context)
+        out, cache, token, _ = self._speculate_loop(cache, token, steps, gamma, ngram, pos, context,
+                                                    engine_label)
         return token, cache, np.asarray(out, np.int32)[None, :]
 
     def generate_speculative(self, prompt, max_new_tokens: int, gamma: int = 8,
-                             ngram: int = 3) -> GenerationResult:
+                             ngram: int = 3, klass: str = "") -> GenerationResult:
         """Greedy generation with n-gram speculative decoding, B = 1: prefill
         (timed to the first token on the host: TTFT), then _speculate_loop
         for the rest (timed: decode). The same tokens as generate() but for
@@ -442,16 +481,28 @@ class Engine:
         plen = prompt.shape[1]
         if plen + max_new_tokens > self.max_len:
             raise ValueError("prompt + max_new_tokens exceeds max_len")
-        t0 = time.perf_counter()
-        token, cache = self.prefill(prompt)
-        first = int(token[0])  # the first token's fence: TTFT
-        ttft = time.perf_counter() - t0
-        t1 = time.perf_counter()
-        new, cache, _, acct = self._speculate_loop(
-            cache, token, max(0, max_new_tokens - 1), gamma, ngram, plen, prompt[0])
-        out = ([first] + new)[:max(1, max_new_tokens)]
-        dt = time.perf_counter() - t1
-        steps = len(out) - 1
+        with trace.span("serve.request", engine="dense", speculative=True, prompt_len=plen,
+                        max_new_tokens=max_new_tokens) as request_span, \
+                _occupancy_gauge("dense"):
+            timeline = slo.request("dense", klass=klass)
+            t0 = time.perf_counter()
+            with trace.span("serve.prefill", chunked=False, prompt_len=plen):
+                token, cache = self.prefill(prompt)
+                first = int(token[0])  # the first token's fence: TTFT
+            ttft = time.perf_counter() - t0
+            timeline.first_token(ttft)
+            t1 = time.perf_counter()
+            new, cache, _, acct = self._speculate_loop(
+                cache, token, max(0, max_new_tokens - 1), gamma, ngram, plen, prompt[0], "dense")
+            out = ([first] + new)[:max(1, max_new_tokens)]
+            dt = time.perf_counter() - t1
+            steps = len(out) - 1
+            if steps:
+                timeline.tokens(steps, dt)
+            timeline.finish()
+            request_span.set(ttft_s=round(ttft, 6), decode_s=round(dt, 6),
+                             dispatches=acct["dispatches"], accepted=acct["accepted"])
+        metrics.inc("serving_requests_total", {"engine": "dense"})
         return GenerationResult(
             tokens=np.asarray([out], np.int32),
             ttft_s=ttft,
@@ -461,30 +512,45 @@ class Engine:
             spec_stats={**acct, "tokens_per_dispatch": round(steps / max(acct["dispatches"], 1), 2)},
         )
 
-    def generate(self, prompt, max_new_tokens: int) -> GenerationResult:
+    def generate(self, prompt, max_new_tokens: int, klass: str = "") -> GenerationResult:
         """Generation under the engine's SamplingParams (greedy by default):
         prefill (timed to the first token on the host: TTFT), then
         max_new_tokens - 1 decode steps in DECODE_CHUNK-step decode_n chunks
         and single steps, behind the in-flight ring (timed: decode)."""
         steps = max(0, max_new_tokens - 1)
         n_full, rem = divmod(steps, self.DECODE_CHUNK)
-        t0 = time.perf_counter()
-        token, cache = self.prefill(prompt)
-        host_chunks = [token.cpu().numpy()[:, None]]  # the first token's fence: TTFT
-        ttft = time.perf_counter() - t0
+        prompt = self._tokens(prompt)
+        with trace.span("serve.request", engine="dense", prompt_len=prompt.shape[1],
+                        max_new_tokens=max_new_tokens) as request_span, \
+                _occupancy_gauge("dense"):
+            timeline = slo.request("dense", klass=klass)
+            t0 = time.perf_counter()
+            with trace.span("serve.prefill", chunked=False, prompt_len=prompt.shape[1]):
+                token, cache = self.prefill(prompt)
+                host_chunks = [token.cpu().numpy()[:, None]]  # the first token's fence: TTFT
+            ttft = time.perf_counter() - t0
+            timeline.first_token(ttft)
 
-        t1 = time.perf_counter()
-        pipe = DecodePipeline(depth=self.pipeline_depth)
-        for _ in range(n_full):
-            with pipe.host_section():
-                token, cache, toks = self.decode_n(token, cache, self.DECODE_CHUNK)
-            pipe.push(self.DECODE_CHUNK, toks, host_chunks.append)
-        for _ in range(rem):
-            with pipe.host_section():
-                token, cache = self.decode(token, cache)
-            pipe.push(1, token[:, None], host_chunks.append)
-        pipe.flush()
-        dt = time.perf_counter() - t1
+            t1 = time.perf_counter()
+            pipe = DecodePipeline(depth=self.pipeline_depth, engine="dense")
+            for _ in range(n_full):
+                with trace.span("serve.decode_dispatch", engine="dense", steps=self.DECODE_CHUNK):
+                    with pipe.host_section():
+                        token, cache, toks = self.decode_n(token, cache, self.DECODE_CHUNK)
+                    pipe.push(self.DECODE_CHUNK, toks, host_chunks.append)
+            for _ in range(rem):
+                with trace.span("serve.decode_dispatch", engine="dense", steps=1):
+                    with pipe.host_section():
+                        token, cache = self.decode(token, cache)
+                    pipe.push(1, token[:, None], host_chunks.append)
+            pipe.flush()
+            dt = time.perf_counter() - t1
+            if steps:
+                timeline.tokens(steps, dt)
+            timeline.finish()
+            request_span.set(ttft_s=round(ttft, 6), decode_s=round(dt, 6))
+        metrics.inc("serving_requests_total", {"engine": "dense"})
+        metrics.observe("serving_admission_duration_seconds", ttft, {"engine": "dense"})
         return GenerationResult(
             tokens=np.concatenate(host_chunks, axis=1),
             ttft_s=ttft,

@@ -1,8 +1,8 @@
 """Host-RAM spill tier for the paged engine's prefix cache: the port of
 lws_tpu/serving/kv_host_arena.py (KVHostArena, from_env, the spilled-block
-registry), without the metrics and device hooks, and without the
-advertised fetch port and the /debug/prefixes snapshot registry that feed
-the fleet prefix index (telemetry slice).
+registry, the occupancy gauges, the spill byte counter and the
+`arena_restore` pool provider), without the advertised fetch port and the
+/debug/prefixes snapshot registry that feed the fleet prefix index.
 
 When the paged engine evicts an LRU-parked prefix block, it spills the
 block's K/V into a bounded host arena, one blob in the KV wire's
@@ -23,6 +23,8 @@ import threading
 import weakref
 from typing import Optional
 
+from lws_tpu_torch.core import metrics
+from lws_tpu_torch.obs import device
 from lws_tpu_torch.serving.kv_transport import bytes_to_arrays, pack_payload
 
 ARENA_MB_ENV = "LWS_TPU_KV_HOST_ARENA_MB"
@@ -43,8 +45,14 @@ class KVHostArena:
         self._entries: dict[bytes, bytes] = {}  # guarded-by: _lock
         self._bytes = 0                         # guarded-by: _lock
         self.drops = 0                          # guarded-by: _lock
+        self._publish_gauges(0, 0)
         with _REG_LOCK:
             _ARENAS.append(weakref.ref(self))
+
+    @staticmethod
+    def _publish_gauges(nbytes: int, entries: int) -> None:
+        metrics.set("serving_kv_host_arena_bytes", float(nbytes))
+        metrics.set("serving_kv_host_arena_entries", float(entries))
 
     def __len__(self) -> int:
         with self._lock:
@@ -74,6 +82,9 @@ class KVHostArena:
                 self._bytes -= len(self._entries.pop(cold))
             self._entries[digest] = payload
             self._bytes += size
+            nbytes, entries = self._bytes, len(self._entries)
+        metrics.inc("serving_kv_spill_bytes_total", {"direction": "spill"}, value=float(size))
+        self._publish_gauges(nbytes, entries)
         return True
 
     def get(self, digest: bytes) -> Optional[dict]:
@@ -128,3 +139,16 @@ def get_spilled(digest: bytes) -> Optional[dict]:
                 return got
     return None
 
+
+def arena_pool_bytes() -> float:
+    """Total bytes across every live arena: the `arena_restore` pool feed
+    for serving_hbm_pool_bytes (host-resident, so the device-memory refresh
+    reports it without subtracting it from device in-use)."""
+    with _REG_LOCK:
+        live = [r() for r in _ARENAS]
+        _ARENAS[:] = [r for r, a in zip(list(_ARENAS), live) if a is not None]
+    return float(sum(a.nbytes for a in live if a is not None))
+
+
+# Registered once at import: the pool reads 0 until an arena exists.
+device.register_pool_provider("arena_restore", arena_pool_bytes)

@@ -52,7 +52,18 @@ cfg.kv_quant the pool holds int8 K/V with per-(token, kv head) scales, and
 admission scatters the prefill cache's int8 values and scales into it
 unchanged. Left out: mesh/TP (`mesh`, with the multi-GPU slice), donation
 knobs (`donate_steps`: PyTorch updates the pool in place), the kernel probe
-and its fallback, telemetry (the /debug/prefixes advertisement included).
+and its fallback, and the /debug/prefixes advertisement.
+
+Telemetry rides the JAX engine's seams with its names and labels: each
+request's SLO timeline (queue wait at slot acquisition, first token at
+admission, one ITL observation per committed chunk, finish at retire), the
+`serve.admission` / `serve.prefill` / `serve.decode_dispatch` /
+`serve.spec_verify` spans, `serving_*` counters, histograms and gauges
+(requests, admission and dispatch durations, active slots, pool blocks by
+state, prefix-cache hits by tier, misses and evictions, restored bytes,
+speculative tokens), `compile_site`s around every dispatch seam, the
+weights and kv pool bytes, and the bytes of each dirty dispatch-input
+upload. Telemetry is per dispatch, never per token.
 """
 
 from __future__ import annotations
@@ -61,6 +72,7 @@ import collections
 import hashlib
 import itertools
 import os
+import time
 from dataclasses import dataclass, field
 from typing import Optional
 
@@ -68,6 +80,7 @@ import numpy as np
 import torch
 
 from lws_tpu_torch._device import DeviceLike, resolve_device
+from lws_tpu_torch.core import metrics, slo, trace
 from lws_tpu_torch.models.llama import (
     KVCache,
     Llama,
@@ -83,6 +96,8 @@ from lws_tpu_torch.models.llama import (
     paged_insert,
     speculative_accept,
 )
+from lws_tpu_torch.models.quant import quantized_bytes
+from lws_tpu_torch.obs import device as devicemod
 from lws_tpu_torch.serving import kv_host_arena
 from lws_tpu_torch.serving.engine import Engine, sample_logits_per_slot
 from lws_tpu_torch.serving.kv_transport import host_array, to_tensor
@@ -134,6 +149,8 @@ class PagedRequest:
     top_k: int = 0
     top_p: float = 1.0
     seed: Optional[int] = None
+    # Per-request SLO timeline (queue wait / TTFT / ITL; core/slo.py).
+    slo: "slo.RequestTimeline | None" = None
 
     @property
     def done(self) -> bool:
@@ -237,7 +254,7 @@ class PagedBatchEngine:
         self._gens = [torch.Generator(device=dev).manual_seed(s) for s in range(slots)]
         if pipeline_depth is None:
             pipeline_depth = 2 if dev.type == "cuda" else 0
-        self._pipeline = DecodePipeline(depth=pipeline_depth)
+        self._pipeline = DecodePipeline(depth=pipeline_depth, engine="paged")
         # Host-built dispatch inputs, re-uploaded only after admission or
         # release changed them. A rebuild makes a new tensor: in-flight
         # chunks keep the one they were launched with.
@@ -266,6 +283,14 @@ class PagedBatchEngine:
             "spec_accepted": 0,
             "spec_fallback_dispatches": 0,
         }
+        # HBM attribution (obs/device.py): the two big pools this engine
+        # owns, published as serving_hbm_pool_bytes{pool} on the refresh
+        # (workspace is the allocator residual).
+        devicemod.set_pool_bytes("weights", quantized_bytes(params))
+        devicemod.set_pool_bytes("kv", sum(
+            t.nbytes for t in (self.cache.k, self.cache.v, self.cache.k_scale,
+                               self.cache.v_scale) if t is not None))
+        self._update_pool_gauges()  # capacity gauges valid from the start
 
     # ------------------------------------------------------------------
     @property
@@ -302,15 +327,28 @@ class PagedBatchEngine:
         if self._dirty_active:
             self._active_dev = torch.tensor(self._active_mask, device=self.device)
             self._dirty_active = False
+            devicemod.record_transfer("paged.dispatch_inputs", self._active_mask.nbytes)
         if self._dirty_table:
             self._table_dev = torch.tensor(self.table, device=self.device)
             self._dirty_table = False
+            devicemod.record_transfer("paged.dispatch_inputs", self.table.nbytes)
         if self._dirty_sampling:
             self._sampling_dev = tuple(
                 torch.tensor(a, device=self.device) for a in (self.temp, self.top_k, self.top_p)
             )
             self._dirty_sampling = False
+            devicemod.record_transfer(
+                "paged.dispatch_inputs",
+                self.temp.nbytes + self.top_k.nbytes + self.top_p.nbytes)
         return self._active_dev, self._table_dev, self._sampling_dev
+
+    def _update_pool_gauges(self) -> None:
+        acct = self.pool_accounting()
+        for state in ("free", "live", "parked"):
+            metrics.set(
+                "serving_kv_pool_blocks", acct[state],
+                {"engine": "paged", "state": state},
+            )
 
     def _set_table(self, slot: int, blocks: list[int]) -> None:
         self.table[slot] = 0
@@ -365,6 +403,7 @@ class PagedBatchEngine:
                     self._spill_block(blk, digest)
             self._block_refs.pop(blk, None)
             self.stats_prefix["evictions"] += 1
+            metrics.inc("serving_prefix_cache_evictions_total", {"engine": "paged"})
             out.append(blk)
         return out
 
@@ -394,6 +433,10 @@ class PagedBatchEngine:
         self._prefix_map[digest] = blk
         self._block_digest[blk] = digest
         self._block_refs[blk] = self._block_refs.get(blk, 0) + 1
+        nbytes = sum(int(a.nbytes) for a in arrays.values())
+        metrics.inc("serving_kv_spill_bytes_total", {"direction": "restore"},
+                    value=float(nbytes))
+        devicemod.record_transfer("paged.kv_restore", nbytes)
         return blk
 
     def _dense_view(self, block_ids: torch.Tensor, pad: int, hit_len: int) -> KVCache:
@@ -485,7 +528,13 @@ class PagedBatchEngine:
 
     def _finish_admission(self, req: PagedRequest, first) -> int:
         req.tokens.append(int(first))
+        if req.slo is not None:
+            # The prefill token in hand marks TTFT on the arrival clock
+            # (queue wait was recorded at slot acquisition).
+            req.slo.first_token()
         if req.done:
+            if req.slo is not None:
+                req.slo.finish()
             self._completed[req.request_id] = req
             self._release(req)
         else:
@@ -503,6 +552,8 @@ class PagedBatchEngine:
         """Move a finished request out of the active set and return its
         resources. Idempotent: a request already retired by an earlier
         chunk's commit is not released twice."""
+        if req.slo is not None:
+            req.slo.finish()  # idempotent: a later duplicate retire is a no-op
         self._completed[req.request_id] = req
         if self._active.get(slot) is not req:
             return
@@ -520,13 +571,36 @@ class PagedBatchEngine:
         top_k: int = 0,
         top_p: float = 1.0,
         seed: Optional[int] = None,
+        klass: str = "",
+        arrival_t: Optional[float] = None,
     ) -> Optional[int]:
         """Admit a request; returns its id, or None when out of slots or out
         of pool blocks (the density backpressure signal). The first token is
         sampled before this returns. With prefix_cache, resident
         block-aligned prefixes are reused and only the suffix is prefilled;
         with prefill_chunk, a longer prompt is prefilled in chunks with
-        decode steps for the active slots between them."""
+        decode steps for the active slots between them. `klass` labels the
+        request's SLO/goodput series by workload class; `arrival_t` (a
+        time.perf_counter() stamp) backdates the SLO arrival clock, so
+        open-loop admission delay shows up as queue wait."""
+        t0 = time.perf_counter()
+        timeline = slo.request("paged", arrival_t, klass=klass)
+        with trace.span("serve.admission", engine="paged", prompt_len=len(prompt)) as sp:
+            rid = self._submit(prompt, max_new_tokens, (temperature, top_k, top_p, seed),
+                               timeline)
+            sp.set(admitted=rid is not None)
+        if rid is not None:
+            metrics.inc("serving_requests_total", {"engine": "paged"})
+            metrics.observe("serving_admission_duration_seconds",
+                            time.perf_counter() - t0, {"engine": "paged"})
+            metrics.set("serving_active_slots", len(self._active), {"engine": "paged"})
+        # Unconditional: a refused admission may still have flushed the ring
+        # (retiring requests) or evicted parked blocks.
+        self._update_pool_gauges()
+        return rid
+
+    def _submit(self, prompt: np.ndarray, max_new_tokens: int, sampling: tuple,
+                timeline: "slo.RequestTimeline") -> Optional[int]:
         if not self._free_slots and self._pipeline:
             # In-flight completions may be about to free a slot.
             self._pipeline.flush()
@@ -541,15 +615,15 @@ class PagedBatchEngine:
         bucket = min(pow2_rows(plen, self.block_size), self.max_len)
         footprint = max(bucket, plen + max_new_tokens)
         n_blocks = -(-footprint // self.block_size)
-        sampling = (temperature, top_k, top_p, seed)
         if self.prefix_cache:
-            return self._submit_prefix(prompt, max_new_tokens, sampling, bucket, n_blocks)
+            return self._submit_prefix(prompt, max_new_tokens, sampling, bucket, n_blocks,
+                                       timeline)
         if n_blocks > len(self._free_blocks) and self._pipeline:
             self._pipeline.flush()  # in-flight completions may free blocks
         if n_blocks > len(self._free_blocks):
             return None
         blocks = [self._free_blocks.popleft() for _ in range(n_blocks)]
-        req, gen = self._new_request(prompt, max_new_tokens, sampling, blocks)
+        req, gen = self._new_request(prompt, max_new_tokens, sampling, blocks, timeline)
         if admission_route(plen, 0, self.block_size, self.max_len,
                            self.prefill_chunk)[0] == "chunked":
             first = self._admit_chunked(req, gen, bucket, 0, None)
@@ -557,15 +631,16 @@ class PagedBatchEngine:
             first = self._admit_one_shot(req, gen, bucket)
         return self._finish_admission(req, first)
 
-    def _new_request(self, prompt, max_new_tokens, sampling, blocks, shared=()):
+    def _new_request(self, prompt, max_new_tokens, sampling, blocks, timeline, shared=()):
         """Take a free slot for a request holding `blocks`; returns it with
-        its sampling stream."""
+        its sampling stream. The slot ends the request's queue wait."""
         temperature, top_k, top_p, seed = sampling
         slot = self._free_slots.pop(0)
+        timeline.queue_wait()  # arrival -> slot (includes any ring flushes)
         req = PagedRequest(
             next(self._ids), prompt, max_new_tokens, slot=slot, blocks=blocks,
             shared_blocks=list(shared), temperature=temperature, top_k=top_k, top_p=top_p,
-            seed=seed,
+            seed=seed, slo=timeline,
         )
         return req, self._assign_sampling(slot, temperature, top_k, top_p, seed)
 
@@ -576,17 +651,22 @@ class PagedBatchEngine:
         self._set_table(slot, req.blocks)
         padded = np.zeros((1, bucket), np.int64)
         padded[0, :plen] = req.prompt
-        logits, slot_cache = self._prefill_one(torch.tensor(padded, device=self.device), plen - 1)
-        first = self._sample_first_token(logits, gen, req)
-        prefill_ids = torch.tensor(req.blocks[: bucket // self.block_size], device=self.device)
-        scales = ((slot_cache.k_scale[:, 0], slot_cache.v_scale[:, 0])
-                  if self.cfg.kv_quant else ())
-        self._insert(slot_cache.k[:, 0], slot_cache.v[:, 0], prefill_ids, slot, plen, first,
-                     *scales)
+        with trace.span("serve.prefill", chunked=False, prompt_len=plen), \
+                devicemod.compile_site("paged.prefill", engine="paged", shape=f"b{bucket}",
+                                       request_id=req.slo.request_id if req.slo else ""):
+            logits, slot_cache = self._prefill_one(torch.tensor(padded, device=self.device),
+                                                   plen - 1)
+            first = self._sample_first_token(logits, gen, req)
+            prefill_ids = torch.tensor(req.blocks[: bucket // self.block_size],
+                                       device=self.device)
+            scales = ((slot_cache.k_scale[:, 0], slot_cache.v_scale[:, 0])
+                      if self.cfg.kv_quant else ())
+            self._insert(slot_cache.k[:, 0], slot_cache.v[:, 0], prefill_ids, slot, plen, first,
+                         *scales)
         return first
 
     def _submit_prefix(self, prompt, max_new_tokens, sampling, bucket: int,
-                       n_blocks: int) -> Optional[int]:
+                       n_blocks: int, timeline: "slo.RequestTimeline") -> Optional[int]:
         bs = self.block_size
         plen = len(prompt)
         # Never cache the whole prompt: at least one token is computed, so
@@ -631,7 +711,7 @@ class PagedBatchEngine:
                 self._unref(blk)
             return None
         blocks = hits + new_blocks
-        req, gen = self._new_request(prompt, max_new_tokens, sampling, blocks, hits)
+        req, gen = self._new_request(prompt, max_new_tokens, sampling, blocks, timeline, hits)
         route, s_suf, _ = admission_route(plen, hit_len, bs, self.max_len, self.prefill_chunk)
         if route == "chunked":
             dense = None
@@ -651,12 +731,17 @@ class PagedBatchEngine:
             s_true = plen - hit_len
             suffix = np.zeros((1, s_suf), np.int64)
             suffix[0, :s_true] = prompt[hit_len:]
-            logits = self._insert_with_prefix(
-                torch.tensor(suffix, device=self.device),
-                torch.tensor(blocks[: bucket // bs], device=self.device),
-                hit_len, s_true - 1, req.slot, plen)
-            first = self._sample_first_token(logits, gen, req)
-            self.tokens[req.slot] = first
+            with trace.span("serve.prefill", chunked=False, prompt_len=plen,
+                            prefix_hit_tokens=hit_len), \
+                    devicemod.compile_site("paged.prefill_suffix", engine="paged",
+                                           shape=f"b{bucket}/s{s_suf}",
+                                           request_id=timeline.request_id):
+                logits = self._insert_with_prefix(
+                    torch.tensor(suffix, device=self.device),
+                    torch.tensor(blocks[: bucket // bs], device=self.device),
+                    hit_len, s_true - 1, req.slot, plen)
+                first = self._sample_first_token(logits, gen, req)
+                self.tokens[req.slot] = first
         # Register the newly computed shareable blocks (this request holds a
         # ref on each until it completes). A digest already mapped keeps
         # its block; this copy stays private.
@@ -672,6 +757,16 @@ class PagedBatchEngine:
         self.stats_prefix["hit_blocks"] += len(hits)
         self.stats_prefix["host_hits"] += tiers.count("host")
         self.stats_prefix["remote_hits"] += tiers.count("remote")
+        # Hit-rate counters: hits = shareable blocks served from some tier
+        # (labelled hbm/host/remote), misses = shareable blocks this
+        # admission had to prefill.
+        for tier in ("hbm", "host", "remote"):
+            if tiers.count(tier):
+                metrics.inc("serving_prefix_cache_hits_total", {"engine": "paged", "tier": tier},
+                            value=float(tiers.count(tier)))
+        if shareable_n > len(hits):
+            metrics.inc("serving_prefix_cache_misses_total", {"engine": "paged"},
+                        value=float(shareable_n - len(hits)))
         return self._finish_admission(req, first)
 
     def _admit_chunked(self, req: PagedRequest, gen, bucket: int, hit_len: int,
@@ -698,17 +793,23 @@ class PagedBatchEngine:
                 # scatter takes only the first bucket rows.
                 dense = init_cache(self.cfg, 1, max(bucket, n_chunks * C), self.device)
             hidden = None
-            for i in range(n_chunks):
-                chunk = torch.tensor(padded[None, i * C:(i + 1) * C], device=self.device)
-                hidden, dense = forward_prefill_chunk(self.params, chunk, dense)
-                if self._active and self.interleave_steps > 0 and i < n_chunks - 1:
-                    self.stats["interleaved_decode_steps"] += self.step_n(self.interleave_steps)
-            logits = self._chunk_logits(hidden, (s_true - 1) % C)
-            first = self._sample_first_token(logits, gen, req)
-            self._set_table(slot, req.blocks)
-            ids = torch.tensor(req.blocks[: bucket // self.block_size], device=self.device)
-            self._scatter_dense(dense, ids, slot, plen)
-            self.tokens[slot] = first
+            with trace.span("serve.prefill", chunked=True, chunks=n_chunks, prompt_len=plen,
+                            prefix_hit_tokens=hit_len), \
+                    devicemod.compile_site("paged.chunk_prefill", engine="paged",
+                                           shape=f"b{bucket}/c{C}",
+                                           request_id=req.slo.request_id if req.slo else ""):
+                for i in range(n_chunks):
+                    chunk = torch.tensor(padded[None, i * C:(i + 1) * C], device=self.device)
+                    hidden, dense = forward_prefill_chunk(self.params, chunk, dense)
+                    if self._active and self.interleave_steps > 0 and i < n_chunks - 1:
+                        self.stats["interleaved_decode_steps"] += self.step_n(
+                            self.interleave_steps)
+                logits = self._chunk_logits(hidden, (s_true - 1) % C)
+                first = self._sample_first_token(logits, gen, req)
+                self._set_table(slot, req.blocks)
+                ids = torch.tensor(req.blocks[: bucket // self.block_size], device=self.device)
+                self._scatter_dense(dense, ids, slot, plen)
+                self.tokens[slot] = first
         finally:
             self._admitting = None
         self.stats["chunked_admissions"] += 1
@@ -736,6 +837,8 @@ class PagedBatchEngine:
         req.blocks = []
         req.shared_blocks = []
         self._free_slots.append(req.slot)
+        metrics.set("serving_active_slots", len(self._active), {"engine": "paged"})
+        self._update_pool_gauges()
 
     # ---- decode -------------------------------------------------------
     def step(self) -> None:
@@ -767,30 +870,43 @@ class PagedBatchEngine:
             bound = self._completion_bound()
         n = min(n, max(1, bound), 32)
         n = 1 << (n.bit_length() - 1)
-        with self._pipeline.host_section():
-            active, table, (temp, top_k, top_p) = self._dispatch_inputs()
-            sample = self._sampled_active > 0
-            tokens, pos_b, cache = self.tokens, self.pos_b, self.cache
-            toks = []
-            for _ in range(n):
-                logits, cache = forward_decode_paged(self.params, tokens, cache, table, pos_b)
-                if sample:
-                    # Each slot advances its own stream; inactive slots too
-                    # (harmless: a new occupant brings its own generator).
-                    nxt = sample_logits_per_slot(logits, self._gens, temp, top_k, top_p)
-                else:  # all-greedy batch: plain argmax
-                    nxt = torch.argmax(logits, dim=-1).to(torch.int32)
-                tokens = torch.where(active, nxt, tokens)
-                pos_b = torch.where(active, pos_b + 1, pos_b)
-                toks.append(tokens)
-            self.tokens, self.pos_b = tokens, pos_b
-            self.stats["decode_steps"] += n
+        # Span + histogram per dispatch, never per token.
+        t0 = time.perf_counter()
+        with trace.span("serve.decode_dispatch", engine="paged", steps=n,
+                        active=len(self._active), inflight=len(self._pipeline)):
+            # Host-side scheduling window: with chunks in flight it overlaps
+            # device compute; with an empty ring it counts as host-blocked.
+            with self._pipeline.host_section():
+                active, table, (temp, top_k, top_p) = self._dispatch_inputs()
+                sample = self._sampled_active > 0
+                tokens, pos_b, cache = self.tokens, self.pos_b, self.cache
+                toks = []
+                with devicemod.compile_site("paged.step_n", engine="paged",
+                                            shape=f"n{n}/sample={sample}"):
+                    for _ in range(n):
+                        logits, cache = forward_decode_paged(self.params, tokens, cache, table,
+                                                             pos_b)
+                        if sample:
+                            # Each slot advances its own stream; inactive slots
+                            # too (harmless: a new occupant brings its own
+                            # generator).
+                            nxt = sample_logits_per_slot(logits, self._gens, temp, top_k, top_p)
+                        else:  # all-greedy batch: plain argmax
+                            nxt = torch.argmax(logits, dim=-1).to(torch.int32)
+                        tokens = torch.where(active, nxt, tokens)
+                        pos_b = torch.where(active, pos_b + 1, pos_b)
+                        toks.append(tokens)
+                self.tokens, self.pos_b = tokens, pos_b
+                self.stats["decode_steps"] += n
             # Only requests active at dispatch receive this chunk's tokens.
             snapshot = dict(self._active)
 
             def commit(host_toks, snapshot=snapshot):  # host_toks [n, slots]
                 for slot, req in snapshot.items():
                     req.tokens.extend(int(t) for t in host_toks[:, slot])
+                    if req.slo is not None:
+                        # ITL: the per-dispatch mean of this chunk's step gaps.
+                        req.slo.tokens(host_toks.shape[0])
                     if req.done or len(req.prompt) + len(req.tokens) >= self.max_len:
                         self._retire(slot, req)
 
@@ -798,6 +914,8 @@ class PagedBatchEngine:
             # and budgets: the next speculative entry rebuilds them.
             self._spec_fresh = False
             self._pipeline.push(n, torch.stack(toks), commit)
+        metrics.observe("serving_decode_dispatch_duration_seconds",
+                        time.perf_counter() - t0, {"engine": "paged"})
         return n
 
     def run_until_drained(self, max_steps: int = 10000) -> None:
@@ -935,24 +1053,41 @@ class PagedBatchEngine:
                 return False
             if not self._spec_fits(S, 0):
                 return False  # a genuine tail: the caller single-steps
-        with self._pipeline.host_section():
+        t0 = time.perf_counter()
+        with trace.span("serve.decode_dispatch", engine="paged", steps=S, speculative=True,
+                        active=len(self._active), inflight=len(self._pipeline)), \
+                self._pipeline.host_section():
             active, table, (temp, top_k, top_p) = self._dispatch_inputs()
-            packed = self._spec_step(active, table, temp, top_k, top_p,
-                                     self._sampled_active > 0, gamma, ngram)
+            any_sampled = self._sampled_active > 0
+            with devicemod.compile_site("paged.spec_step", engine="paged",
+                                        shape=f"g{gamma}/n{ngram}/sample={any_sampled}"):
+                packed = self._spec_step(active, table, temp, top_k, top_p, any_sampled, gamma,
+                                         ngram)
             snapshot = dict(self._active)
             greedy_slots = {s for s, r in snapshot.items() if r.temperature <= 0}
 
             def commit(host_packed, snapshot=snapshot, greedy_slots=greedy_slots):
-                for slot, req in snapshot.items():
-                    t = int(host_packed[slot, 0])
-                    if t <= 0:
-                        continue  # budget already spent on the device
-                    req.tokens.extend(int(x) for x in host_packed[slot, 1:1 + t])
-                    if slot in greedy_slots:
-                        self.stats["spec_drafted"] += gamma
-                        self.stats["spec_accepted"] += t - 1
-                    if req.done or len(req.prompt) + len(req.tokens) >= self.max_len:
-                        self._retire(slot, req)
+                with trace.span("serve.spec_verify", engine="paged", gamma=gamma) as sp:
+                    accepted = drafted = 0
+                    for slot, req in snapshot.items():
+                        t = int(host_packed[slot, 0])
+                        if t <= 0:
+                            continue  # budget already spent on the device
+                        req.tokens.extend(int(x) for x in host_packed[slot, 1:1 + t])
+                        if req.slo is not None:
+                            req.slo.tokens(t)
+                        if slot in greedy_slots:
+                            drafted += gamma
+                            accepted += t - 1
+                        if req.done or len(req.prompt) + len(req.tokens) >= self.max_len:
+                            self._retire(slot, req)
+                    sp.set(accepted=accepted, drafted=drafted)
+                self.stats["spec_drafted"] += drafted
+                self.stats["spec_accepted"] += accepted
+                metrics.inc("serving_spec_tokens_total", {"engine": "paged", "kind": "drafted"},
+                            value=float(drafted))
+                metrics.inc("serving_spec_tokens_total", {"engine": "paged", "kind": "accepted"},
+                            value=float(accepted))
 
             try:
                 self._pipeline.push(S, packed, commit)
@@ -963,6 +1098,7 @@ class PagedBatchEngine:
                 self._pipeline.discard()
                 self._rollback_to_host_truth()
                 raise
+        metrics.observe("serving_spec_verify_duration_seconds", time.perf_counter() - t0)
         self.stats["spec_dispatches"] += 1
         return True
 
@@ -995,7 +1131,7 @@ class PagedBatchEngine:
         tokens_in = np.zeros((self.slots, S), np.int32)
         drafts: dict[int, list[int]] = {}
         pos = np.zeros((self.slots,), np.int32)
-        with self._pipeline.host_section():
+        with self._pipeline.host_section():  # host drafting: the device idles
             for s, r in self._active.items():
                 if r.temperature <= 0:
                     d = Engine._draft_ngram([int(t) for t in r.prompt] + r.tokens, ngram, gamma)
@@ -1006,12 +1142,18 @@ class PagedBatchEngine:
                 tokens_in[s, 1:] = d
                 pos[s] = len(r.prompt) + len(r.tokens) - 1
             _, table, (temp, top_k, top_p) = self._dispatch_inputs()
-            greedy, sampled = self._spec_verify(
-                torch.tensor(tokens_in, device=self.device), torch.tensor(pos, device=self.device),
-                table, temp, top_k, top_p, self._sampled_active > 0)
-        greedy_h, sampled_h = greedy.cpu().numpy(), sampled.cpu().numpy()
+            tokens_dev = torch.tensor(tokens_in, device=self.device)
+            pos_dev = torch.tensor(pos, device=self.device)
+        t0 = time.perf_counter()
+        with trace.span("serve.spec_verify", engine="paged", gamma=gamma,
+                        active=len(self._active)):
+            with self._pipeline.host_section():
+                greedy, sampled = self._spec_verify(tokens_dev, pos_dev, table, temp, top_k,
+                                                    top_p, self._sampled_active > 0)
+            greedy_h, sampled_h = greedy.cpu().numpy(), sampled.cpu().numpy()
+        metrics.observe("serving_spec_verify_duration_seconds", time.perf_counter() - t0)
         self.stats["spec_dispatches"] += 1
-        with self._pipeline.host_section():
+        with self._pipeline.host_section():  # host acceptance + commit
             for s, r in list(self._active.items()):
                 if r.temperature > 0:
                     new = [int(sampled_h[s])]
@@ -1024,6 +1166,8 @@ class PagedBatchEngine:
                     self.stats["spec_drafted"] += gamma
                     self.stats["spec_accepted"] += len(new) - 1
                 r.tokens.extend(new)
+                if r.slo is not None:
+                    r.slo.tokens(len(new))
                 if r.done or len(r.prompt) + len(r.tokens) >= self.max_len:
                     self._retire(s, r)
             # Host truth back to the device (rejected draft rows sit past

@@ -702,3 +702,32 @@ def test_bf16_bundle_roundtrips_into_a_cuda_tensor(dev):
     assert kt.is_bfloat16(arr) and arr.shape == (2, 5, 8)
     back = kt.to_tensor(arr, dev)
     assert back.device.type == "cuda" and back.dtype == torch.bfloat16 and torch.equal(back, x)
+
+
+@pytest.mark.parametrize("kind", ["dense", "batch", "paged"])
+def test_build_local_target_serves_scheduled_requests_on_the_card(dev, kind, monkeypatch):
+    """The load runner's local target with no `device` lands on the card at
+    a shape the kernels take (bf16, head dim 128, paged blocks of 16) and
+    serves a few scheduled requests of a scenario: every request completes
+    with its tokens, and the server-side SLO ledger counts each one."""
+    from lws_tpu_torch import loadgen
+    from lws_tpu_torch.core import metrics, slo
+
+    monkeypatch.setattr(slo, "RECORDER", slo.SLORecorder(registry=metrics.MetricsRegistry()))
+    spec = loadgen.load_scenario("shared_prefix")
+    schedule = loadgen.build_schedule(spec, seed=0)[:6]
+    target = loadgen.build_local_target(kind, spec)
+    assert target.engine.device.type == "cuda" and target.engine.cfg.head_dim == 128
+    if kind == "paged":
+        assert target.engine.block_size == 16
+    before = flash_attention.launches
+    result = loadgen.run_schedule(schedule, target, max_wall_s=60.0)
+    torch.cuda.synchronize()
+    assert flash_attention.launches > before  # every prefill went through the kernel
+    report = loadgen.summarize(result, loadgen.class_targets(spec), spec["horizon_s"])
+    assert report["all"]["completed"] == len(schedule)
+    assert report["all"]["tokens"] == sum(r.max_new_tokens for r in schedule)
+    fams = metrics.parse_exposition(slo.RECORDER._registry.render())
+    ttft = sum(v for n, lab, v, _ in fams["serving_ttft_seconds"]["samples"]
+               if n.endswith("_count") and lab["engine"] == kind)
+    assert ttft == len(schedule)
