@@ -6,10 +6,13 @@ kernels to their plain PyTorch versions.
     python3 chip_smoke.py --kernels    # build + kernel checks only (no engine)
     python3 chip_smoke.py --profile    # every phase, and a torch.profiler breakdown
                                        # of steady decode steps of both paged engines
-                                       # and the MoE engine, and of steady verify passes
+                                       # and the MoE engine, and of steady verify passes,
+                                       # and NCCL's share of a tensor-parallel step
+    python3 chip_smoke.py --tp-only --tp 4   # path 14 alone on 4 cards, against
+                                       # single-card references it computes first
 
 Phases (each raises on failure; the script then exits non-zero and prints
-no result line): 1-4 build and hold the kernels, 5-13 drive the engine
+no result line): 1-4 build and hold the kernels, 5-14 drive the engine
 paths.
   1. the card (nvidia-smi name and power limit, CUDA version) and the build of
      every CUDA source in lws_tpu_torch/csrc/ for sm_90a, one nvcc per source,
@@ -113,7 +116,25 @@ paths.
      agree), TTFT p50/p99 and goodput per class; then
      build_local_target(kind, spec) with no device, for each engine kind,
      serves the schedule's first 6 requests on the card (bf16, head dim
-     128), after the path's launch counts are read.
+     128), after the path's launch counts are read;
+ 14. (run after 13, before 11) the tensor-parallel group: one rank per
+     visible card (--tp N: N of them), rank 0 in this process and the
+     others spawned, each started by lws_tpu_torch.parallel from the env
+     contract the control plane gives a group member, with NCCL (on one
+     card: a one-rank group, tp = 1, whose collectives still run); the
+     group forms one tp mesh and serves, at flagship_config("full") width
+     and depth, the 8 paged prompts (64 new tokens, one round) through
+     the TP PagedBatchEngine in bf16 and in int8 (weights and KV), and
+     path 8's batch through the int8 TP dense Engine. Every rank's streams
+     must be identical; rank 0's must equal paths 5, 6 and 8's single-card
+     streams or fork only at a near-tie (check_greedy_chain on the
+     single-card model); every rank's launch counts must equal those
+     paths' formulas for its own steps; each rank's parameter and pool
+     bytes must be 1/tp of the sharded tensors plus the replicated ones;
+     no rank but 0 compiles a kernel. It prints tp, TTFT and tok/s per
+     rank and engine, and the host and device time of one all-reduce of a
+     decode step's [8, 4096] activation and of the lm_head's all-gather
+     (--profile: NCCL's share of 16 TP decode steps).
 Every engine path is driven with all kernels' launch counts set to 0 just
 before it and read just after, and the counts are checked exactly. The
 port's telemetry is armed for paths 5-13 (tracing on, a fresh SLO recorder
@@ -143,6 +164,7 @@ import subprocess
 import sys
 import threading
 import time
+from typing import Optional
 
 import numpy as np
 
@@ -180,6 +202,8 @@ STAGGER, DENSE_PROMPT, SPEC_NEW, MOE_NEW_TOKENS = 4, 1000, 32, 32
 # tokens asked of each prefix-tier request; the host arena of the tier
 # engine, which holds the shared prefix's blocks and those its restores spill.
 HANDOFF_STEPS, TIER_NEW, TIER_ARENA_MB = 32, 16, 128
+# Path 14: the group's rendezvous and collective timeout.
+TP_TIMEOUT_S = 120.0
 
 
 class SmokeFailure(RuntimeError):
@@ -1143,11 +1167,11 @@ def path_bf16_paged(torch, dev, cfg) -> tuple:
     rng = np.random.default_rng(0)
     check_logits_paths(torch, dev, cfg, model, rng, "bf16 engine")
     prompts = [rng.integers(1, cfg.vocab_size, n).astype(np.int32) for n in paged_prompt_lens()]
-    launches, steps, engine, _ = serve_paged(torch, dev, cfg, model, prompts, "bf16 engine")
+    launches, steps, engine, streams = serve_paged(torch, dev, cfg, model, prompts, "bf16 engine")
     L, admissions = cfg.n_layers, ROUNDS * SLOTS
     check_launches("bf16 engine", launches, {"flash_attention": L * admissions,
                                              "paged_decode_attention": L * steps})
-    return launches, engine, prompts
+    return launches, engine, prompts, streams
 
 
 def path_int8_paged(torch, dev, cfg, prompts) -> tuple:
@@ -1537,15 +1561,22 @@ def path_int8_prefix_spec(torch, dev, cfg, model, profile: bool = False) -> dict
     return launches
 
 
-def path_int8_dense(torch, dev, cfg, model) -> dict:
+def dense_batch(cfg) -> tuple:
+    """Path 8's batch: the warm-up prompts (SLOTS x 32) and the SLOTS
+    512-token prompts, from one seeded generator."""
+    rng = np.random.default_rng(3)
+    warm = rng.integers(1, cfg.vocab_size, (SLOTS, 32)).astype(np.int32)
+    return warm, rng.integers(1, cfg.vocab_size, (SLOTS, 512)).astype(np.int32)
+
+
+def path_int8_dense(torch, dev, cfg, model) -> tuple:
     from lws_tpu_torch.models.llama import KVCache, forward_prefill, forward_with_cache
     from lws_tpu_torch.serving.engine import Engine
 
     V, L, plen = cfg.vocab_size, cfg.n_layers, 512
     engine = Engine(cfg, model, batch_size=SLOTS, max_len=MAX_LEN)
-    rng = np.random.default_rng(3)
-    engine.generate(rng.integers(1, V, (SLOTS, 32)).astype(np.int32), 4)  # warm-up
-    prompt = rng.integers(1, V, (SLOTS, plen)).astype(np.int32)
+    warm, prompt = dense_batch(cfg)
+    engine.generate(warm, 4)  # warm-up
     # The batched prefill as Engine.prefill runs it (flash at B=8, S=512),
     # kernel path vs plain path, each into a fresh cache.
     toks = torch.from_numpy(prompt).to(dev).long()
@@ -1596,7 +1627,7 @@ def path_int8_dense(torch, dev, cfg, model) -> dict:
         # the prefill's 4096-row products take the dequantized route.
         "int8_matmul": (7 * L + 1) * steps + 1,
     })
-    return launches
+    return launches, res.tokens.tolist()
 
 
 def first_difference(a, b) -> int:
@@ -2521,6 +2552,364 @@ def phase_profile(torch, engine, prompts, what: str, steps: int = 16,
         print(f"profile {what}:   {us / 1e3:9.3f} ms  x{count:<6d} {name[:90]}")
 
 
+# ---------------------------------------------------------------------------
+# Path 14: the tensor-parallel group
+
+
+def tp_shard_bytes(cfg, quantized: bool, tp: int) -> int:
+    """A rank's parameter bytes under tp: 1/tp of every sharded tensor
+    (models/llama.py:shard_dim) plus the replicated ones (norms, router),
+    from the shapes of a full model on device="meta"."""
+    import itertools
+
+    from lws_tpu_torch.models.llama import Llama, shard_dim
+
+    full = Llama(cfg, "meta", quantized)
+    total = 0
+    for name, t in itertools.chain(full.named_parameters(), full.named_buffers()):
+        n = t.numel() * t.element_size()
+        total += n // tp if shard_dim(name, cfg.n_experts) is not None else n
+    return total
+
+
+def cache_bytes(cache) -> int:
+    return sum(t.numel() * t.element_size()
+               for t in (cache.k, cache.v, cache.k_scale, cache.v_scale) if t is not None)
+
+
+def tp_serve_paged(torch, cfg, model, mesh, prompts, what: str) -> tuple:
+    """The TP PagedBatchEngine(slots=8, max_len=2048, block_size=16) serves
+    the 8 paged prompts once (NEW_TOKENS each) after a warm-up request,
+    with the launch counts reset just before and read just after. Returns
+    (the rank's record, the engine)."""
+    from lws_tpu_torch.models.llama import init_paged_cache
+    from lws_tpu_torch.models.quant import quantized_bytes
+    from lws_tpu_torch.serving.paged_engine import PagedBatchEngine
+
+    dev = model.device
+    engine = PagedBatchEngine(cfg, model, slots=SLOTS, max_len=MAX_LEN, block_size=BLOCK,
+                              mesh=mesh, device=dev)
+    warm = engine.submit(np.random.default_rng(1).integers(1, cfg.vocab_size, 64).astype(np.int32), 8)
+    engine.run_until_drained()
+    check(engine.result(warm) is not None, f"{what}: warm-up request did not finish")
+    torch.cuda.synchronize()
+    steps0 = engine.stats["decode_steps"]
+    reset_counts()
+    ttft, ids = [], []
+    for p in prompts:
+        t0 = time.perf_counter()
+        ids.append(engine.submit(p, NEW_TOKENS))
+        ttft.append(time.perf_counter() - t0)
+        check(ids[-1] is not None, f"{what}: engine refused a request")
+    t0 = time.perf_counter()
+    engine.run_until_drained()
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    launches = read_counts()
+    full_pool = init_paged_cache(cfg, engine.num_blocks, BLOCK, "meta")
+    return {"streams": [engine.result(i) for i in ids], "launches": launches,
+            "steps": engine.stats["decode_steps"] - steps0,
+            "ttft_ms": statistics.median(ttft) * 1e3,
+            "tok_s": SLOTS * (NEW_TOKENS - 1) / decode_s,
+            "param_bytes": quantized_bytes(engine.params),
+            "want_param_bytes": tp_shard_bytes(cfg, model.quantized, mesh.tp),
+            "pool_bytes": cache_bytes(engine.cache),
+            "want_pool_bytes": cache_bytes(full_pool) // mesh.tp}, engine
+
+
+def tp_serve_dense(torch, cfg, model, mesh, prompt) -> dict:
+    """The TP dense Engine(batch_size=8) on the int8 model: a warm-up, then
+    one batch of the 8 512-token prompts of path 8, NEW_TOKENS each."""
+    from lws_tpu_torch.models.llama import init_cache
+    from lws_tpu_torch.models.quant import quantized_bytes
+    from lws_tpu_torch.serving.engine import Engine
+
+    engine = Engine(cfg, model, batch_size=SLOTS, max_len=MAX_LEN, mesh=mesh, device=model.device)
+    engine.generate(dense_batch(cfg)[0], 4)  # warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    res = engine.generate(prompt, NEW_TOKENS)
+    launches = read_counts()
+    return {"tokens": res.tokens.tolist(), "launches": launches, "steps": res.decode_steps,
+            "ttft_ms": res.ttft_s * 1e3, "tok_s": res.decode_tokens_per_s,
+            "param_bytes": quantized_bytes(engine.params),
+            "want_param_bytes": tp_shard_bytes(cfg, model.quantized, mesh.tp),
+            "pool_bytes": cache_bytes(engine.new_cache()),
+            "want_pool_bytes": cache_bytes(init_cache(cfg, SLOTS, MAX_LEN, "meta")) // mesh.tp}
+
+
+def tp_profile(torch, engine, prompts, record: bool, steps: int = 16) -> Optional[dict]:
+    """Every rank runs `steps` steady decode steps of the 8-slot TP engine
+    in lockstep; `record` (rank 0) profiles them: the device time of the
+    NCCL kernels against all device time and against the window's wall."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    import contextlib
+
+    for p in prompts:
+        check(engine.submit(p, steps + 8) is not None, "tp profile: admission refused")
+    engine.step_n(4)
+    engine._pipeline.flush()
+    torch.cuda.synchronize()
+    ctx = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) if record \
+        else contextlib.nullcontext()
+    with ctx as prof:
+        t0 = time.perf_counter()
+        done = 0
+        while done < steps:
+            done += engine.step_n(min(8, steps - done))
+        engine._pipeline.flush()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    engine.run_until_drained()
+    if not record:
+        return None
+    nccl = busy = 0.0
+    launches = nccl_launches = 0
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        busy += ev.self_device_time_total
+        launches += ev.count
+        if "nccl" in ev.key.lower():
+            nccl += ev.self_device_time_total
+            nccl_launches += ev.count
+    check(busy > 0, "tp profile: torch.profiler recorded no device time")
+    return {"steps": steps, "wall_ms": wall * 1e3, "busy_ms": busy / 1e3, "nccl_ms": nccl / 1e3,
+            "kernels_per_step": launches / steps, "nccl_per_step": nccl_launches / steps}
+
+
+def collective_cost(torch, mesh, dev, V: int, D: int, n: int = 200) -> dict:
+    """Host and device time of the TP step's collectives at a decode step's
+    shapes, every rank in lockstep: the all-reduce of an [8, D] bf16
+    activation and the lm_head's all-gather of [8, V/tp], n calls each."""
+    from lws_tpu_torch.models.llama import tp_all_gather, tp_all_reduce
+
+    out = {}
+    for name, x, fn in (("all_reduce", torch.zeros(SLOTS, D, dtype=torch.bfloat16, device=dev),
+                         tp_all_reduce),
+                        ("all_gather", torch.zeros(SLOTS, V // mesh.tp, dtype=torch.bfloat16,
+                                                   device=dev), tp_all_gather)):
+        for _ in range(10):
+            fn(x, mesh)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn(x, mesh)
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        out[name] = {"host_us": (t1 - t0) / n * 1e6,
+                     "device_us": (time.perf_counter() - t0) / n * 1e6}
+    return out
+
+
+def tp_rank_run(torch, rank: int, env: dict, prompts, dense_prompt, models: dict,
+                profile: bool) -> dict:
+    """One rank of path 14: bootstrap from `env` (NCCL, one card), form the
+    tp mesh over the group, then serve the bf16 and int8 paged engines and
+    the int8 dense Engine. `models` holds the full single-card models (rank
+    0 in the parent: the earlier paths' own), else each is drawn from the
+    earlier paths' seed on this rank's card."""
+    import torch.distributed as dist
+
+    from lws_tpu_torch.models.flagship import flagship_config, init_quantized_params
+    from lws_tpu_torch.models.llama import init_params
+    from lws_tpu_torch.obs import device as devicemod
+    from lws_tpu_torch.ops import _ext
+    from lws_tpu_torch.parallel import initialize_from_env, local_device, mesh_from_bootstrap
+    from lws_tpu_torch.parallel.bootstrap import bootstrap_info_from_env
+
+    dev = local_device(bootstrap_info_from_env(env))
+    # A member that dies before the rendezvous fails the path in two minutes,
+    # not the default ten.
+    info = initialize_from_env(env=env, device=dev, group_of_one=True, timeout_s=TP_TIMEOUT_S)
+    want_backend = "nccl" if dev.type == "cuda" else "gloo"
+    check(dist.get_backend() == want_backend, f"rank {rank}: backend {dist.get_backend()}")
+    records0 = len(devicemod.LEDGER.snapshot()["records"])
+    _ext.build_on_rank_zero()  # the parent built every kernel before path 14
+    out = {"rank": rank, "device": str(dev),
+           "compiles": len(devicemod.LEDGER.snapshot()["records"]) - records0}
+    mesh = mesh_from_bootstrap(info)
+    out["tp"] = mesh.tp
+    cfg, cfg8 = flagship_config("full"), flagship_config("full", kv_quant=True)
+    out["collectives"] = collective_cost(torch, mesh, dev, cfg.vocab_size, cfg.d_model)
+    gen = lambda: torch.Generator(device=dev).manual_seed(0)  # noqa: E731 (the earlier paths' seed)
+    model = models.get("bf16") or init_params(cfg, gen(), device=dev)
+    out["bf16"], engine = tp_serve_paged(torch, cfg, model, mesh, prompts, f"rank {rank} bf16")
+    del model, engine
+    torch.cuda.empty_cache()
+    model8 = models.get("int8") or init_quantized_params(cfg8, gen(), device=dev)
+    out["int8"], engine = tp_serve_paged(torch, cfg8, model8, mesh, prompts, f"rank {rank} int8")
+    if profile:
+        out["profile"] = tp_profile(torch, engine, prompts, record=rank == 0)
+    del engine
+    torch.cuda.empty_cache()
+    out["dense"] = tp_serve_dense(torch, cfg8, model8, mesh, dense_prompt)
+    del model8
+    torch.cuda.synchronize()
+    dist.destroy_process_group()
+    return out
+
+
+def tp_member(rank: int, out_dir: str, prompts, dense_prompt, profile: bool) -> None:
+    """A spawned member of path 14's group (ranks 1..N-1): its contract is
+    in os.environ; its record goes to out_dir/<rank>.json."""
+    import torch
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    rec = tp_rank_run(torch, rank, dict(os.environ), prompts, dense_prompt, {}, profile)
+    with open(os.path.join(out_dir, f"{rank}.json"), "w") as f:
+        json.dump(rec, f)
+
+
+def check_tp_streams(torch, dev, cfg, model, prompts, got, want, what: str) -> int:
+    """Rank 0's streams against the single-card streams: equal, or forked
+    at a near-tie (the TP stream's tokens within LOGITS_REL_TOL of each
+    row's max under the single-card model). Returns the forks."""
+    forks = 0
+    for p, g, w in zip(prompts, got, want):
+        i = first_difference(g, w)
+        if i < min(len(g), len(w)):
+            forks += 1
+            gap = check_greedy_chain(torch, dev, cfg, model, np.asarray(p)[None],
+                                     np.asarray(g, np.int32), what)
+            print(f"{what}: a stream forks from the single card's at step {i} "
+                  f"(a near-tie: every token within {gap:.3e} of its row's max)")
+        else:
+            check(len(g) == len(w), f"{what}: stream lengths {len(g)} vs {len(w)}")
+    return forks
+
+
+def path_tp_only(torch, dev, cfg, world: int, profile: bool) -> None:
+    """Path 14 alone (--tp-only): the single-card references it is held to
+    are computed here first, on rank 0's card, from the same seeds, prompts
+    and engines as paths 5, 6 and 8 (one round each)."""
+    from lws_tpu_torch.models.flagship import flagship_config, init_quantized_params
+    from lws_tpu_torch.models.llama import init_params
+    from lws_tpu_torch.serving.engine import Engine
+
+    cfg8 = flagship_config("full", kv_quant=True)
+    gen = lambda: torch.Generator(device=dev).manual_seed(0)  # noqa: E731
+    models = {"bf16": init_params(cfg, gen(), device=dev),
+              "int8": init_quantized_params(cfg8, gen(), device=dev)}
+    rng = np.random.default_rng(0)
+    rng.integers(1, cfg.vocab_size, 300)  # path 5's logits check draws its prompt first
+    prompts = [rng.integers(1, cfg.vocab_size, n).astype(np.int32) for n in paged_prompt_lens()]
+    refs = {}
+    for name, c in (("bf16", cfg), ("int8", cfg8)):
+        *_, engine, refs[name] = serve_paged(torch, dev, c, models[name], prompts,
+                                             f"single-card {name} engine", rounds=1)
+        del engine
+        torch.cuda.empty_cache()
+    warm, dense_prompt = dense_batch(cfg8)
+    engine = Engine(cfg8, models["int8"], batch_size=SLOTS, max_len=MAX_LEN, device=dev)
+    engine.generate(warm, 4)
+    refs["dense"] = engine.generate(dense_prompt, NEW_TOKENS).tokens.tolist()
+    del engine
+    torch.cuda.empty_cache()
+    path_tp_group(torch, dev, world, models, prompts, dense_prompt, refs, profile)
+
+
+def path_tp_group(torch, dev, world: int, models: dict, prompts, dense_prompt, refs: dict,
+                  profile: bool) -> dict:
+    """Path 14: one rank per card (rank 0 here, the others spawned), each
+    started from the env contract the control plane gives a group member
+    (parallel.launch.group_env) with NCCL, forms one tp mesh over the
+    group and serves, at flagship_config("full") width and depth: the bf16
+    and the int8 (weights and KV) TP PagedBatchEngine over the 8 paged
+    prompts, and the int8 TP dense Engine over path 8's batch. Checked:
+    every rank's streams are identical; rank 0's equal the single-card
+    streams `refs` or fork only at a near-tie; every rank's launch counts
+    equal the single-card formulas of paths 5, 6 and 8 for its own steps;
+    each rank's parameter and pool bytes are 1/tp of the sharded tensors
+    plus the replicated ones; no rank but 0 compiled a kernel. Returns rank
+    0's launches over the three engines."""
+    import tempfile
+
+    from lws_tpu_torch.parallel import launch
+
+    t0 = time.perf_counter()
+    port = launch.free_port()
+    envs = [launch.group_env(r, world, port) for r in range(world)]
+    with tempfile.TemporaryDirectory() as out_dir:
+        ctx = None
+        if world > 1:
+            ctx, _ = launch.spawn_group(tp_member, world, args=(out_dir, prompts, dense_prompt,
+                                                                profile),
+                                        ranks=range(1, world), port=port)
+        try:
+            recs = [tp_rank_run(torch, 0, envs[0], prompts, dense_prompt, models, profile)]
+            if ctx is not None:
+                launch.join(ctx, timeout_s=900)
+        finally:
+            if ctx is not None:
+                for p in ctx.processes:
+                    if p.is_alive():
+                        p.kill()
+        for r in range(1, world):
+            with open(os.path.join(out_dir, f"{r}.json")) as f:
+                recs.append(json.load(f))
+    L, tp = models["bf16"].cfg.n_layers, world
+    small = sum(1 for p in prompts if bucket_of(len(p)) <= 256)
+    for rec in recs:
+        r = rec["rank"]
+        check(rec["tp"] == tp, f"rank {r}: tp {rec['tp']}")
+        check(rec["compiles"] == 0, f"rank {r}: {rec['compiles']} compile ledger records")
+        for eng in ("bf16", "int8", "dense"):
+            e = rec[eng]
+            check(e["param_bytes"] == e["want_param_bytes"] and
+                  e["pool_bytes"] == e["want_pool_bytes"],
+                  f"rank {r} {eng}: parameter bytes {e['param_bytes']} (want "
+                  f"{e['want_param_bytes']}), pool bytes {e['pool_bytes']} (want "
+                  f"{e['want_pool_bytes']})")
+        check_launches(f"tp rank {r} bf16 paged", rec["bf16"]["launches"], {
+            "flash_attention": L * SLOTS, "paged_decode_attention": L * rec["bf16"]["steps"]})
+        s8 = rec["int8"]["steps"]
+        check_launches(f"tp rank {r} int8 paged", rec["int8"]["launches"], {
+            "flash_attention": L * SLOTS, "paged_decode_attention_int8": L * s8,
+            "int8_matmul": (7 * L + 1) * s8 + 7 * L * small + SLOTS})
+        sd = rec["dense"]["steps"]
+        check_launches(f"tp rank {r} int8 dense", rec["dense"]["launches"], {
+            "flash_attention": L, "int8_decode_attention": L * sd,
+            "int8_matmul": (7 * L + 1) * sd + 1})
+        for eng in ("bf16", "int8"):
+            check(rec[eng]["streams"] == recs[0][eng]["streams"],
+                  f"rank {r} {eng}: streams differ from rank 0's")
+        check(rec["dense"]["tokens"] == recs[0]["dense"]["tokens"],
+              f"rank {r} dense: tokens differ from rank 0's")
+        print(f"tensor-parallel group: rank {r} ({rec['device']}) tp={tp}: "
+              + "; ".join(f"{eng} TTFT {rec[eng]['ttft_ms']:.1f} ms, {rec[eng]['tok_s']:.1f} tok/s"
+                          for eng in ("bf16", "int8", "dense"))
+              + f"; parameters {rec['int8']['param_bytes'] / 1e9:.3f} GB int8, "
+                f"{rec['bf16']['param_bytes'] / 1e9:.3f} GB bf16; "
+              + ", ".join(f"{k} {v['host_us']:.1f} us host ({v['device_us']:.1f} us to the "
+                          f"device's end) a call" for k, v in rec["collectives"].items()))
+    rec0 = recs[0]
+    forks = {
+        "bf16": check_tp_streams(torch, dev, models["bf16"].cfg, models["bf16"], prompts,
+                                 rec0["bf16"]["streams"], refs["bf16"], "tp bf16 paged"),
+        "int8": check_tp_streams(torch, dev, models["int8"].cfg, models["int8"], prompts,
+                                 rec0["int8"]["streams"], refs["int8"], "tp int8 paged"),
+        "dense": check_tp_streams(torch, dev, models["int8"].cfg, models["int8"], dense_prompt,
+                                  rec0["dense"]["tokens"], refs["dense"], "tp int8 dense"),
+    }
+    print(f"tensor-parallel group: tp={tp} over {world} card(s), every rank's streams identical; "
+          f"rank 0 against the single card: forks at near-ties {forks}; "
+          f"path wall time {time.perf_counter() - t0:.1f} s")
+    if profile:
+        p = rec0["profile"]
+        print(f"profile tp={tp} int8 paged: {p['steps']} decode steps, 8 slots: wall "
+              f"{p['wall_ms']:.2f} ms ({p['wall_ms'] / p['steps']:.2f} ms/step), device busy "
+              f"{p['busy_ms']:.2f} ms, NCCL {p['nccl_ms']:.3f} ms = "
+              f"{p['nccl_ms'] / p['busy_ms']:.1%} of device time, "
+              f"{p['nccl_ms'] / p['wall_ms']:.1%} of wall; {p['kernels_per_step']:.0f} kernels/step, "
+              f"{p['nccl_per_step']:.0f} of them NCCL")
+    counts = {name: sum(rec0[eng]["launches"][name] for eng in ("bf16", "int8", "dense"))
+              for name in kernel_counters()}
+    return counts
+
+
 def check_compile_ledger(sources, reports) -> dict:
     """The compile ledger holds exactly one `first` record per source the
     build compiled (every source when _build/ was cold, none when warm) and
@@ -2546,7 +2935,13 @@ def main(argv=None) -> int:
                     help="build and check the kernels only (no engine, no result line)")
     ap.add_argument("--profile", action="store_true",
                     help="profile steady decode steps of both paged engines and the MoE "
-                         "engine, and steady verify passes (torch.profiler)")
+                         "engine, and steady verify passes (torch.profiler); on path 14, "
+                         "NCCL's share of a TP decode step")
+    ap.add_argument("--tp", type=int, default=0,
+                    help="path 14's group size, one rank per card (default: every visible card)")
+    ap.add_argument("--tp-only", action="store_true",
+                    help="build, then path 14 alone, against single-card references of its "
+                         "own (the multi-card run; no kernels line)")
     args = ap.parse_args(argv)
 
     import torch
@@ -2557,6 +2952,7 @@ def main(argv=None) -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     try:
         from lws_tpu_torch.models.flagship import flagship_config
+        from lws_tpu_torch.models.llama import init_params
         from lws_tpu_torch.ops import _ext
     except ImportError as e:
         print(f"chip_smoke: the lws_tpu_torch package is not beside this script: {e}",
@@ -2580,6 +2976,17 @@ def main(argv=None) -> int:
     ledger = check_compile_ledger(sources, reports)
 
     cfg = flagship_config("full")
+    world = args.tp or torch.cuda.device_count()
+    check(1 <= world <= torch.cuda.device_count(),
+          f"--tp {world}: {torch.cuda.device_count()} card(s) visible")
+    if args.tp_only:
+        path_tp_only(torch, dev, cfg, world, args.profile)
+        print(f"chip_smoke: path 14 passed in {time.perf_counter() - t_start:.1f} s")
+        print(f"card: {card}")
+        print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                                 "kind": torch.cuda.get_device_name(0),
+                                                 "count": torch.cuda.device_count()}}))
+        return 0
     kernels = {
         "flash_attention": {
             "route": "cuda", "source": "lws_tpu_torch/csrc/flash_attention.cu",
@@ -2606,7 +3013,7 @@ def main(argv=None) -> int:
     by_path = {}
     watch = TelemetryWatch()  # tracing on, spies on the engines' entry points
     watch.begin()
-    by_path["bf16 paged engine"], engine, prompts = path_bf16_paged(torch, dev, cfg)
+    by_path["bf16 paged engine"], engine, prompts, bf16_streams = path_bf16_paged(torch, dev, cfg)
     watch.end("bf16 paged engine")
     check_pools(torch, engine, "bf16 paged engine")
     telemetry_cost(torch, engine, prompts)
@@ -2630,7 +3037,7 @@ def main(argv=None) -> int:
     watch.end("int8 prefix/chunked/speculative engine")
     torch.cuda.empty_cache()
     watch.begin()
-    by_path["int8 dense engine"] = path_int8_dense(torch, dev, cfg8, model8)
+    by_path["int8 dense engine"], dense_tokens = path_int8_dense(torch, dev, cfg8, model8)
     watch.end("int8 dense engine")
     torch.cuda.empty_cache()
     watch.begin()
@@ -2650,7 +3057,12 @@ def main(argv=None) -> int:
     watch.begin()
     by_path["load runner"] = path_loadgen(torch, dev, cfg8, model8, watch.recorder)
     watch.end("load runner")
-    del model8  # the flagship goes before the MoE model is built
+    torch.cuda.empty_cache()
+    model = init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)  # path 5's
+    by_path["tensor-parallel group"] = path_tp_group(
+        torch, dev, world, {"bf16": model, "int8": model8}, prompts, dense_batch(cfg8)[1],
+        {"bf16": bf16_streams, "int8": paged_streams, "dense": dense_tokens}, args.profile)
+    del model, model8  # the flagships go before the MoE model is built
     torch.cuda.empty_cache()
     watch.begin()
     by_path["int8 MoE engines"], kernels["int8_matmul"]["moe_expert_rows"] = path_int8_moe(

@@ -11,6 +11,10 @@ kernels (flash prefill, paged decode over bf16 and int8 pools, int8 decode
 over a dense cache, the int8-weight product) are hand-written CUDA C++ for
 sm_90a (csrc/), built by nvcc at first use (ops/_ext.py); on CPU tensors
 the ops compute their plain PyTorch versions.
+
+A group of processes serves one model tensor-parallel: parallel/ starts
+torch.distributed from the control plane's env contract and forms the mesh
+the engines take (`mesh=`); runtime/worker.py is the group's worker.
 """
 
 from lws_tpu_torch._device import resolve_device

@@ -18,6 +18,11 @@ are. The model is then built with `quantized=True`.
 An MoE tree's expert products [L, E, D, F] (quantized: q [L, E, D, F] +
 scale [L, E, F]) cross as [E, F, D] per layer, its router [L, D, E] as
 [E, D], never quantized.
+
+With `mesh=`, `params_from_jax` lands the tree as the rank's tensor-parallel
+shard (models/llama.py:shard_params): the slices that JAX's
+NamedSharding(mesh, param_shardings(cfg)) gives the device of the same tp
+index.
 """
 
 from __future__ import annotations
@@ -28,7 +33,13 @@ import numpy as np
 import torch
 
 from lws_tpu_torch._device import DeviceLike
-from lws_tpu_torch.models.llama import LAYER_NORMS, LAYER_PRODUCTS, Llama, LlamaConfig
+from lws_tpu_torch.models.llama import (
+    LAYER_NORMS,
+    LAYER_PRODUCTS,
+    Llama,
+    LlamaConfig,
+    shard_params,
+)
 from lws_tpu_torch.models.quant import QuantizedArray
 
 
@@ -89,10 +100,12 @@ def _copy_weight(module, leaf, name: str, transpose: bool, index=None) -> None:
 
 
 @torch.no_grad()
-def params_from_jax(tree: dict, cfg: LlamaConfig, device: DeviceLike = None) -> Llama:
+def params_from_jax(tree: dict, cfg: LlamaConfig, device: DeviceLike = None,
+                    mesh=None) -> Llama:
     """A `Llama` on `device` holding the weights of a JAX parameter tree given
     as numpy arrays, plain or quantized (QuantizedArray leaves). Types must
-    already match (no silent casts), so a round trip is bit-exact."""
+    already match (no silent casts), so a round trip is bit-exact. With a
+    `mesh`, the rank's tp shard of them."""
     model = Llama(cfg, device, quantized=hasattr(tree["embed"], "q"))
     layers = tree["layers"]
     _copy_weight(model.embed, tree["embed"], "embed", transpose=False)
@@ -106,7 +119,7 @@ def params_from_jax(tree: dict, cfg: LlamaConfig, device: DeviceLike = None) -> 
                          transpose=True, index=l)
         if block.router is not None:
             _copy(block.router, _to_torch(layers["router"][l]).T, f"layers.router[{l}]")
-    return model
+    return model if mesh is None else shard_params(model, mesh)
 
 
 def _weight_to_numpy(module, transpose: bool):

@@ -33,17 +33,38 @@ expert and batch row, computed from the S of each forward; expert weights
 are stacked [E, out, in] (int8 with [E, out] scales when quantized) and the
 router [E, D] stays in param_dtype.
 
+Tensor parallelism (Megatron-style, lws_tpu/models/llama.py:param_shardings
+made explicit): a `Llama` built with a `mesh` (parallel.mesh.Mesh) holds
+rank r's tp shard of every weight, JAX's shard of the same index. Column-
+parallel wq/wk/wv/w_gate/w_up keep their output channels [r*n/tp,
+(r+1)*n/tp); row-parallel wo/w_down their input channels, each followed by
+an all-reduce over the tp group; the embedding and lm_head their vocabulary
+rows: a lookup masks the tokens the rank does not hold and all-reduces, the
+head all-gathers the logits in rank order. Attention then runs on the
+rank's H/tp query and Hkv/tp KV heads (G unchanged), and every cache holds
+Hkv/tp heads, so each kernel sees the rank's local heads. With experts,
+each rank holds E/tp experts; routing and capacity are computed whole on
+every rank, each rank runs its own experts and the combined partial output
+is all-reduced (expert parallelism). `shard_params` slices a full model
+into a rank's shard (a quantized weight's scale splits with its output
+channels and stays whole when its input channels split). The collectives
+are stock torch.distributed (NCCL on the card, gloo on the CPU).
+
+`forward` is the no-cache full-sequence forward (lws_tpu/models/llama.py:378),
+for inference: its attention is stock torch, as JAX's is XLA's.
+
 Left out here (lws_tpu/models/llama.py names): ring/context parallel,
-forward/loss_fn (and the MoE aux loss, a training term) and all sharding
-specs.
+pipeline parallel, loss_fn (and the MoE aux loss, a training term), remat.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+import itertools
 from typing import Callable, Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
@@ -70,11 +91,17 @@ __all__ = [
     "forward_decode_slotted",
     "PagedKVCache", "init_paged_cache", "paged_insert", "forward_decode_paged",
     "forward_verify_paged", "ngram_draft", "speculative_accept", "_cached_attention",
-    "_quantize_kv", "_dequantize_kv", "LAYER_PRODUCTS", "LAYER_NORMS",
+    "_quantize_kv", "_dequantize_kv", "LAYER_PRODUCTS", "LAYER_NORMS", "forward",
+    "shard_params", "shard_dim", "tp_size", "tp_all_reduce", "tp_all_gather",
 ]
 
 LAYER_PRODUCTS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
 LAYER_NORMS = ("attn_norm", "ffn_norm")
+# Megatron's split of the products over tp (lws_tpu/models/llama.py:127-151):
+# column-parallel ones split their output channels, row-parallel ones their
+# input channels (and are followed by an all-reduce).
+COLUMN_PARALLEL = ("wq", "wk", "wv", "w_gate", "w_up")
+ROW_PARALLEL = ("wo", "w_down")
 
 
 @dataclass(frozen=True)
@@ -108,6 +135,58 @@ class LlamaConfig:
         ffn = self.n_experts * 3 * d * f + d * self.n_experts if self.n_experts else 3 * d * f
         per_layer = attn + ffn + 2 * d
         return v * d * 2 + self.n_layers * per_layer + d
+
+
+# ---------------------------------------------------------------------------
+# Tensor parallelism
+
+
+# all_gather_into_tensor was renamed all_gather_single (torch 2.13).
+_all_gather_single = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
+
+
+def tp_size(mesh) -> int:
+    return 1 if mesh is None else mesh.tp
+
+
+def tp_all_reduce(x: torch.Tensor, mesh) -> torch.Tensor:
+    """Sum x over the mesh's tp group, in place (no mesh: x as it is). A
+    one-rank group still runs its collective."""
+    if mesh is not None:
+        dist.all_reduce(x, group=mesh.tp_group)
+    return x
+
+
+def tp_all_gather(x: torch.Tensor, mesh) -> torch.Tensor:
+    """Concatenate every tp rank's x along its last dim, in rank order (one
+    collective into one buffer)."""
+    if mesh is None:
+        return x
+    out = x.new_empty((mesh.tp * x.shape[0], *x.shape[1:]))
+    _all_gather_single(out, x.contiguous(), group=mesh.tp_group)
+    return out.reshape(mesh.tp, *x.shape).movedim(0, -2).reshape(*x.shape[:-1], -1)
+
+
+def shard_dim(name: str, n_experts: int = 0) -> Optional[int]:
+    """The dim of a `Llama` parameter or buffer (its name as
+    named_parameters/named_buffers give it) that splits over tp, or None
+    for a replicated one (norms, the router): the embedding and lm_head
+    split the vocabulary (dim 0 of [V, D] and of the per-row scale [V]),
+    column-parallel products their output channels (dim 0 of [out, in] and
+    of the scale [out]), row-parallel ones their input channels (dim 1; the
+    per-output-channel scale stays whole), expert products the experts
+    (dim 0 of [E, out, in] and of the scale [E, out])."""
+    parts = name.split(".")
+    leaf, owner = parts[-1], (parts[-2] if len(parts) > 1 else "")
+    if owner in ("embed", "lm_head"):
+        return 0
+    if n_experts and owner in ("w_gate", "w_up", "w_down"):
+        return 0
+    if owner in COLUMN_PARALLEL:
+        return 0
+    if owner in ROW_PARALLEL:
+        return None if leaf == "scale" else 1
+    return None
 
 
 # ---------------------------------------------------------------------------
@@ -172,7 +251,7 @@ def moe_capacity(capacity_factor: float, S: int, top_k: int, n_experts: int) -> 
 
 
 def moe_ffn(x: torch.Tensor, router: torch.Tensor, w_gate, w_up, w_down, top_k: int,
-            capacity_factor: float, plain: bool = False) -> torch.Tensor:
+            capacity_factor: float, plain: bool = False, expert_offset: int = 0) -> torch.Tensor:
     """GShard top-k MoE with static-shape dense dispatch/combine
     (lws_tpu/models/llama.py:_moe_ffn, without the aux loss): x [B, S, D],
     router [E, D], expert weights [E, out, in] plain or quantized. Each
@@ -180,7 +259,12 @@ def moe_ffn(x: torch.Tensor, router: torch.Tensor, w_gate, w_up, w_down, top_k: 
     kept while the expert's running count in its batch row is below the
     capacity C, and combined with their router probabilities renormalized
     over the kept ones. Every expert computes its [B, C] slots, filled or
-    not. Returns [B, S, D] in x's dtype."""
+    not. Returns [B, S, D] in x's dtype.
+
+    Expert parallelism: the weights may hold only experts [expert_offset,
+    expert_offset + E_local) of the router's E; routing and capacity are
+    still computed over all E, and the result is those experts' share of
+    the combined output (the caller sums the shares over the tp group)."""
     B, S, _ = x.shape
     E = router.shape[0]
     C = moe_capacity(capacity_factor, S, top_k, E)
@@ -206,6 +290,8 @@ def moe_ffn(x: torch.Tensor, router: torch.Tensor, w_gate, w_up, w_down, top_k: 
 
     denom = torch.clamp(gates_sum, min=1e-9)[..., None]
     combine = (combine_gates / denom).to(x.dtype)[..., None] * dispatch  # [B, S, E, C]
+    local = slice(expert_offset, expert_offset + w_gate.shape[0])
+    dispatch, combine = dispatch[:, :, local], combine[:, :, local]
     expert_in = torch.einsum("bsec,bsd->ebcd", dispatch, x)
     h = F.silu(expert_einsum(expert_in, w_gate, plain=plain)) \
         * expert_einsum(expert_in, w_up, plain=plain)
@@ -216,27 +302,35 @@ def moe_ffn(x: torch.Tensor, router: torch.Tensor, w_gate, w_up, w_down, top_k: 
 class LlamaBlock(nn.Module):
     """One decoder layer: RMSNorm, GQA attention with RoPE, RMSNorm, SwiGLU
     FFN (dense, or cfg.n_experts experts behind a top-k router), both with
-    residuals (lws_tpu/models/llama.py:_block_core)."""
+    residuals (lws_tpu/models/llama.py:_block_core). With a `mesh`, the
+    rank's tp shard: H/tp and Hkv/tp heads, d_ff/tp FFN channels (or E/tp
+    experts), and an all-reduce after wo and after the FFN."""
 
-    def __init__(self, cfg: LlamaConfig, device: torch.device, quantized: bool = False):
+    def __init__(self, cfg: LlamaConfig, device: torch.device, quantized: bool = False,
+                 mesh=None):
         super().__init__()
-        d, f, hd, E = cfg.d_model, cfg.d_ff, cfg.head_dim, cfg.n_experts
+        tp = tp_size(mesh)
+        d, hd, E = cfg.d_model, cfg.head_dim, cfg.n_experts
+        f = cfg.d_ff if E else cfg.d_ff // tp  # experts split over E, a dense FFN over d_ff
         pd = cfg.param_dtype
-        self.n_heads, self.n_kv_heads, self.head_dim = cfg.n_heads, cfg.n_kv_heads, hd
+        nh, nkv = cfg.n_heads // tp, cfg.n_kv_heads // tp
+        self.n_heads, self.n_kv_heads, self.head_dim = nh, nkv, hd
+        self.mesh = mesh
         self.norm_eps = cfg.norm_eps
         self.top_k, self.capacity_factor = cfg.top_k, cfg.capacity_factor
+        self.expert_offset = (E // tp) * mesh.tp_rank if E and mesh is not None else 0
         self.attn_norm = nn.Parameter(torch.ones(d, dtype=pd, device=device))
-        self.wq = _linear(d, cfg.n_heads * hd, device, pd, quantized)
-        self.wk = _linear(d, cfg.n_kv_heads * hd, device, pd, quantized)
-        self.wv = _linear(d, cfg.n_kv_heads * hd, device, pd, quantized)
-        self.wo = _linear(cfg.n_heads * hd, d, device, pd, quantized)
+        self.wq = _linear(d, nh * hd, device, pd, quantized)
+        self.wk = _linear(d, nkv * hd, device, pd, quantized)
+        self.wv = _linear(d, nkv * hd, device, pd, quantized)
+        self.wo = _linear(nh * hd, d, device, pd, quantized)
         self.ffn_norm = nn.Parameter(torch.ones(d, dtype=pd, device=device))
         # The router stays in param_dtype when the model is quantized
         # (lws_tpu/models/quant.py:64: tiny and precision-critical).
         self.router = nn.Parameter(torch.empty(E, d, dtype=pd, device=device)) if E else None
-        self.w_gate = _linear(d, f, device, pd, quantized, E)
-        self.w_up = _linear(d, f, device, pd, quantized, E)
-        self.w_down = _linear(f, d, device, pd, quantized, E)
+        self.w_gate = _linear(d, f, device, pd, quantized, E // tp)
+        self.w_up = _linear(d, f, device, pd, quantized, E // tp)
+        self.w_down = _linear(f, d, device, pd, quantized, E // tp)
 
     def forward(self, x: torch.Tensor, rope_cs: tuple[torch.Tensor, torch.Tensor],
                 attn_fn: Callable[[torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor],
@@ -253,16 +347,16 @@ class LlamaBlock(nn.Module):
         v = matmul(h, self.wv.weight, plain=plain).reshape(B, S, nkv, hd)
         q, k = apply_rope(q, *rope_cs), apply_rope(k, *rope_cs)
         attn = attn_fn(q, k, v).reshape(B, S, nh * hd)
-        x = x + matmul(attn, self.wo.weight, plain=plain)
+        x = x + tp_all_reduce(matmul(attn, self.wo.weight, plain=plain), self.mesh)
         h = rms_norm(x, self.ffn_norm, self.norm_eps)
         if self.router is not None:
             y = moe_ffn(h, self.router, self.w_gate.weight, self.w_up.weight, self.w_down.weight,
-                        self.top_k, self.capacity_factor, plain)
+                        self.top_k, self.capacity_factor, plain, self.expert_offset)
         else:
             y = matmul(F.silu(matmul(h, self.w_gate.weight, plain=plain))
                        * matmul(h, self.w_up.weight, plain=plain),
                        self.w_down.weight, plain=plain)
-        return x + y
+        return x + tp_all_reduce(y, self.mesh)
 
 
 class Llama(nn.Module):
@@ -273,23 +367,34 @@ class Llama(nn.Module):
     the embedding table are int8 `QuantizedWeight`s (the layout of
     lws_tpu/models/quant.py:quantize_params) and only the norms stay
     parameters; `init_quantized_params`, `quantize_params` or the weight
-    bridge fills it."""
+    bridge fills it. With a `mesh` (parallel.mesh.Mesh) every tensor has
+    the shape of the rank's tp shard (module docstring); `shard_params`
+    fills it from a full model."""
 
-    def __init__(self, cfg: LlamaConfig, device: DeviceLike = None, quantized: bool = False):
+    def __init__(self, cfg: LlamaConfig, device: DeviceLike = None, quantized: bool = False,
+                 mesh=None):
         super().__init__()
         device = resolve_device(device)
+        tp = tp_size(mesh)
+        split = [("n_kv_heads", cfg.n_kv_heads), ("n_heads", cfg.n_heads),
+                 ("vocab_size", cfg.vocab_size),
+                 ("n_experts", cfg.n_experts) if cfg.n_experts else ("d_ff", cfg.d_ff)]
+        for what, n in split:
+            if n % tp:
+                raise ValueError(f"{what}={n} not divisible by tp={tp}")
         self.cfg = cfg
         self.quantized = quantized
+        self.mesh = mesh
         pd = cfg.param_dtype
+        V = cfg.vocab_size // tp
         if quantized:
-            self.embed = QuantizedWeight(cfg.vocab_size, cfg.d_model, device)
+            self.embed = QuantizedWeight(V, cfg.d_model, device)
         else:
-            self.embed = nn.utils.skip_init(nn.Embedding, cfg.vocab_size, cfg.d_model,
-                                            device=device, dtype=pd)
-        self.layers = nn.ModuleList(LlamaBlock(cfg, device, quantized)
+            self.embed = nn.utils.skip_init(nn.Embedding, V, cfg.d_model, device=device, dtype=pd)
+        self.layers = nn.ModuleList(LlamaBlock(cfg, device, quantized, mesh)
                                     for _ in range(cfg.n_layers))
         self.final_norm = nn.Parameter(torch.ones(cfg.d_model, dtype=pd, device=device))
-        self.lm_head = _linear(cfg.d_model, cfg.vocab_size, device, pd, quantized)
+        self.lm_head = _linear(cfg.d_model, V, device, pd, quantized)
         self.requires_grad_(False)  # serving only: no autograd graph on any forward
 
     @property
@@ -301,8 +406,54 @@ class Llama(nn.Module):
         return self.head(rms_norm(x, self.final_norm, self.cfg.norm_eps), plain)
 
     def head(self, h: torch.Tensor, plain: bool = False) -> torch.Tensor:
-        """lm_head over already-normalized hidden states, returned as f32."""
-        return matmul(h, self.lm_head.weight, plain=plain).float()
+        """lm_head over already-normalized hidden states, returned as f32
+        (under a mesh, every rank's vocabulary shard gathered in rank order)."""
+        return tp_all_gather(matmul(h, self.lm_head.weight, plain=plain), self.mesh).float()
+
+    def embed_tokens(self, tokens: torch.Tensor) -> torch.Tensor:
+        """The embedding rows of `tokens` in the compute dtype. Under a mesh
+        the rank holds vocabulary rows [r*V/tp, (r+1)*V/tp): it looks up the
+        tokens it holds, zeroes the rest and all-reduces, so exactly one
+        rank contributes each row."""
+        dtype = self.cfg.dtype
+        if self.mesh is None:
+            return embed_lookup(self.embed.weight, tokens, dtype)
+        n = self.cfg.vocab_size // self.mesh.tp
+        local = tokens.long() - self.mesh.tp_rank * n
+        held = (local >= 0) & (local < n)
+        x = embed_lookup(self.embed.weight, torch.where(held, local, 0), dtype)
+        return tp_all_reduce(x.masked_fill_(~held[..., None], 0), self.mesh)
+
+
+@torch.no_grad()
+def shard_params(model: Llama, mesh) -> Llama:
+    """Rank mesh.tp_rank's tp shard of a full `model` (shard_dim's split of
+    every tensor, JAX's NamedSharding shard of the same index): a `Llama`
+    built for `mesh`. Replicated tensors, and every tensor at tp = 1, are
+    the full model's own; a split one is a contiguous copy of its shard. A model already sharded for `mesh` is
+    returned as it is."""
+    if model.mesh is not None:
+        if model.mesh is mesh:
+            return model
+        raise ValueError("shard_params: the model is already sharded over another mesh")
+    out = Llama(model.cfg, "meta", model.quantized, mesh)
+    tp, r = mesh.tp, mesh.tp_rank
+    for name, t in itertools.chain(model.named_parameters(), model.named_buffers()):
+        dim = shard_dim(name, model.cfg.n_experts)
+        if dim is not None and tp > 1:
+            n = t.shape[dim] // tp
+            t = t.narrow(dim, r * n, n).clone(memory_format=torch.contiguous_format)
+        owner_name, _, leaf = name.rpartition(".")
+        owner = out.get_submodule(owner_name)
+        want = getattr(owner, leaf).shape
+        if t.shape != want:
+            raise ValueError(f"shard_params: {name} shard is {tuple(t.shape)}, "
+                             f"the sharded model expects {tuple(want)}")
+        if leaf in owner._parameters:
+            owner._parameters[leaf] = nn.Parameter(t, requires_grad=False)
+        else:
+            owner._buffers[leaf] = t
+    return out
 
 
 @torch.no_grad()
@@ -340,6 +491,23 @@ def init_params(cfg: LlamaConfig, generator: Optional[torch.Generator] = None,
     return model
 
 
+@torch.no_grad()
+def forward(params: Llama, tokens: torch.Tensor) -> torch.Tensor:
+    """The no-cache full-sequence forward (lws_tpu/models/llama.py:378,
+    inference only): tokens [B, S] -> logits [B, S, V] f32, causal attention
+    over the sequence in stock torch (JAX's is XLA's gqa_attention). JAX's
+    second result, the MoE aux loss, is a training term and is not
+    computed."""
+    cfg = params.cfg
+    B, S = tokens.shape
+    positions = torch.arange(S, device=tokens.device).expand(B, S)
+    rope_cs = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
+    x = params.embed_tokens(tokens)
+    for block in params.layers:
+        x = block(x, rope_cs, lambda q, k, v: reference_attention(q, k, v, causal=True))
+    return params.logits(x)
+
+
 # ---------------------------------------------------------------------------
 # Dense KV cache (the prefill cache, and the dense Engine's cache)
 
@@ -361,9 +529,11 @@ class KVCache:
         return self.k.shape[2]
 
 
-def init_cache(cfg: LlamaConfig, batch: int, max_len: int, device: DeviceLike = None) -> KVCache:
+def init_cache(cfg: LlamaConfig, batch: int, max_len: int, device: DeviceLike = None,
+               mesh=None) -> KVCache:
+    """An empty dense cache; under a mesh, on the rank's Hkv/tp heads."""
     device = resolve_device(device)
-    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads // tp_size(mesh), cfg.head_dim)
     if cfg.kv_quant:
         return KVCache(k=torch.zeros(shape, dtype=torch.int8, device=device),
                        v=torch.zeros(shape, dtype=torch.int8, device=device),
@@ -415,7 +585,7 @@ def forward_prefill(params: Llama, tokens: torch.Tensor, cache: KVCache,
     B, S = tokens.shape
     positions = torch.arange(S, device=tokens.device).expand(B, S)
     rope_cs = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
-    x = embed_lookup(params.embed.weight, tokens, cfg.dtype)
+    x = params.embed_tokens(tokens)
     attn_op = reference_attention if plain else attention
     for layer_idx, block in enumerate(params.layers):
 
@@ -469,7 +639,7 @@ def _forward_cached(params: Llama, tokens: torch.Tensor, cache: KVCache,
         index = (torch.arange(B, device=tokens.device)[:, None], positions.clamp(max=T - 1))
         kernel_pos = pos.clamp(max=T - 1)
     rope_cs = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
-    x = embed_lookup(params.embed.weight, tokens, cfg.dtype)
+    x = params.embed_tokens(tokens)
     decode_op = int8_decode_attention_reference if plain else int8_decode_attention
     for layer_idx, block in enumerate(params.layers):
 
@@ -563,9 +733,11 @@ class PagedKVCache:
 
 
 def init_paged_cache(cfg: LlamaConfig, num_blocks: int, block_size: int,
-                     device: DeviceLike = None) -> PagedKVCache:
+                     device: DeviceLike = None, mesh=None) -> PagedKVCache:
+    """An empty block pool; under a mesh, on the rank's Hkv/tp heads."""
     device = resolve_device(device)
-    shape = (cfg.n_layers, num_blocks, block_size, cfg.n_kv_heads, cfg.head_dim)
+    shape = (cfg.n_layers, num_blocks, block_size, cfg.n_kv_heads // tp_size(mesh),
+             cfg.head_dim)
     if cfg.kv_quant:
         return PagedKVCache(k=torch.zeros(shape, dtype=torch.int8, device=device),
                             v=torch.zeros(shape, dtype=torch.int8, device=device),
@@ -612,7 +784,7 @@ def forward_decode_paged(params: Llama, tokens: torch.Tensor, cache: PagedKVCach
     cfg = params.cfg
     bs = cache.block_size
     rope_cs = rope_tables(pos_b[:, None], cfg.head_dim, cfg.rope_theta)
-    x = embed_lookup(params.embed.weight, tokens[:, None], cfg.dtype)
+    x = params.embed_tokens(tokens[:, None])
     # pos < max_len keeps pos//bs inside the table; the clamp only keeps a
     # bad caller from reading past it.
     blk_idx = torch.clamp(pos_b.long() // bs, max=block_table.shape[1] - 1)
@@ -654,10 +826,10 @@ def forward_verify_paged(params: Llama, tokens: torch.Tensor, cache: PagedKVCach
     cfg = params.cfg
     B, S = tokens.shape
     bs = cache.block_size
-    hkv, hd = cfg.n_kv_heads, cfg.head_dim
+    hkv, hd = cache.k.shape[3], cfg.head_dim  # the rank's KV heads under a mesh
     positions = pos_b.long()[:, None] + torch.arange(S, device=tokens.device)[None, :]
     rope_cs = rope_tables(positions, hd, cfg.rope_theta)
-    x = embed_lookup(params.embed.weight, tokens, cfg.dtype)
+    x = params.embed_tokens(tokens)
     # Callers keep every live row below max_len (the engine's _spec_fits);
     # the clamp only keeps a released slot's stale position inside the table.
     blk_idx = torch.clamp(positions // bs, max=block_table.shape[1] - 1)

@@ -138,7 +138,11 @@ def quantize_params(model: nn.Module) -> nn.Module:
     built with `quantized=True`, whose product weights (each expert's, for
     MoE) and lm_head are quantized per output channel and whose embedding
     table per row; norms and the MoE router are copied as they are. The
-    input is untouched."""
+    input is untouched. A tensor-parallel shard is refused: a row-parallel
+    weight's scale spans every shard, so quantize the full model, then
+    shard it."""
+    if getattr(model, "mesh", None) is not None:
+        raise ValueError("quantize_params: quantize the full model, then shard it")
     out = type(model)(model.cfg, model.device, quantized=True)
     for name, dst in out.named_modules():
         if isinstance(dst, QuantizedWeight):

@@ -130,6 +130,20 @@ def build(names: Iterable[str]) -> dict[str, str]:
     return reports
 
 
+def build_on_rank_zero() -> dict[str, str]:
+    """Build for a group of ranks sharing this checkout: rank 0 of the
+    started torch.distributed group compiles every source in csrc/ while the
+    others wait at a barrier, then find the libraries by their hash. So one
+    nvcc runs per source, and only rank 0's compile ledger records the
+    compiles. Returns rank 0's build reports ({} on the other ranks)."""
+    import torch.distributed as dist
+
+    names = sorted(p.stem for p in CSRC_DIR.glob("*.cu"))
+    reports = build(names) if dist.get_rank() == 0 else {}
+    dist.barrier()
+    return reports
+
+
 def load(name: str, signatures: dict[str, list]) -> ctypes.CDLL:
     """The loaded library for `name`, built on first use, with `argtypes`
     set from `signatures` ({C function: [ctypes types]}); every function

@@ -1,5 +1,5 @@
-"""Sampling for the port's engines (lws_tpu/serving/engine.py:72-143) and the
-dense `Engine` (:162-886, without mesh/TP).
+"""Sampling for the port's engines (lws_tpu/serving/engine.py:72-143), the
+dense `Engine` (:162-886) and `shard_params_for_serving` (:34).
 
 JAX's threefry keys become `torch.Generator`s: one per request stream (one
 per Engine). The two frameworks draw different numbers from the same seed,
@@ -18,6 +18,15 @@ n-gram speculation with drafting, verification, acceptance and the cache
 rewind on the device: the verify pass appends at a device position, so the
 loop reads nothing back but each dispatch's packed tokens, and the host
 cache.pos is reconciled when the ring is flushed.
+
+With `mesh` (parallel.mesh.Mesh) the Engine serves tensor-parallel: every
+rank of the mesh runs it on the same host schedule (SPMD), holding its tp
+shard of the weights (shard_params_for_serving) and a cache on its Hkv/tp
+KV heads; the batch splits over the dp ranks (rank dp_rank takes rows
+[dp_rank*B/dp, (dp_rank+1)*B/dp)) and each step's tokens are gathered back
+over dp, so every rank returns the whole batch's tokens. The collectives
+are the model's (models/llama.py); `prefill_chunked_stream`, the
+disaggregated handoff's producer, is not ported for a mesh yet.
 
 Telemetry rides the JAX engine's seams with its names and labels: a
 `serve.request` span, an SLO timeline (first token after the prefill, one
@@ -51,10 +60,29 @@ from lws_tpu_torch.models.llama import (
     forward_with_cache,
     init_cache,
     ngram_draft,
+    shard_params,
     speculative_accept,
 )
 from lws_tpu_torch.serving.kv_transport import host_array
 from lws_tpu_torch.serving.pipeline import DecodePipeline
+
+
+def shard_params_for_serving(params: Llama, cfg: LlamaConfig, mesh) -> Llama:
+    """The rank's tensor-parallel shard of a full model for serving on
+    `mesh` (lws_tpu/serving/engine.py:34): every product, the embedding and
+    the lm_head split as param_shardings splits them, int8 scales with
+    their output channels (models/llama.py:shard_params). Every rank calls
+    it with the same full weights. A model already sharded for `mesh` is
+    returned as it is."""
+    if params.cfg != cfg:
+        raise ValueError("params were built for another LlamaConfig")
+    return shard_params(params, mesh)
+
+
+def check_mesh(cfg: LlamaConfig, mesh) -> None:
+    """The engines' refusal of a mesh whose tp does not divide the KV heads."""
+    if cfg.n_kv_heads % mesh.tp:
+        raise ValueError(f"n_kv_heads={cfg.n_kv_heads} not divisible by tp={mesh.tp}")
 
 
 @dataclass(frozen=True)
@@ -165,13 +193,18 @@ class Engine:
         max_len: int = 2048,
         sampling: SamplingParams = SamplingParams(),
         seed: int = 0,
+        mesh=None,
         pipeline_depth: Optional[int] = None,
         device: DeviceLike = None,
     ):
         """`device` defaults to CUDA (raising without a GPU); `params` must
         already live there. `pipeline_depth` bounds the decode chunks in
         flight in generate(): 2 on CUDA, 0 (synchronous) on the CPU by
-        default. One generator seeded from `seed` draws every sample."""
+        default. One generator seeded from `seed` draws every sample. With
+        `mesh`, `params` (full, or already sharded for it) are sharded for
+        the rank, the cache holds Hkv/tp heads and batch_size/dp rows, and
+        a mesh whose tp does not divide n_kv_heads, or whose dp does not
+        divide batch_size, is refused."""
         self.device = resolve_device(device)
         if params.device.type != self.device.type or (
             self.device.index is not None and params.device != self.device
@@ -179,6 +212,16 @@ class Engine:
             raise ValueError(f"params live on {params.device}, the engine on {self.device}")
         if params.cfg != cfg:
             raise ValueError("params were built for another LlamaConfig")
+        self.mesh = mesh
+        self._rows = slice(None)  # the batch rows this rank serves
+        self._local_batch = batch_size
+        if mesh is not None:
+            check_mesh(cfg, mesh)
+            if batch_size % mesh.dp:
+                raise ValueError(f"batch_size={batch_size} not divisible by dp={mesh.dp}")
+            params = shard_params_for_serving(params, cfg, mesh)
+            n = self._local_batch = batch_size // mesh.dp
+            self._rows = slice(mesh.dp_rank * n, (mesh.dp_rank + 1) * n)
         self.cfg = cfg
         self.params = params
         self.batch_size = batch_size
@@ -212,7 +255,17 @@ class Engine:
         return sample_logits(logits, self._gen, self.sampling)
 
     def new_cache(self) -> KVCache:
-        return init_cache(self.cfg, self.batch_size, self.max_len, self.device)
+        """An empty cache for the rank's rows (batch_size/dp) and KV heads."""
+        return init_cache(self.cfg, self._local_batch, self.max_len, self.device, self.mesh)
+
+    def _gather(self, tok: torch.Tensor) -> torch.Tensor:
+        """The whole batch's tokens [B] from the rank's rows: gathered over
+        the dp ranks in rank order (as they are, with dp = 1)."""
+        if self.mesh is None or self.mesh.dp == 1:
+            return tok
+        parts = [torch.empty_like(tok) for _ in range(self.mesh.dp)]
+        torch.distributed.all_gather(parts, tok.contiguous(), group=self.mesh.dp_group)
+        return torch.cat(parts)
 
     @torch.no_grad()
     def prefill(self, tokens) -> tuple[torch.Tensor, KVCache]:
@@ -220,8 +273,8 @@ class Engine:
         tokens = self._tokens(tokens)
         if tokens.shape[1] > self.max_len:
             raise ValueError(f"prompt of {tokens.shape[1]} tokens exceeds max_len {self.max_len}")
-        logits, cache = forward_prefill(self.params, tokens, self.new_cache())
-        return self._sample(logits), cache
+        logits, cache = forward_prefill(self.params, tokens[self._rows], self.new_cache())
+        return self._gather(self._sample(logits)), cache
 
     def _tokens(self, tokens) -> torch.Tensor:
         """A host array or tensor of token ids as int64 on the engine's device."""
@@ -246,7 +299,7 @@ class Engine:
         if S + pad > self.max_len:
             raise ValueError(f"padded prompt {S + pad} exceeds max_len {self.max_len}; "
                              f"use a chunk_size dividing max_len or a shorter prompt")
-        padded = F.pad(tokens, (0, pad))
+        padded = F.pad(tokens[self._rows], (0, pad))
         cache = self.new_cache()
         hidden = None
         with trace.span("serve.prefill", chunked=True, prompt_len=S,
@@ -254,7 +307,7 @@ class Engine:
             for i in range(0, S + pad, chunk_size):
                 hidden, cache = forward_prefill_chunk(self.params, padded[:, i:i + chunk_size],
                                                       cache)
-            token = self._sample(self.params.head(hidden[:, (S - 1) % chunk_size]))
+            token = self._gather(self._sample(self.params.head(hidden[:, (S - 1) % chunk_size])))
         cache.pos = S
         return token, cache
 
@@ -273,7 +326,12 @@ class Engine:
         not), and "tokens", the prompt's [B, lo:hi] slice: the shapes and
         bytes of JAX's arrays (lws_tpu/serving/engine.py:360). A chunk's
         rows are copied on the device before the next chunk runs. Returns (first token [B], the
-        cache at pos S, stats {"chunks", "gather_s"})."""
+        cache at pos S, stats {"chunks", "gather_s"}). Not under a mesh yet:
+        a rank holds only its KV heads, and the tensor-parallel handoff is
+        not ported."""
+        if self.mesh is not None:
+            raise NotImplementedError("prefill_chunked_stream under a mesh: the tensor-parallel "
+                                      "handoff is not ported yet")
         tokens_host = tokens.cpu().numpy() if isinstance(tokens, torch.Tensor) \
             else np.asarray(tokens)
         tokens = self._tokens(tokens)
@@ -317,8 +375,8 @@ class Engine:
         """tokens [B] -> (next token [B], cache), the cache written in place."""
         if cache.pos >= cache.max_len:
             raise ValueError(f"cache full at {cache.pos} tokens")
-        logits, cache = forward_with_cache(self.params, tokens[:, None], cache)
-        return self._sample(logits), cache
+        logits, cache = forward_with_cache(self.params, tokens[self._rows, None], cache)
+        return self._gather(self._sample(logits)), cache
 
     @torch.no_grad()
     def decode_n(self, tokens: torch.Tensor, cache: KVCache, n: int

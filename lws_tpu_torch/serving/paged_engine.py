@@ -50,9 +50,20 @@ The suffix, chunk and verify attention is stock torch, as JAX leaves it to
 XLA. A build or launch failure raises. There is no fallback path. With
 cfg.kv_quant the pool holds int8 K/V with per-(token, kv head) scales, and
 admission scatters the prefill cache's int8 values and scales into it
-unchanged. Left out: mesh/TP (`mesh`, with the multi-GPU slice), donation
-knobs (`donate_steps`: PyTorch updates the pool in place), the kernel probe
-and its fallback, and the /debug/prefixes advertisement.
+unchanged. Left out: donation knobs (`donate_steps`: PyTorch updates the
+pool in place), the kernel probe and its fallback, and the /debug/prefixes
+advertisement.
+
+With `mesh` (parallel.mesh.Mesh) the engine serves tensor-parallel, SPMD:
+every rank of the mesh runs it on the same host schedule (allocation,
+tables, positions and tokens are host state, identical on every rank, as
+the JAX engine's "host-side allocation state is identical on every shard"),
+holding its tp shard of the weights and pools on its Hkv/tp KV heads (int8
+scale pools too); pools replicate over dp. Every kernel call then sees the
+rank's local heads; the collectives are the model's. Unseeded sampling
+broadcasts rank 0's entropy, so every rank draws the same stream.
+The host-arena and remote prefix tiers are not ported for a mesh yet (they
+come with the tensor-parallel handoff) and raise.
 
 Telemetry rides the JAX engine's seams with its names and labels: each
 request's SLO timeline (queue wait at slot acquisition, first token at
@@ -99,7 +110,12 @@ from lws_tpu_torch.models.llama import (
 from lws_tpu_torch.models.quant import quantized_bytes
 from lws_tpu_torch.obs import device as devicemod
 from lws_tpu_torch.serving import kv_host_arena
-from lws_tpu_torch.serving.engine import Engine, sample_logits_per_slot
+from lws_tpu_torch.serving.engine import (
+    Engine,
+    check_mesh,
+    sample_logits_per_slot,
+    shard_params_for_serving,
+)
 from lws_tpu_torch.serving.kv_transport import host_array, to_tensor
 from lws_tpu_torch.serving.pipeline import DecodePipeline, remaining_steps
 
@@ -170,6 +186,7 @@ class PagedBatchEngine:
         max_len: int = 512,
         block_size: int = 16,
         num_blocks: Optional[int] = None,
+        mesh=None,
         prefix_cache: bool = False,
         prefill_chunk: Optional[int] = None,
         interleave_steps: int = 8,
@@ -189,9 +206,12 @@ class PagedBatchEngine:
         prefix_cache, `host_arena` (default: kv_host_arena.from_env(), None
         unless LWS_TPU_KV_HOST_ARENA_MB is set) receives evicted prefix
         blocks and `remote_prefix` (a kv_transport.RemotePrefixSource, or
-        set later by set_remote_prefix) fetches them from siblings. The JAX
-        engine's `mesh` comes with the multi-GPU slice; `donate_steps` has
-        no counterpart (the pool is updated in place)."""
+        set later by set_remote_prefix) fetches them from siblings. With
+        `mesh`, `params` (full, or already sharded for it) are sharded for
+        the rank and the pools hold its Hkv/tp heads; a mesh whose tp does
+        not divide n_kv_heads is refused, and so is a host arena or remote
+        tier beside a mesh (not ported yet). `donate_steps` has no
+        counterpart (the pool is updated in place)."""
         self.device = resolve_device(device)
         if params.device.type != self.device.type or (
             self.device.index is not None and params.device != self.device
@@ -199,6 +219,10 @@ class PagedBatchEngine:
             raise ValueError(f"params live on {params.device}, the engine on {self.device}")
         if params.cfg != cfg:
             raise ValueError("params were built for another LlamaConfig")
+        self.mesh = mesh
+        if mesh is not None:
+            check_mesh(cfg, mesh)
+            params = shard_params_for_serving(params, cfg, mesh)
         if max_len % block_size:
             raise ValueError("max_len must be a multiple of block_size")
         if prefill_chunk is not None and (
@@ -238,12 +262,15 @@ class PagedBatchEngine:
         if prefix_cache and host_arena is None:
             self._host_arena = kv_host_arena.from_env()
         self._remote_prefix = remote_prefix
+        if mesh is not None and (self._host_arena is not None or remote_prefix is not None):
+            raise NotImplementedError("the host-arena and remote prefix tiers under a mesh are "
+                                      "not ported yet (they come with the tensor-parallel handoff)")
         # A request mid-chunked-admission holds blocks but is not active yet:
         # pool_accounting counts its blocks live.
         self._admitting: Optional[PagedRequest] = None
 
         dev = self.device
-        self.cache = init_paged_cache(cfg, self.num_blocks, block_size, dev)
+        self.cache = init_paged_cache(cfg, self.num_blocks, block_size, dev, mesh)
         self.table = np.zeros((slots, self.max_blocks), np.int32)  # host truth
         self.pos_b = torch.zeros(slots, dtype=torch.int32, device=dev)
         self.tokens = torch.zeros(slots, dtype=torch.int32, device=dev)
@@ -358,6 +385,8 @@ class PagedBatchEngine:
     # ---- prefix caching -----------------------------------------------
     def set_remote_prefix(self, source) -> None:
         """Wire (or clear) the remote tier after construction."""
+        if self.mesh is not None and source is not None:
+            raise NotImplementedError("the remote prefix tier under a mesh is not ported yet")
         self._remote_prefix = source
 
     def _block_digests(self, prompt: np.ndarray, n: int) -> list[bytes]:
@@ -491,7 +520,7 @@ class PagedBatchEngine:
     def _prefill_one(self, prompt: torch.Tensor, last_pos: int):
         """Prefill one padded prompt [1, bucket] into a fresh dense cache;
         returns (last-token logits [1, V] f32, cache)."""
-        cache = init_cache(self.cfg, 1, prompt.shape[1], self.device)
+        cache = init_cache(self.cfg, 1, prompt.shape[1], self.device, self.mesh)
         return forward_prefill(self.params, prompt, cache, last_pos=last_pos)
 
     def _insert(self, slot_k, slot_v, block_ids, slot: int, plen: int, first,
@@ -511,6 +540,13 @@ class PagedBatchEngine:
         if seed is None:
             # Unseeded sampling must be nondeterministic: process entropy.
             seed = int.from_bytes(os.urandom(8), "little") >> 1
+            if self.mesh is not None:
+                # Every rank must draw the same stream for the slot: take
+                # rank 0's entropy (admissions run in one order on every
+                # rank, so the broadcasts pair up).
+                t = torch.tensor([seed], dtype=torch.int64, device=self.device)
+                torch.distributed.broadcast(t, src=0)
+                seed = int(t.item())
         return torch.Generator(device=self.device).manual_seed(int(seed))
 
     def _sample_first_token(self, logits, gen, req: PagedRequest):
@@ -791,7 +827,8 @@ class PagedBatchEngine:
                 # Wide enough for every chunk: when max_len caps the bucket
                 # below a power of two, n_chunks * C can exceed it. The
                 # scatter takes only the first bucket rows.
-                dense = init_cache(self.cfg, 1, max(bucket, n_chunks * C), self.device)
+                dense = init_cache(self.cfg, 1, max(bucket, n_chunks * C), self.device,
+                                   self.mesh)
             hidden = None
             with trace.span("serve.prefill", chunked=True, chunks=n_chunks, prompt_len=plen,
                             prefix_hit_tokens=hit_len), \

@@ -201,6 +201,20 @@ def test_int8_matmul_kernel_body_edges(dev, m, D, F):
     _assert_matches_plain(x, q, scale, got)
 
 
+@pytest.mark.parametrize("F", [32064, 16032])
+@pytest.mark.parametrize("m", [1, 8, 16, 40, 128, 256])
+def test_int8_matmul_vocab_shard_ragged_last_tile(dev, m, F):
+    """The lm_head's vocabulary shard under tensor parallelism: 128,256 / 4
+    = 32,064 rows (250.5 tiles of 128) and / 8 = 16,032 (250.5 tiles of
+    64), at the row counts the engines give the head."""
+    x, q, scale = _int8_case(dev, m, 4096, F, seed=m + F)
+    before = int8_matmul.launches
+    got = int8_matmul(x, q, scale)
+    torch.cuda.synchronize()
+    assert int8_matmul.launches == before + 1 and got.shape == (m, F)
+    _assert_matches_plain(x, q, scale, got)
+
+
 @pytest.mark.parametrize("m,D,F", [(8, 4096, 1024), (1, 14336, 4096), (128, 4096, 4096),
                                    (9, 1000, 300)])
 def test_int8_matmul_split_k_is_bitwise_repeatable(dev, m, D, F):
@@ -303,6 +317,25 @@ def test_paged_int8_kernel_matches_plain_scrambled(dev, H, Hkv):
         want = paged_decode_attention_int8_reference(*case, layer)
         torch.testing.assert_close(got.float(), want.float(), atol=TOL, rtol=TOL)
     assert paged_decode_attention_int8.launches == before + 3
+
+
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("H,Hkv", [(8, 2), (4, 1)])
+def test_paged_kernels_at_a_ranks_local_heads(dev, H, Hkv, quant):
+    """A rank's heads under tensor parallelism: the flagship's 32/8 heads at
+    tp = 4 (8/2) and tp = 8 (4/1), over a 32-layer pool of blocks of 16 at
+    the standard mix of positions up to 2047."""
+    MB = 128
+    pos = [0, 15, 16, 100, 517, 1000, 1500, 2047]
+    NB = sum(p // 16 + 1 for p in pos) + 1
+    fn, ref = ((paged_decode_attention_int8, paged_decode_attention_int8_reference) if quant
+               else (paged_decode_attention, paged_decode_attention_reference))
+    case = (_int8_paged_case(dev, len(pos), H, Hkv, 32, NB, MB, pos) if quant
+            else _paged_case(dev, len(pos), H, Hkv, 32, NB, 16, MB, pos))
+    for layer in (0, 31):
+        got = fn(*case, layer)
+        want = ref(*case, layer)
+        torch.testing.assert_close(got.float(), want.float(), atol=TOL, rtol=TOL)
 
 
 def test_paged_int8_kernel_null_and_stale_rows(dev):
