@@ -10,10 +10,14 @@ kernels to their plain PyTorch versions.
                                        # and NCCL's share of a tensor-parallel step
     python3 chip_smoke.py --tp-only --tp 4   # path 14 alone on 4 cards, against
                                        # single-card references it computes first
+    python3 chip_smoke.py --train-only # path 15 alone on one card
+    python3 chip_smoke.py --train-only --mesh 2,1,1,2 --mesh 1,2,1,2:4 ...
+                                       # path 15's config on several cards, one
+                                       # layout per --mesh DP,PP,CP,TP[:GPipe M]
 
 Phases (each raises on failure; the script then exits non-zero and prints
 no result line): 1-4 build and hold the kernels, 5-14 drive the engine
-paths.
+paths, 15 trains.
   1. the card (nvidia-smi name and power limit, CUDA version) and the build of
      every CUDA source in lws_tpu_torch/csrc/ for sm_90a, one nvcc per source,
      started together; the compile ledger (lws_tpu_torch/obs/device.py) must
@@ -135,6 +139,19 @@ paths.
      rank and engine, and the host and device time of one all-reduce of a
      decode step's [8, 4096] activation and of the lm_head's all-gather
      (--profile: NCCL's share of 16 TP decode steps).
+ 15. (last) training at benchmarks/train_bench.py's on-accelerator config
+     (vocab 32000, d_model 1536, 12 layers, 12 heads, 6 KV heads, d_ff 4096,
+     remat; f32 parameters, bf16 compute; AdamW at lr 3e-4; a fixed batch of
+     4 x 1024): bf16 against f32 compute, remat on against off, 8 steps
+     (initial loss near ln V + 1/2, learning, finite), a checkpoint saved after
+     step 2 and restored (bit for bit, the same step-3 loss), a one-rank
+     NCCL mesh against mesh=None, GPipe at pp = 1 and the ring at cp = 1
+     against the plain forward; it prints ms per step, tokens/s, MFU, peak
+     memory and remat's cost, and must launch none of the kernels (JAX
+     trains on XLA attention). --train-only --mesh runs the same config on
+     several cards (one rank per card, NCCL), each layout's ranks agreeing
+     and its step-0 loss near the single card's, with ms per step, tokens/s
+     per card and NCCL's share of a step.
 Every engine path is driven with all kernels' launch counts set to 0 just
 before it and read just after, and the counts are checked exactly. The
 port's telemetry is armed for paths 5-13 (tracing on, a fresh SLO recorder
@@ -2682,21 +2699,24 @@ def tp_profile(torch, engine, prompts, record: bool, steps: int = 16) -> Optiona
 
 def collective_cost(torch, mesh, dev, V: int, D: int, n: int = 200) -> dict:
     """Host and device time of the TP step's collectives at a decode step's
-    shapes, every rank in lockstep: the all-reduce of an [8, D] bf16
-    activation and the lm_head's all-gather of [8, V/tp], n calls each."""
-    from lws_tpu_torch.models.llama import tp_all_gather, tp_all_reduce
+    shapes, every rank in lockstep: the all-reduce (collectives.psum) of an
+    [8, D] bf16 activation and the lm_head's all-gather (collectives.
+    all_gather) of [8, V/tp], n calls each, under no_grad as the engines
+    call them."""
+    from lws_tpu_torch.parallel.collectives import all_gather, psum
 
     out = {}
     for name, x, fn in (("all_reduce", torch.zeros(SLOTS, D, dtype=torch.bfloat16, device=dev),
-                         tp_all_reduce),
+                         psum),
                         ("all_gather", torch.zeros(SLOTS, V // mesh.tp, dtype=torch.bfloat16,
-                                                   device=dev), tp_all_gather)):
-        for _ in range(10):
-            fn(x, mesh)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(n):
-            fn(x, mesh)
+                                                   device=dev), all_gather)):
+        with torch.no_grad():  # as the engines serve: no autograd node
+            for _ in range(10):
+                fn(x, mesh.tp_group)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(n):
+                fn(x, mesh.tp_group)
         t1 = time.perf_counter()
         torch.cuda.synchronize()
         out[name] = {"host_us": (t1 - t0) / n * 1e6,
@@ -2910,6 +2930,486 @@ def path_tp_group(torch, dev, world: int, models: dict, prompts, dense_prompt, r
     return counts
 
 
+# ---------------------------------------------------------------------------
+# Path 15: training (loss and backward, AdamW, checkpoints; the ring and
+# GPipe in their one-rank forms here, on several cards with --train-only).
+
+# benchmarks/train_bench.py's on-accelerator run: its config, batch x
+# sequence, steps and make_optimizer().
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 1024, 8
+TRAIN_TIMED = 3        # steps timed with remat off, for its cost
+TRAIN_SMALL = (2, 256)  # the degenerate layouts' batch x sequence, f32
+BF16_LOSS_RTOL = 2e-2  # bf16 compute against f32 compute, same weights
+REMAT_RTOL = 1e-5      # remat on against off: loss, and ||g - g'|| / ||g'||
+LAYOUT_RTOL = 1e-4     # degenerate GPipe / ring logits vs plain, of max |plain|, f32
+CKPT_RTOL = 1e-6       # step 3's loss after a restore (JAX's own check)
+# A one-rank NCCL mesh against mesh=None from the same weights: the
+# collectives are copies, so each gradient equals mesh=None's (||g - g'|| /
+# ||g'||) but the embedding's, which may differ by the order of f32 atomic
+# adds in its backward (index_put_ with accumulate on CUDA). After a step,
+# the parameters but the embedding stay within MESH_PARAM_ATOL (the clip's
+# scale moves with the embedding's norm); an embedding element may move by
+# 2 lr where that order flips the sign of a gradient near 0 (Adam's first
+# step is about lr sign(g)).
+MESH_GRAD_RTOL = 1e-6
+MESH_EMBED_GRAD_RTOL = 1e-5
+MESH_PARAM_ATOL = 1e-6
+MESH_EMBED_PARAM_ATOL = 2 * 3e-4 + 1e-6
+# A layout on several cards against the single card, steps 1-3 of the same
+# seed and batch: |l - l'| <= rtol |l'| + atol. Sound layouts differ only by
+# bf16 reduction order (step 2: 0.7050-0.7053 against 0.7051); a gradient
+# off by a sign, or a stage that does not learn, moves step 1's loss (4.93)
+# by far more than 1 %.
+LAYOUT_LOSS_RTOL, LAYOUT_LOSS_ATOL = 1e-2, 5e-3
+# The initial loss of JAX's init: the final norm leaves each row with mean
+# square 1 and lm_head's columns have variance 1/d, so the logits are about
+# N(0, 1) over the vocabulary and the expected loss is ln V + 1/2 (the log
+# of V E[e^z]), not ln V: a bound of 0.5 around ln V would sit on the edge.
+INIT_LOSS_TOL = 0.1
+
+
+def train_config(torch, **kw):
+    from lws_tpu_torch.models.llama import LlamaConfig
+
+    cfg = dict(vocab_size=32000, d_model=1536, n_layers=12, n_heads=12, n_kv_heads=6,
+               d_ff=4096, max_seq_len=2048, remat=True, dtype=torch.bfloat16,
+               param_dtype=torch.float32)
+    cfg.update(kw)
+    return LlamaConfig(**cfg)
+
+
+def train_tokens(torch, dev, cfg, B: int = TRAIN_BATCH, S: int = TRAIN_SEQ, seed: int = 0):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S + 1)).astype(np.int32)).to(dev)
+
+
+def with_cfg(model, **kw):
+    """The same parameters under a changed config (remat, compute dtype,
+    the GPipe or ring switch): a shallow copy of the module."""
+    import copy
+    import dataclasses
+
+    out = copy.copy(model)
+    out.cfg = dataclasses.replace(model.cfg, **kw)
+    return out
+
+
+def grad_rel(a: dict, b: dict) -> float:
+    return max(float((a[n].float() - b[n].float()).norm() / b[n].float().norm().clamp(min=1e-30))
+               for n in b)
+
+
+def all_finite(torch, tensors) -> bool:
+    return all(bool(torch.isfinite(t).all()) for t in tensors)
+
+
+def profile_train_steps(torch, run, params, state, tokens, steps: int = 2) -> tuple:
+    """torch.profiler over `steps` steady training steps: wall, device busy,
+    kernels a step, NCCL's device time, and the largest kernels by device
+    time. Returns (record, params, state)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            params, state, _, _ = run(params, state, {"tokens": tokens})
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy = nccl = 0.0
+    kernels = 0
+    top = []
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        busy += ev.self_device_time_total
+        kernels += ev.count
+        top.append((ev.self_device_time_total, ev.key, ev.count))
+        if "nccl" in ev.key.lower():
+            nccl += ev.self_device_time_total
+    top.sort(reverse=True)
+    rec = {"steps": steps, "wall_ms": wall * 1e3 / steps, "busy_ms": busy / 1e3 / steps,
+           "nccl_ms": nccl / 1e3 / steps, "kernels": kernels / steps,
+           "top": [(t / 1e3 / steps, k[:60], c // steps) for t, k, c in top[:8]]}
+    return rec, params, state
+
+
+def path_train(torch, dev, profile: bool = False) -> dict:
+    """Path 15 on one card, at benchmarks/train_bench.py's on-accelerator
+    config (train_config: 0.41 B parameters in f32, bf16 compute, remat)
+    with make_optimizer() (AdamW, lr 3e-4) on a fixed batch of 4 x 1024:
+    the bf16 loss within BF16_LOSS_RTOL of the f32-compute loss on the same
+    weights; remat on and off give the same loss and gradients (REMAT_RTOL);
+    8 steps: the first loss within INIT_LOSS_TOL of ln V + 1/2, the last
+    below it, every
+    gradient and parameter finite; ms per step, tokens/s, MFU against the
+    H100 SXM dense bf16 peak, peak memory and remat's cost (3 steps without
+    it); a checkpoint saved after step 2 restores bit for bit and its step-3
+    loss equals the run's (CKPT_RTOL); a one-rank NCCL mesh gives
+    mesh=None's gradients (MESH_GRAD_RTOL, the embedding's
+    MESH_EMBED_GRAD_RTOL) and, after a step, its parameters
+    (MESH_PARAM_ATOL, the embedding's MESH_EMBED_PARAM_ATOL); on that mesh, GPipe
+    at pp = 1 with 2 microbatches and the ring at cp = 1 give the plain f32
+    forward's logits (LAYOUT_RTOL). No kernel of the repo may launch: JAX
+    trains on XLA attention. Returns the launch counts (all 0)."""
+    import math
+    import shutil
+    import tempfile
+    import warnings
+
+    import torch.distributed as dist
+
+    from lws_tpu_torch.models.checkpoint import restore_checkpoint, save_checkpoint
+    from lws_tpu_torch.models.llama import init_params, loss_fn
+    from lws_tpu_torch.models.train import (
+        TrainState,
+        make_optimizer,
+        make_train_step,
+        value_and_grad,
+    )
+    from lws_tpu_torch.parallel import MeshSpec, build_mesh, initialize_from_env
+
+    t_path = time.perf_counter()
+    card = card_line()
+    reset_counts()
+    cfg = train_config(torch)
+    N = cfg.n_params()
+    # 6 N tokens counts the products: the embedding table is looked up.
+    N_mm = N - cfg.vocab_size * cfg.d_model
+    opt = make_optimizer()
+    gen = lambda: torch.Generator(device=dev).manual_seed(0)  # noqa: E731
+    model = init_params(cfg, gen(), dev)
+    tokens = train_tokens(torch, dev, cfg)
+
+    with torch.no_grad():
+        l16 = float(loss_fn(model, {"tokens": tokens})[0])
+        l32 = float(loss_fn(with_cfg(model, dtype=torch.float32), {"tokens": tokens})[0])
+    check(abs(l16 - l32) <= BF16_LOSS_RTOL * abs(l32),
+          f"training: bf16 loss {l16:.5f} vs f32 {l32:.5f}")
+    # Remat's cost on the forward and backward alone (the optimizer's
+    # temporaries would hide its memory in a whole step's peak): the
+    # second of two calls each, timed and its peak read.
+    fb = {}
+    for remat in (True, False):
+        for _ in range(2):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            t0 = time.perf_counter()
+            loss, _, grads = value_and_grad(with_cfg(model, remat=remat), tokens)
+            torch.cuda.synchronize()
+            fb[remat] = (float(loss), grads, time.perf_counter() - t0,
+                         torch.cuda.max_memory_allocated(dev))
+            del grads
+    (lr_on, g_on, fb_on_s, fb_on_peak), (lr_off, g_off, fb_off_s, fb_off_peak) = fb[True], fb[False]
+    del fb
+    remat_err = grad_rel(g_on, g_off)
+    check(abs(lr_on - lr_off) <= REMAT_RTOL * abs(lr_off) and remat_err <= REMAT_RTOL,
+          f"training: remat loss {lr_on} vs {lr_off}, grads {remat_err:.3e}")
+    check(all_finite(torch, g_on.values()), "training: a gradient is not finite")
+    del g_on, g_off
+    print(f"training: {N / 1e9:.3f} B parameters, batch {TRAIN_BATCH} x {TRAIN_SEQ}; loss bf16 "
+          f"{l16:.5f} vs f32 compute {l32:.5f} (rel {abs(l16 - l32) / l32:.2e}); remat on/off "
+          f"loss {lr_on:.6f}/{lr_off:.6f}, grads rel {remat_err:.2e}")
+
+    run = make_train_step(cfg, None, opt)
+    params, state = model, opt.init(model)
+    ckpt_dir = tempfile.mkdtemp(prefix="lws_train_ckpt_")
+    try:
+        losses, saved = [], None
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = None
+        for i in range(TRAIN_STEPS):
+            if i == 1:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            params, state, loss, _ = run(params, state, {"tokens": tokens})
+            losses.append(loss)
+            if i == 1:  # after step 2
+                torch.cuda.synchronize()
+                tc = time.perf_counter()
+                saved = {n: p.detach().to("cpu", copy=True) for n, p in params.named_parameters()}
+                ts = time.perf_counter()
+                save_checkpoint(ckpt_dir, TrainState(step=2, params=params, opt_state=state))
+                save_s = time.perf_counter() - ts
+                t0 += time.perf_counter() - tc  # the copy and the save are not a step
+        torch.cuda.synchronize()
+        step_s = (time.perf_counter() - t0) / (TRAIN_STEPS - 1)
+        peak_on = torch.cuda.max_memory_allocated(dev)
+        losses = [float(x) for x in losses]
+        expect = math.log(cfg.vocab_size) + 0.5
+        check(abs(losses[0] - expect) <= INIT_LOSS_TOL,
+              f"training: initial loss {losses[0]:.4f}, ln V + 1/2 = {expect:.4f}")
+        check(losses[-1] < losses[0], f"training: no learning on a fixed batch: {losses}")
+        check(all_finite(torch, params.parameters())
+              and all_finite(torch, state["mu"].values()) and all_finite(torch, state["nu"].values()),
+              "training: a parameter or moment is not finite")
+
+        tc = time.perf_counter()
+        back = restore_checkpoint(ckpt_dir, cfg, None, opt, device=dev)
+        restore_s = time.perf_counter() - tc
+        check(back.step == 2 and int(back.opt_state["count"]) == 2,
+              f"checkpoint: step {back.step}, count {int(back.opt_state['count'])}")
+        for n, p in back.params.named_parameters():
+            check(torch.equal(p.cpu(), saved[n]), f"checkpoint: {n} differs after the restore")
+        _, _, l3, _ = run(back.params, back.opt_state, {"tokens": tokens})
+        check(abs(float(l3) - losses[2]) <= CKPT_RTOL * abs(losses[2]),
+              f"checkpoint: step 3 loss {float(l3)} after the restore, {losses[2]} without")
+        del back, saved
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+
+    if profile:
+        prof, params, state = profile_train_steps(torch, run, params, state, tokens)
+        busy = prof["busy_ms"]
+        print(f"profile training ({card}): {prof['wall_ms']:.1f} ms of wall a step, device busy "
+              f"{busy:.1f} ms ({busy / prof['wall_ms']:.1%}), {prof['kernels']:.0f} kernels a "
+              f"step; largest: " + "; ".join(f"{k} {t:.2f} ms x{c}" for t, k, c in prof["top"]))
+    off = with_cfg(params, remat=False)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_TIMED):
+        off, state, loss, _ = run(off, state, {"tokens": tokens})
+    torch.cuda.synchronize()
+    off_s = (time.perf_counter() - t0) / TRAIN_TIMED
+    del model, params, off, state
+    torch.cuda.empty_cache()
+    tok_s = TRAIN_BATCH * TRAIN_SEQ / step_s
+    mfu = 6 * N_mm * TRAIN_BATCH * TRAIN_SEQ / step_s / H100_BF16_FLOPS
+    print(f"training ({card}): losses " + ", ".join(f"{x:.4f}" for x in losses)
+          + f" (ln V = {math.log(cfg.vocab_size):.4f}, ln V + 1/2 = {expect:.4f})")
+    print(f"training ({card}): {step_s * 1e3:.1f} ms/step with remat (steps 2-{TRAIN_STEPS}), "
+          f"{tok_s:.0f} tokens/s, MFU {mfu:.1%} (6 N tokens / step time / 989 TFLOP/s, the "
+          f"H100 SXM dense bf16 peak of NVIDIA's data sheet; N = {N_mm / 1e6:.1f} M, the "
+          f"{N / 1e6:.1f} M parameters less the embedding table), peak memory {peak_on / 1e9:.2f} GB "
+          f"(the AdamW step's temporaries included); without remat {off_s * 1e3:.1f} ms/step: "
+          f"remat costs {step_s / off_s - 1:.1%} of a step")
+    print(f"training ({card}): forward and backward alone, remat on / off: "
+          f"{fb_on_s * 1e3:.1f} / {fb_off_s * 1e3:.1f} ms, peak {fb_on_peak / 1e9:.2f} / "
+          f"{fb_off_peak / 1e9:.2f} GB: remat costs {fb_on_s / fb_off_s - 1:.1%} of it and saves "
+          f"{(fb_off_peak - fb_on_peak) / 1e9:.2f} GB of activations")
+    print(f"checkpoint: {3 * 4 * N / 1e9:.2f} GB saved in {save_s:.1f} s, restored in "
+          f"{restore_s:.1f} s, bit for bit; step 3 loss {float(l3):.6f} vs {losses[2]:.6f}")
+
+    # A one-rank NCCL mesh, and the degenerate layouts on it.
+    initialize_from_env(env={}, device=dev, group_of_one=True, timeout_s=TP_TIMEOUT_S)
+    try:
+        mesh = build_mesh(MeshSpec())
+        got = []
+        for m in (None, mesh):
+            p = init_params(cfg, gen(), dev, mesh=m)
+            _, _, grads = value_and_grad(p, tokens, mesh=m)
+            p, _, loss, _ = make_train_step(cfg, m, opt)(p, opt.init(p), {"tokens": tokens})
+            got.append((float(loss), grads, p))
+        (l_none, g_none, model_none), (l_mesh, g_mesh, meshed) = got
+        p_none, p_mesh = dict(model_none.named_parameters()), dict(meshed.named_parameters())
+        embed = "embed.weight"
+        g_err = {n: grad_rel({n: g_mesh[n]}, {n: g_none[n]}) for n in g_none}
+        g_worst = max(v for n, v in g_err.items() if n != embed)
+        check(sorted(g_mesh) == sorted(g_none) and g_worst <= MESH_GRAD_RTOL
+              and g_err[embed] <= MESH_EMBED_GRAD_RTOL,
+              f"one-rank mesh: gradients rel {g_worst:.3e}, the embedding's {g_err[embed]:.3e}")
+        p_err = {n: float((p_mesh[n] - p_none[n]).detach().abs().max()) for n in p_none}
+        worst = max(v for n, v in p_err.items() if n != embed)
+        check(l_mesh == l_none and worst <= MESH_PARAM_ATOL
+              and p_err[embed] <= MESH_EMBED_PARAM_ATOL,
+              f"one-rank mesh: loss {l_mesh} vs {l_none}, params differ by {worst:.3e}, "
+              f"the embedding by {p_err[embed]:.3e}")
+        del got, g_none, g_mesh, model_none, p_none, p_mesh
+        torch.cuda.empty_cache()
+        small = train_tokens(torch, dev, cfg, *TRAIN_SMALL)[:, :-1]
+        with torch.no_grad(), warnings.catch_warnings():
+            warnings.simplefilter("ignore")  # the ring over one rank says so
+            from lws_tpu_torch.models.llama import forward
+
+            plain, plain_aux = forward(with_cfg(meshed, dtype=torch.float32), small)
+            errs = {}
+            for what, kw in (("gpipe pp=1 M=2", {"pipeline_microbatches": 2}),
+                             ("ring cp=1", {"context_parallel": True})):
+                logits, aux = forward(with_cfg(meshed, dtype=torch.float32, **kw), small)
+                errs[what] = float((logits - plain).abs().max() / plain.abs().max())
+                check(errs[what] <= LAYOUT_RTOL and float(aux) == float(plain_aux),
+                      f"{what}: logits rel {errs[what]:.3e} vs the plain forward")
+        del meshed
+        torch.cuda.empty_cache()
+        print(f"one-rank NCCL mesh: gradients within {g_worst:.2e} of mesh=None's (the "
+              f"embedding's {g_err[embed]:.2e}), step loss equal, parameters within {worst:.2e} "
+              f"(the embedding's {p_err[embed]:.2e}); degenerate layouts vs the plain f32 forward: "
+              + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()))
+    finally:
+        dist.destroy_process_group()
+    counts = read_counts()
+    check_launches("training", counts, {})
+    print(f"training: path wall time {time.perf_counter() - t_path:.1f} s")
+    return counts
+
+
+def parse_mesh(text: str) -> tuple:
+    """--mesh DP,PP,CP,TP[:M]: the mesh, and GPipe's microbatches (0: the
+    weight-gathered stack). cp > 1 runs the ring."""
+    shape, _, m = text.partition(":")
+    dims = [int(x) for x in shape.split(",")]
+    check(len(dims) == 4 and all(d >= 1 for d in dims), f"--mesh {text}: want DP,PP,CP,TP[:M]")
+    return tuple(dims), int(m or 0)
+
+
+def mesh_label(dims, m: int) -> str:
+    dp, pp, cp, tp = dims
+    parts = [f"{a} {n}" for a, n in (("dp", dp), ("pp", pp), ("cp", cp), ("tp", tp)) if n > 1]
+    how = f"GPipe M={m}" if m else ("weight-gathered" if pp > 1 else "")
+    return "(" + ", ".join(parts or ["one rank"]) + ")" + (f" {how}" if how else "")
+
+
+def train_layout_run(torch, dev, mesh, m: int, steps: int = 4) -> dict:
+    """One layout on every rank: the seed-0 weights as this rank's shards,
+    `steps` steps on train_tokens (the first's loss is step 0's), the later
+    ones timed, then one step under torch.profiler for NCCL's share."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from lws_tpu_torch.models.llama import init_params
+    from lws_tpu_torch.models.train import make_optimizer, make_train_step
+
+    cfg = train_config(torch, context_parallel=mesh.cp > 1, pipeline_microbatches=m)
+    opt = make_optimizer()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev, mesh=mesh)
+    state = opt.init(params)
+    run = make_train_step(cfg, mesh, opt)
+    tokens = train_tokens(torch, dev, cfg)
+    losses = []
+    torch.cuda.reset_peak_memory_stats(dev)
+    for i in range(steps):
+        if i == 1:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        params, state, loss, _ = run(params, state, {"tokens": tokens})
+        losses.append(loss)
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / (steps - 1)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        params, state, loss, _ = run(params, state, {"tokens": tokens})
+        torch.cuda.synchronize()
+    busy = nccl = 0.0
+    for ev in prof.key_averages():
+        if ev.device_type == DeviceType.CUDA:
+            busy += ev.self_device_time_total
+            if "nccl" in ev.key.lower():
+                nccl += ev.self_device_time_total
+    out = {"losses": [float(x) for x in losses], "step_ms": step_s * 1e3,
+           "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+           "busy_ms": busy / 1e3, "nccl_ms": nccl / 1e3}
+    del params, state
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_member(rank: int, layouts, out_dir: str) -> None:
+    """A spawned rank of --train-only --mesh: bootstraps from the env contract
+    in os.environ (NCCL, its own card), then runs every layout in order."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from lws_tpu_torch.parallel import MeshSpec, build_mesh, initialize_from_env, local_device
+    from lws_tpu_torch.parallel.bootstrap import bootstrap_info_from_env
+
+    env = dict(os.environ)
+    dev = local_device(bootstrap_info_from_env(env))
+    initialize_from_env(env=env, device=dev, timeout_s=TP_TIMEOUT_S)
+    recs = []
+    for dims, m in layouts:
+        dp, pp, cp, tp = dims
+        mesh = build_mesh(MeshSpec(dp=dp, pp=pp, cp=cp, tp=tp))
+        recs.append(train_layout_run(torch, dev, mesh, m))
+    with open(os.path.join(out_dir, f"{rank}.json"), "w") as f:
+        json.dump(recs, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def path_train_meshes(torch, dev, layouts) -> None:
+    """--train-only --mesh ...: train_config on several cards, one rank per
+    card, every layout in one group of max(dp pp cp tp) ranks: every rank's
+    losses agree, the step-0 loss is within BF16_LOSS_RTOL of the single
+    card's and steps 1-3 within LAYOUT_LOSS_RTOL/ATOL of its (computed here
+    first from the same seed, with the single card's ms per step in this
+    call), and each layout prints ms per step, tokens/s
+    per card against the single card's, peak memory and NCCL's share of a
+    step's device time (torch.profiler)."""
+    import tempfile
+
+    from lws_tpu_torch.models.llama import init_params, loss_fn
+    from lws_tpu_torch.models.train import make_optimizer, make_train_step
+    from lws_tpu_torch.parallel import launch
+
+    card = card_line()
+    world = int(np.prod(layouts[0][0]))
+    check(all(int(np.prod(d)) == world for d, _ in layouts) and world <= torch.cuda.device_count(),
+          f"--mesh: every layout must use the same {world} of "
+          f"{torch.cuda.device_count()} cards")
+    cfg = train_config(torch)
+    model = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    tokens = train_tokens(torch, dev, cfg)
+    with torch.no_grad():
+        ref = float(loss_fn(model, {"tokens": tokens})[0])
+    opt = make_optimizer()
+    run, state = make_train_step(cfg, None, opt), opt.init(model)
+    ref_losses = []
+    for i in range(4):  # train_layout_run's steps
+        if i == 1:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        model, state, loss, _ = run(model, state, {"tokens": tokens})
+        ref_losses.append(loss)
+    torch.cuda.synchronize()
+    ref_tok_s = TRAIN_BATCH * TRAIN_SEQ / ((time.perf_counter() - t0) / 3)
+    ref_losses = [float(x) for x in ref_losses]
+    print(f"training on one card ({card}): step-0 loss {ref:.5f}, losses "
+          + ", ".join(f"{x:.5f}" for x in ref_losses) + f", {ref_tok_s:.0f} tokens/s")
+    del model, state
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as out_dir:
+        ctx, _ = launch.spawn_group(train_member, world, args=(layouts, out_dir))
+        try:
+            launch.join(ctx, timeout_s=1200)
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+        recs = []
+        for r in range(world):
+            with open(os.path.join(out_dir, f"{r}.json")) as f:
+                recs.append(json.load(f))
+    for i, (dims, m) in enumerate(layouts):
+        per = [rec[i] for rec in recs]
+        l0 = per[0]["losses"][0]
+        for r, p in enumerate(per):
+            check(all(abs(a - b) <= 1e-6 * abs(b) for a, b in zip(p["losses"], per[0]["losses"])),
+                  f"{mesh_label(dims, m)}: rank {r} losses {p['losses']} vs rank 0's")
+        check(abs(l0 - ref) <= BF16_LOSS_RTOL * abs(ref),
+              f"{mesh_label(dims, m)}: step-0 loss {l0} vs the single card's {ref}")
+        later = list(zip(per[0]["losses"][1:], ref_losses[1:]))
+        check(len(later) == 3 and all(abs(a - b) <= LAYOUT_LOSS_RTOL * abs(b) + LAYOUT_LOSS_ATOL
+                                      for a, b in later),
+              f"{mesh_label(dims, m)}: losses {per[0]['losses']} vs the single card's "
+              f"{ref_losses}")
+        rel = ", ".join(f"{abs(a - b) / abs(b):.1e}" for a, b in later)
+        step_ms = max(p["step_ms"] for p in per)
+        per_card = TRAIN_BATCH * TRAIN_SEQ / (step_ms / 1e3) / world
+        shares = [p["nccl_ms"] / p["busy_ms"] for p in per if p["busy_ms"] > 0]
+        nccl = (f"{min(shares):.1%}-{max(shares):.1%} over the ranks; NCCL kernels also wait "
+                f"for their peers" if len(shares) == len(per)
+                else "not measured: the profiler recorded no device time")
+        print(f"training {mesh_label(dims, m)} on {world} cards ({card}): step-0 loss {l0:.5f} "
+              f"(single card {ref:.5f}), losses " + ", ".join(f"{x:.5f}" for x in per[0]["losses"])
+              + f" (steps 1-3 rel {rel} of the single card's); {step_ms:.1f} ms/step, {per_card:.0f} tokens/s per card "
+              f"({per_card / ref_tok_s:.3f}x one card's), peak "
+              f"{max(p['peak_gb'] for p in per):.2f} GB; NCCL "
+              f"{per[0]['nccl_ms']:.1f} ms of {per[0]['busy_ms']:.1f} ms device time in a profiled "
+              f"step on rank 0 ({nccl})")
+
+
 def check_compile_ledger(sources, reports) -> dict:
     """The compile ledger holds exactly one `first` record per source the
     build compiled (every source when _build/ was cold, none when warm) and
@@ -2936,12 +3436,18 @@ def main(argv=None) -> int:
     ap.add_argument("--profile", action="store_true",
                     help="profile steady decode steps of both paged engines and the MoE "
                          "engine, and steady verify passes (torch.profiler); on path 14, "
-                         "NCCL's share of a TP decode step")
+                         "NCCL's share of a TP decode step; on path 15, two training steps")
     ap.add_argument("--tp", type=int, default=0,
                     help="path 14's group size, one rank per card (default: every visible card)")
     ap.add_argument("--tp-only", action="store_true",
                     help="build, then path 14 alone, against single-card references of its "
                          "own (the multi-card run; no kernels line)")
+    ap.add_argument("--train-only", action="store_true",
+                    help="path 15 alone (no build, no kernels line); with --mesh, its config "
+                         "on several cards")
+    ap.add_argument("--mesh", action="append", default=[], metavar="DP,PP,CP,TP[:M]",
+                    help="with --train-only: a layout to train (repeatable); M > 0 runs GPipe "
+                         "with M microbatches, cp > 1 the ring")
     args = ap.parse_args(argv)
 
     import torch
@@ -2965,6 +3471,17 @@ def main(argv=None) -> int:
     print(f"card: {card}")
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
+    if args.train_only:
+        if args.mesh:
+            path_train_meshes(torch, dev, [parse_mesh(m) for m in args.mesh])
+        else:
+            path_train(torch, dev, args.profile)
+        print(f"chip_smoke: path 15 passed in {time.perf_counter() - t_start:.1f} s")
+        print(f"card: {card}")
+        print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                                 "kind": torch.cuda.get_device_name(0),
+                                                 "count": torch.cuda.device_count()}}))
+        return 0
     t0 = time.perf_counter()
     sources = sorted(p.stem for p in _ext.CSRC_DIR.glob("*.cu"))
     reports = _ext.build(sources)
@@ -3068,6 +3585,8 @@ def main(argv=None) -> int:
     by_path["int8 MoE engines"], kernels["int8_matmul"]["moe_expert_rows"] = path_int8_moe(
         torch, dev, profile=args.profile)
     watch.end("int8 MoE engines")
+    torch.cuda.empty_cache()
+    by_path["training"] = path_train(torch, dev, args.profile)
     check(ledger == check_compile_ledger(sources, reports),
           "compile ledger: a kernel compiled on an engine path")
     rows = []

@@ -45,10 +45,7 @@ from lws_tpu_torch.models.quant import QuantizedArray
 
 def config_from_jax(jcfg) -> LlamaConfig:
     """The port's LlamaConfig for a lws_tpu LlamaConfig (read by attribute;
-    dtypes by numpy name). Raises on a feature the port does not have yet."""
-    for feature in ("context_parallel", "pipeline_microbatches"):
-        if getattr(jcfg, feature, None):
-            raise ValueError(f"config_from_jax: {feature} is not ported yet")
+    dtypes by numpy name)."""
     kw = {f.name: getattr(jcfg, f.name) for f in dataclasses.fields(LlamaConfig)
           if f.name not in ("dtype", "param_dtype")}
     return LlamaConfig(**kw, dtype=getattr(torch, np.dtype(jcfg.dtype).name),

@@ -45,6 +45,7 @@ def flagship_config(scale: str = "full", *, kv_quant: bool = False,
             max_seq_len=max_seq_len,
             dtype=torch.bfloat16,
             param_dtype=torch.bfloat16,
+            remat=False,
             kv_quant=kv_quant,
         )
     if scale == "smoke":
@@ -58,6 +59,7 @@ def flagship_config(scale: str = "full", *, kv_quant: bool = False,
             max_seq_len=min(max_seq_len, 256),
             dtype=torch.float32,
             param_dtype=torch.float32,
+            remat=False,
             kv_quant=kv_quant,
         )
     raise ValueError(f"unknown flagship scale {scale!r}")

@@ -1,5 +1,6 @@
-"""Llama-class decoder, serving subset: the port of lws_tpu/models/llama.py
-that the paged continuous-batching path and the dense Engine run.
+"""Llama-class decoder: the port of lws_tpu/models/llama.py, its serving
+forwards (the paged continuous-batching path and the dense Engine) and its
+training forward (`forward`, `loss_fn`).
 
 Parameters live in `nn.Module`s (`Llama` holding one `LlamaBlock` per
 layer, weights in nn.Linear's [out, in] layout, or int8 `QuantizedWeight`s
@@ -50,11 +51,30 @@ into a rank's shard (a quantized weight's scale splits with its output
 channels and stays whole when its input channels split). The collectives
 are stock torch.distributed (NCCL on the card, gloo on the CPU).
 
-`forward` is the no-cache full-sequence forward (lws_tpu/models/llama.py:378),
-for inference: its attention is stock torch, as JAX's is XLA's.
-
-Left out here (lws_tpu/models/llama.py names): ring/context parallel,
-pipeline parallel, loss_fn (and the MoE aux loss, a training term), remat.
+Training (lws_tpu/models/llama.py:378-438): `forward` is the no-cache
+full-sequence forward with autograd, returning JAX's pair (logits f32, MoE
+aux loss / n_layers), and `loss_fn` the causal LM loss over it. Attention is
+`gqa_attention` (plain torch, JAX's XLA gqa_attention), or with
+cfg.context_parallel the ring over the mesh's cp group (ops/ring.py);
+cfg.remat recomputes each block in the backward
+(torch.utils.checkpoint, JAX's jax.checkpoint of _block). Under a mesh the
+collectives are parallel/collectives.py's autograd functions: `copy_to` at
+the column-parallel inputs (wq/wk/wv, the FFN, a rank's experts, the
+lm_head) and `psum` after wo, the FFN and the masked embedding (Megatron's
+pair), the lm_head's `all_gather`. So every rank's gradient of a parameter
+it holds is the whole gradient of what its data contributes: tp-replicated
+parameters (norms, the router) need no further sum over tp. With
+pp > 1 a `Llama` holds the L/pp layers of its stage (JAX's P("pp") layer
+shard): `forward` gathers the stack from every stage (the weight-gathered
+path, lws_tpu/models/pipeline.py:1-4), or with cfg.pipeline_microbatches
+runs GPipe (models/pipeline.py). With cfg.context_parallel rank r holds
+tokens [r * S/cp, (r + 1) * S/cp) of every row: RoPE positions start at r *
+S/cp, and the MoE routes over the gathered sequence (JAX's _moe_ffn sees
+the whole sequence: capacity and the expert queues are the sequence's). The
+aux loss is computed over the global batch (token counts summed over dp),
+each rank's share from its own tokens. JAX's _seq_shard (sequence
+parallelism between blocks) has no counterpart: it is a GSPMD layout hint
+that changes no number; sharding activations over tp is a later item.
 """
 
 from __future__ import annotations
@@ -71,6 +91,7 @@ from torch import nn
 from lws_tpu_torch._device import DeviceLike, resolve_device
 from lws_tpu_torch.models.quant import QuantizedWeight, embed_lookup, expert_einsum, matmul
 from lws_tpu_torch.ops.attention import attention, reference_attention
+from lws_tpu_torch.parallel.collectives import all_gather, all_gather_partial, copy_to, psum
 from lws_tpu_torch.ops.int8_attention import (
     int8_decode_attention,
     int8_decode_attention_reference,
@@ -92,7 +113,9 @@ __all__ = [
     "PagedKVCache", "init_paged_cache", "paged_insert", "forward_decode_paged",
     "forward_verify_paged", "ngram_draft", "speculative_accept", "_cached_attention",
     "_quantize_kv", "_dequantize_kv", "LAYER_PRODUCTS", "LAYER_NORMS", "forward",
-    "shard_params", "shard_dim", "tp_size", "tp_all_reduce", "tp_all_gather",
+    "shard_params", "shard_dim", "tp_size",
+    "gqa_attention", "loss_fn", "moe_route", "moe_aux", "local_param_name",
+    "global_param_name", "tp_shard",
 ]
 
 LAYER_PRODUCTS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
@@ -121,6 +144,13 @@ class LlamaConfig:
     n_experts: int = 0
     top_k: int = 2
     capacity_factor: float = 2.0
+    aux_loss_coef: float = 0.01
+    # Training: recompute each block in the backward (activation memory).
+    remat: bool = True
+    # Long context: exact ring attention over the mesh's cp group.
+    context_parallel: bool = False
+    # Training: GPipe microbatches over pp (0 = the weight-gathered stack).
+    pipeline_microbatches: int = 0
     # Serving: store the KV cache as int8 with per-(token, kv head) f32 scales.
     kv_quant: bool = False
 
@@ -141,30 +171,8 @@ class LlamaConfig:
 # Tensor parallelism
 
 
-# all_gather_into_tensor was renamed all_gather_single (torch 2.13).
-_all_gather_single = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
-
-
 def tp_size(mesh) -> int:
     return 1 if mesh is None else mesh.tp
-
-
-def tp_all_reduce(x: torch.Tensor, mesh) -> torch.Tensor:
-    """Sum x over the mesh's tp group, in place (no mesh: x as it is). A
-    one-rank group still runs its collective."""
-    if mesh is not None:
-        dist.all_reduce(x, group=mesh.tp_group)
-    return x
-
-
-def tp_all_gather(x: torch.Tensor, mesh) -> torch.Tensor:
-    """Concatenate every tp rank's x along its last dim, in rank order (one
-    collective into one buffer)."""
-    if mesh is None:
-        return x
-    out = x.new_empty((mesh.tp * x.shape[0], *x.shape[1:]))
-    _all_gather_single(out, x.contiguous(), group=mesh.tp_group)
-    return out.reshape(mesh.tp, *x.shape).movedim(0, -2).reshape(*x.shape[:-1], -1)
 
 
 def shard_dim(name: str, n_experts: int = 0) -> Optional[int]:
@@ -187,6 +195,38 @@ def shard_dim(name: str, n_experts: int = 0) -> Optional[int]:
     if owner in ROW_PARALLEL:
         return None if leaf == "scale" else 1
     return None
+
+
+def tp_shard(name: str, t: torch.Tensor, mesh, n_experts: int = 0) -> torch.Tensor:
+    """The rank's tp slice of the full tensor `t` of parameter or buffer
+    `name` (a view; `t` itself when it is replicated or tp = 1)."""
+    dim = shard_dim(name, n_experts)
+    if dim is None or mesh is None or mesh.tp == 1:
+        return t
+    n = t.shape[dim] // mesh.tp
+    return t.narrow(dim, mesh.tp_rank * n, n)
+
+
+def local_param_name(name: str, n_layers: int, mesh) -> Optional[str]:
+    """The name a rank's `Llama` gives the full model's tensor `name`, or
+    None when the rank does not hold it: with pp > 1, stage s holds layers
+    [s * L/pp, (s + 1) * L/pp) as its layers 0..L/pp-1 (JAX's P("pp")
+    shard of the stacked layer axis)."""
+    if mesh is None or mesh.pp == 1 or not name.startswith("layers."):
+        return name
+    _, idx, rest = name.split(".", 2)
+    per = n_layers // mesh.pp
+    stage, j = divmod(int(idx), per)
+    return f"layers.{j}.{rest}" if stage == mesh.pp_rank else None
+
+
+def global_param_name(name: str, n_layers: int, mesh) -> str:
+    """The full model's name of a rank's tensor `name` (local_param_name's
+    inverse)."""
+    if mesh is None or mesh.pp == 1 or not name.startswith("layers."):
+        return name
+    _, idx, rest = name.split(".", 2)
+    return f"layers.{mesh.pp_rank * (n_layers // mesh.pp) + int(idx)}.{rest}"
 
 
 # ---------------------------------------------------------------------------
@@ -250,21 +290,15 @@ def moe_capacity(capacity_factor: float, S: int, top_k: int, n_experts: int) -> 
     return max(1, int(capacity_factor * S * top_k / n_experts))
 
 
-def moe_ffn(x: torch.Tensor, router: torch.Tensor, w_gate, w_up, w_down, top_k: int,
-            capacity_factor: float, plain: bool = False, expert_offset: int = 0) -> torch.Tensor:
-    """GShard top-k MoE with static-shape dense dispatch/combine
-    (lws_tpu/models/llama.py:_moe_ffn, without the aux loss): x [B, S, D],
-    router [E, D], expert weights [E, out, in] plain or quantized. Each
-    token's top-k experts are picked in order (argmax, first index on ties),
-    kept while the expert's running count in its batch row is below the
-    capacity C, and combined with their router probabilities renormalized
-    over the kept ones. Every expert computes its [B, C] slots, filled or
-    not. Returns [B, S, D] in x's dtype.
-
-    Expert parallelism: the weights may hold only experts [expert_offset,
-    expert_offset + E_local) of the router's E; routing and capacity are
-    still computed over all E, and the result is those experts' share of
-    the combined output (the caller sums the shares over the tp group)."""
+def moe_route(x: torch.Tensor, router: torch.Tensor, top_k: int, capacity_factor: float
+              ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The GShard routing of lws_tpu/models/llama.py:_moe_ffn over x [B, S,
+    D] and router [E, D]: returns (probs [B, S, E] f32, dispatch [B, S, E,
+    C] in x's dtype, gates [B, S, E] f32: each kept expert's router
+    probability renormalized over the token's kept experts). Each token's
+    top-k experts are picked in order (argmax, first index on ties) and kept
+    while the expert's running count in its batch row is below the capacity
+    C (moe_capacity of this S)."""
     B, S, _ = x.shape
     E = router.shape[0]
     C = moe_capacity(capacity_factor, S, top_k, E)
@@ -287,16 +321,58 @@ def moe_ffn(x: torch.Tensor, router: torch.Tensor, w_gate, w_up, w_down, top_k: 
         combine_gates = combine_gates + keep * gate[..., None]
         gates_sum = gates_sum + gate
         remaining = remaining * (1.0 - onehot)
+    return probs, dispatch, combine_gates / torch.clamp(gates_sum, min=1e-9)[..., None]
 
-    denom = torch.clamp(gates_sum, min=1e-9)[..., None]
-    combine = (combine_gates / denom).to(x.dtype)[..., None] * dispatch  # [B, S, E, C]
-    local = slice(expert_offset, expert_offset + w_gate.shape[0])
-    dispatch, combine = dispatch[:, :, local], combine[:, :, local]
+
+def _experts(x: torch.Tensor, dispatch: torch.Tensor, combine: torch.Tensor, w_gate, w_up,
+             w_down, plain: bool) -> torch.Tensor:
+    """The experts' SwiGLU over their [B, C] slots and the combine:
+    dispatch/combine [B, S, E_local, C] for the experts the weights hold."""
     expert_in = torch.einsum("bsec,bsd->ebcd", dispatch, x)
     h = F.silu(expert_einsum(expert_in, w_gate, plain=plain)) \
         * expert_einsum(expert_in, w_up, plain=plain)
     expert_out = expert_einsum(h, w_down, plain=plain)  # [E, B, C, D]
     return torch.einsum("bsec,ebcd->bsd", combine, expert_out)
+
+
+def moe_aux(probs: torch.Tensor, own: slice, dp_group=None) -> torch.Tensor:
+    """The Switch load-balancing loss of lws_tpu/models/llama.py:271-274,
+    E * sum_e(token fraction_e * mean probability_e), over the global batch:
+    probs [B, S, E] are the rank's rows over the whole sequence, their
+    argmax counts are summed over `dp_group` (the rows of the other dp
+    ranks). The result is the rank's share: its mean probabilities count
+    only the positions `own` of the sequence (its cp chunk), so the shares
+    of the ranks that split the data sum to JAX's aux."""
+    B, S, E = probs.shape
+    with torch.no_grad():
+        counts = F.one_hot(torch.argmax(probs, dim=-1), E).float().sum(dim=(0, 1))
+        if dp_group is not None:
+            dist.all_reduce(counts, group=dp_group)
+        n = B * S * (1 if dp_group is None else dist.get_world_size(dp_group))
+    token_frac = counts / n
+    prob_frac = probs[:, own].sum(dim=(0, 1)) / n
+    return E * torch.sum(token_frac * prob_frac)
+
+
+def moe_ffn(x: torch.Tensor, router: torch.Tensor, w_gate, w_up, w_down, top_k: int,
+            capacity_factor: float, plain: bool = False, expert_offset: int = 0) -> torch.Tensor:
+    """GShard top-k MoE with static-shape dense dispatch/combine
+    (lws_tpu/models/llama.py:_moe_ffn, without the aux loss): x [B, S, D],
+    router [E, D], expert weights [E, out, in] plain or quantized. Each
+    token's top-k experts are picked in order (argmax, first index on ties),
+    kept while the expert's running count in its batch row is below the
+    capacity C, and combined with their router probabilities renormalized
+    over the kept ones. Every expert computes its [B, C] slots, filled or
+    not. Returns [B, S, D] in x's dtype.
+
+    Expert parallelism: the weights may hold only experts [expert_offset,
+    expert_offset + E_local) of the router's E; routing and capacity are
+    still computed over all E, and the result is those experts' share of
+    the combined output (the caller sums the shares over the tp group)."""
+    _, dispatch, gates = moe_route(x, router, top_k, capacity_factor)
+    combine = gates.to(x.dtype)[..., None] * dispatch  # [B, S, E, C]
+    local = slice(expert_offset, expert_offset + w_gate.shape[0])
+    return _experts(x, dispatch[:, :, local], combine[:, :, local], w_gate, w_up, w_down, plain)
 
 
 class LlamaBlock(nn.Module):
@@ -318,6 +394,7 @@ class LlamaBlock(nn.Module):
         self.mesh = mesh
         self.norm_eps = cfg.norm_eps
         self.top_k, self.capacity_factor = cfg.top_k, cfg.capacity_factor
+        self.context_parallel = cfg.context_parallel
         self.expert_offset = (E // tp) * mesh.tp_rank if E and mesh is not None else 0
         self.attn_norm = nn.Parameter(torch.ones(d, dtype=pd, device=device))
         self.wq = _linear(d, nh * hd, device, pd, quantized)
@@ -332,31 +409,65 @@ class LlamaBlock(nn.Module):
         self.w_up = _linear(d, f, device, pd, quantized, E // tp)
         self.w_down = _linear(f, d, device, pd, quantized, E // tp)
 
+    def _group(self, axis: str):
+        return None if self.mesh is None else self.mesh.groups[axis]
+
     def forward(self, x: torch.Tensor, rope_cs: tuple[torch.Tensor, torch.Tensor],
                 attn_fn: Callable[[torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor],
-                plain: bool = False) -> torch.Tensor:
+                plain: bool = False, train: bool = False):
         """x [B, S, D] -> [B, S, D]; `rope_cs` = rope_tables(positions) for
         x's positions; `attn_fn(q, k, v)` is the one step the forward
-        variants (prefill, cached, paged decode) parameterize; `plain` sends
-        quantized products through int8_matmul's plain version."""
+        variants (prefill, cached, paged decode, training) parameterize;
+        `plain` sends quantized products through int8_matmul's plain
+        version. With `train` it returns (x, aux): the MoE aux loss share of
+        the rank (moe_aux; 0 for a dense FFN), and with cfg.context_parallel
+        the MoE routes over the sequence gathered from the cp group."""
         B, S, _ = x.shape
         hd, nh, nkv = self.head_dim, self.n_heads, self.n_kv_heads
-        h = rms_norm(x, self.attn_norm, self.norm_eps)
+        tp = self._group("tp")
+        h = copy_to(rms_norm(x, self.attn_norm, self.norm_eps), tp)
         q = matmul(h, self.wq.weight, plain=plain).reshape(B, S, nh, hd)
         k = matmul(h, self.wk.weight, plain=plain).reshape(B, S, nkv, hd)
         v = matmul(h, self.wv.weight, plain=plain).reshape(B, S, nkv, hd)
         q, k = apply_rope(q, *rope_cs), apply_rope(k, *rope_cs)
         attn = attn_fn(q, k, v).reshape(B, S, nh * hd)
-        x = x + tp_all_reduce(matmul(attn, self.wo.weight, plain=plain), self.mesh)
+        x = x + psum(matmul(attn, self.wo.weight, plain=plain), tp)
         h = rms_norm(x, self.ffn_norm, self.norm_eps)
-        if self.router is not None:
+        aux = None
+        if self.router is not None and train:
+            y, aux = self._moe_train(h)
+        elif self.router is not None:
             y = moe_ffn(h, self.router, self.w_gate.weight, self.w_up.weight, self.w_down.weight,
                         self.top_k, self.capacity_factor, plain, self.expert_offset)
         else:
+            h = copy_to(h, tp)
             y = matmul(F.silu(matmul(h, self.w_gate.weight, plain=plain))
                        * matmul(h, self.w_up.weight, plain=plain),
                        self.w_down.weight, plain=plain)
-        return x + tp_all_reduce(y, self.mesh)
+        x = x + psum(y, tp)
+        if not train:
+            return x
+        return x, (aux if aux is not None else torch.zeros((), device=x.device))
+
+    def _moe_train(self, h: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """The training MoE: the rank's experts' share of the output for its
+        tokens, and its aux share. Routing sees the whole sequence (the cp
+        group's chunks gathered in order when the sequence is split, so
+        capacity and queues are JAX's); the combine weights and the experts'
+        input enter through copy_to over tp, since each tp rank's experts see
+        only part of their gradient, while the router's aux path is
+        replicated and counted once."""
+        tp, cp = self._group("tp"), self._group("cp") if self.context_parallel else None
+        S = h.shape[1]
+        own = slice(None) if cp is None else slice(self.mesh.cp_rank * S,
+                                                    (self.mesh.cp_rank + 1) * S)
+        hg = all_gather_partial(h, cp, dim=1)
+        probs, dispatch, gates = moe_route(hg, self.router, self.top_k, self.capacity_factor)
+        combine = copy_to(gates, tp).to(h.dtype)[..., None] * dispatch
+        local = slice(self.expert_offset, self.expert_offset + self.w_gate.weight.shape[0])
+        y = _experts(copy_to(hg, tp), dispatch[:, :, local], combine[:, :, local],
+                     self.w_gate.weight, self.w_up.weight, self.w_down.weight, False)
+        return y[:, own], moe_aux(probs, own, self._group("dp"))
 
 
 class Llama(nn.Module):
@@ -368,14 +479,20 @@ class Llama(nn.Module):
     lws_tpu/models/quant.py:quantize_params) and only the norms stay
     parameters; `init_quantized_params`, `quantize_params` or the weight
     bridge fills it. With a `mesh` (parallel.mesh.Mesh) every tensor has
-    the shape of the rank's tp shard (module docstring); `shard_params`
-    fills it from a full model."""
+    the shape of the rank's tp shard and, with pp > 1, `layers` holds the
+    n_layers/pp layers of the rank's stage (module docstring);
+    `shard_params` fills it from a full model. Parameters are built with
+    requires_grad off (serving builds no autograd graph); the training
+    step switches it on for the parameters it trains."""
 
     def __init__(self, cfg: LlamaConfig, device: DeviceLike = None, quantized: bool = False,
                  mesh=None):
         super().__init__()
         device = resolve_device(device)
         tp = tp_size(mesh)
+        pp = 1 if mesh is None else mesh.pp
+        if cfg.n_layers % pp:
+            raise ValueError(f"n_layers={cfg.n_layers} not divisible by pp={pp}")
         split = [("n_kv_heads", cfg.n_kv_heads), ("n_heads", cfg.n_heads),
                  ("vocab_size", cfg.vocab_size),
                  ("n_experts", cfg.n_experts) if cfg.n_experts else ("d_ff", cfg.d_ff)]
@@ -392,7 +509,7 @@ class Llama(nn.Module):
         else:
             self.embed = nn.utils.skip_init(nn.Embedding, V, cfg.d_model, device=device, dtype=pd)
         self.layers = nn.ModuleList(LlamaBlock(cfg, device, quantized, mesh)
-                                    for _ in range(cfg.n_layers))
+                                    for _ in range(cfg.n_layers // pp))
         self.final_norm = nn.Parameter(torch.ones(cfg.d_model, dtype=pd, device=device))
         self.lm_head = _linear(cfg.d_model, V, device, pd, quantized)
         self.requires_grad_(False)  # serving only: no autograd graph on any forward
@@ -408,41 +525,47 @@ class Llama(nn.Module):
     def head(self, h: torch.Tensor, plain: bool = False) -> torch.Tensor:
         """lm_head over already-normalized hidden states, returned as f32
         (under a mesh, every rank's vocabulary shard gathered in rank order)."""
-        return tp_all_gather(matmul(h, self.lm_head.weight, plain=plain), self.mesh).float()
+        tp = None if self.mesh is None else self.mesh.tp_group
+        return all_gather(matmul(copy_to(h, tp), self.lm_head.weight, plain=plain), tp).float()
 
     def embed_tokens(self, tokens: torch.Tensor) -> torch.Tensor:
         """The embedding rows of `tokens` in the compute dtype. Under a mesh
         the rank holds vocabulary rows [r*V/tp, (r+1)*V/tp): it looks up the
         tokens it holds, zeroes the rest and all-reduces, so exactly one
-        rank contributes each row."""
+        rank contributes each row. A negative id counts from the end of the
+        vocabulary, as JAX's and torch's indexing of the whole table do."""
         dtype = self.cfg.dtype
         if self.mesh is None:
             return embed_lookup(self.embed.weight, tokens, dtype)
         n = self.cfg.vocab_size // self.mesh.tp
-        local = tokens.long() - self.mesh.tp_rank * n
+        ids = tokens.long()
+        local = torch.where(ids < 0, ids + self.cfg.vocab_size, ids) - self.mesh.tp_rank * n
         held = (local >= 0) & (local < n)
         x = embed_lookup(self.embed.weight, torch.where(held, local, 0), dtype)
-        return tp_all_reduce(x.masked_fill_(~held[..., None], 0), self.mesh)
+        return psum(x.masked_fill_(~held[..., None], 0), self.mesh.tp_group)
 
 
 @torch.no_grad()
 def shard_params(model: Llama, mesh) -> Llama:
     """Rank mesh.tp_rank's tp shard of a full `model` (shard_dim's split of
-    every tensor, JAX's NamedSharding shard of the same index): a `Llama`
-    built for `mesh`. Replicated tensors, and every tensor at tp = 1, are
-    the full model's own; a split one is a contiguous copy of its shard. A model already sharded for `mesh` is
-    returned as it is."""
+    every tensor, JAX's NamedSharding shard of the same index), with pp > 1
+    only the layers of its stage (local_param_name): a `Llama` built for
+    `mesh`. Replicated tensors, and every tensor at tp = 1, are the full
+    model's own; a split one is a contiguous copy of its shard. A model
+    already sharded for `mesh` is returned as it is."""
     if model.mesh is not None:
         if model.mesh is mesh:
             return model
         raise ValueError("shard_params: the model is already sharded over another mesh")
     out = Llama(model.cfg, "meta", model.quantized, mesh)
-    tp, r = mesh.tp, mesh.tp_rank
     for name, t in itertools.chain(model.named_parameters(), model.named_buffers()):
-        dim = shard_dim(name, model.cfg.n_experts)
-        if dim is not None and tp > 1:
-            n = t.shape[dim] // tp
-            t = t.narrow(dim, r * n, n).clone(memory_format=torch.contiguous_format)
+        local = local_param_name(name, model.cfg.n_layers, mesh)
+        if local is None:
+            continue
+        shard = tp_shard(name, t, mesh, model.cfg.n_experts)
+        if shard is not t:
+            t = shard.clone(memory_format=torch.contiguous_format)
+        name = local
         owner_name, _, leaf = name.rpartition(".")
         owner = out.get_submodule(owner_name)
         want = getattr(owner, leaf).shape
@@ -458,54 +581,183 @@ def shard_params(model: Llama, mesh) -> Llama:
 
 @torch.no_grad()
 def init_params(cfg: LlamaConfig, generator: Optional[torch.Generator] = None,
-                device: DeviceLike = None) -> Llama:
+                device: DeviceLike = None, mesh=None) -> Llama:
     """Random dense weights with the scales of lws_tpu/models/llama.py:86-124
     (N(0,1) * fan_in**-0.5; wo and w_down further damped by (2L)**-0.5;
     embed unscaled; norms ones; with experts, the router and every expert's
     products the same way), drawn from `generator` (seed 0 if None) in
     f32 on `device` and stored in cfg.param_dtype. The streams differ from
-    jax.random's: tests that compare with JAX convert JAX's weights instead."""
-    model = Llama(cfg, device)
+    jax.random's: tests that compare with JAX convert JAX's weights instead.
+    With a `mesh`, the rank's shard of those same weights
+    (shard_params(init_params(cfg, generator)) without the full model: each
+    tensor is drawn whole in turn, its shard kept, the rest dropped)."""
+    model = Llama(cfg, device, mesh=mesh)
+    full = model if mesh is None else Llama(cfg, "meta")
     dev = model.device
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
 
-    def fill(w: torch.Tensor, fan_in: int, damp: float = 1.0) -> None:
-        draw = torch.randn(w.shape, generator=generator, device=dev, dtype=torch.float32)
-        w.copy_(draw.mul_(fan_in**-0.5 * damp))
+    def fill(name: str, fan_in: int, damp: float = 1.0) -> None:
+        shape = full.get_parameter(name).shape
+        draw = torch.randn(shape, generator=generator, device=dev, dtype=torch.float32)
+        local = local_param_name(name, cfg.n_layers, mesh)
+        if local is not None:
+            draw = tp_shard(name, draw, mesh, cfg.n_experts)
+            model.get_parameter(local).copy_(draw.mul_(fan_in**-0.5 * damp))
 
     L, d, f = cfg.n_layers, cfg.d_model, cfg.d_ff
     depth_damp = (2 * L) ** -0.5
-    for blk in model.layers:
-        fill(blk.wq.weight, d)
-        fill(blk.wk.weight, d)
-        fill(blk.wv.weight, d)
-        fill(blk.wo.weight, cfg.n_heads * cfg.head_dim, depth_damp)
-        if blk.router is not None:
-            fill(blk.router, d)
-        fill(blk.w_gate.weight, d)
-        fill(blk.w_up.weight, d)
-        fill(blk.w_down.weight, f, depth_damp)
-    fill(model.embed.weight, 1)
-    fill(model.lm_head.weight, d)
+    for i in range(L):
+        fill(f"layers.{i}.wq.weight", d)
+        fill(f"layers.{i}.wk.weight", d)
+        fill(f"layers.{i}.wv.weight", d)
+        fill(f"layers.{i}.wo.weight", cfg.n_heads * cfg.head_dim, depth_damp)
+        if cfg.n_experts:
+            fill(f"layers.{i}.router", d)
+        fill(f"layers.{i}.w_gate.weight", d)
+        fill(f"layers.{i}.w_up.weight", d)
+        fill(f"layers.{i}.w_down.weight", f, depth_damp)
+    fill("embed.weight", 1)
+    fill("lm_head.weight", d)
     return model
 
 
-@torch.no_grad()
-def forward(params: Llama, tokens: torch.Tensor) -> torch.Tensor:
-    """The no-cache full-sequence forward (lws_tpu/models/llama.py:378,
-    inference only): tokens [B, S] -> logits [B, S, V] f32, causal attention
-    over the sequence in stock torch (JAX's is XLA's gqa_attention). JAX's
-    second result, the MoE aux loss, is a training term and is not
-    computed."""
-    cfg = params.cfg
+def gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Causal grouped-query attention with an f32 softmax, with autograd
+    (lws_tpu/models/llama.py:203): reference_attention, whose arithmetic is
+    JAX's gqa_attention's (scores in the input dtype cast to f32 and scaled,
+    the tril mask at -1e30, probabilities cast to v's dtype)."""
+    return reference_attention(q, k, v, causal=True)
+
+
+def _warn_if_trivial_cp(mesh) -> None:
+    """context_parallel over a cp of one rank degrades to a one-rank ring
+    (attention memory stays O(S)); say so (lws_tpu/models/llama.py:298)."""
+    import warnings
+
+    if mesh is None or mesh.cp <= 1:
+        warnings.warn(
+            "cfg.context_parallel=True but the mesh's cp axis has size 1 — "
+            "ring attention degenerates to dense attention; build the mesh "
+            "with MeshSpec(cp=...) or mesh_from_bootstrap(..., cp=...)",
+            stacklevel=3,
+        )
+
+
+def _attention_fn(cfg: LlamaConfig, mesh) -> Callable:
+    """_block's choice of attention (lws_tpu/models/llama.py:282): the ring
+    over the cp group with cfg.context_parallel, else gqa_attention."""
+    if not cfg.context_parallel:
+        return gqa_attention
+    from lws_tpu_torch.ops.ring import ring_attention
+
+    _warn_if_trivial_cp(mesh)
+    group = None if mesh is None else mesh.cp_group
+    return lambda q, k, v: ring_attention(q, k, v, group)
+
+
+def run_block(block: LlamaBlock, x: torch.Tensor, rope_cs, attn_fn, remat: bool,
+              weights: Optional[dict] = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """One training block: (x, aux) = block(x, train=True), its parameters
+    replaced by `weights` (name -> tensor, torch.func.functional_call) when
+    given; with `remat`, recomputed in the backward
+    (torch.utils.checkpoint, non-reentrant)."""
+    def run(x):
+        if weights is None:
+            return block(x, rope_cs, attn_fn, train=True)
+        return torch.func.functional_call(block, weights, (x, rope_cs, attn_fn), {"train": True})
+
+    if remat:
+        from torch.utils.checkpoint import checkpoint
+
+        return checkpoint(run, x, use_reentrant=False)
+    return run(x)
+
+
+def _layer_stack(params: Llama) -> list[tuple[LlamaBlock, Optional[dict]]]:
+    """The layers in order, each a (block, weights) pair. With pp > 1 every
+    stage's layers are gathered over the pp group (all_gather: each stage
+    keeps its own layers' gradient, since every stage computes the same
+    loss) and run through the rank's block of the same local index."""
+    mesh = params.mesh
+    local = list(params.layers)
+    if mesh is None or mesh.pp == 1:
+        return [(blk, None) for blk in local]
+    stacks = [{n: all_gather(p[None], mesh.pp_group, 0) for n, p in blk.named_parameters()}
+              for blk in local]
+    return [(local[j], {n: t[s] for n, t in stacks[j].items()})
+            for s in range(mesh.pp) for j in range(len(local))]
+
+
+def forward(params: Llama, tokens: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The no-cache full-sequence forward with autograd
+    (lws_tpu/models/llama.py:378): tokens [B, S] -> (logits [B, S, V] f32,
+    the MoE aux loss / n_layers, f32 scalar; 0 for a dense model).
+
+    Under a mesh, `tokens` are the rank's: its dp rows and, with
+    cfg.context_parallel, its cp chunk of the sequence (positions start at
+    cp_rank * S); the logits are those of its tokens, and the aux is the
+    global batch's (psum of the ranks' shares over the data group). With
+    cfg.pipeline_microbatches the layers run as GPipe over pp
+    (models/pipeline.py), which context_parallel refuses, as JAX does. Call
+    it under torch.no_grad to build no graph."""
+    cfg, mesh = params.cfg, params.mesh
     B, S = tokens.shape
-    positions = torch.arange(S, device=tokens.device).expand(B, S)
-    rope_cs = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
+    offset = mesh.cp_rank * S if (mesh is not None and cfg.context_parallel) else 0
+    positions = (offset + torch.arange(S, device=tokens.device)).expand(B, S)
     x = params.embed_tokens(tokens)
-    for block in params.layers:
-        x = block(x, rope_cs, lambda q, k, v: reference_attention(q, k, v, causal=True))
-    return params.logits(x)
+    if cfg.pipeline_microbatches > 0:
+        if cfg.context_parallel:
+            raise NotImplementedError("pipeline_microbatches with context_parallel")
+        from lws_tpu_torch.models.pipeline import pipeline_forward
+
+        x, aux = pipeline_forward(params, x, positions)
+    else:
+        rope_cs = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
+        attn_fn = _attention_fn(cfg, mesh)
+        aux = torch.zeros((), device=x.device)
+        for block, weights in _layer_stack(params):
+            x, a = run_block(block, x, rope_cs, attn_fn, cfg.remat, weights)
+            aux = aux + a
+    logits = params.logits(x)
+    data = None if mesh is None else mesh.data_group(cfg.context_parallel)
+    return logits, psum(aux / cfg.n_layers, data)
+
+
+def loss_fn(params: Llama, batch: dict) -> tuple[torch.Tensor, dict]:
+    """Causal LM loss (lws_tpu/models/llama.py:422): batch = {"tokens":
+    [B, S+1] integer} (a tensor on the model's device), shifted inside;
+    targets < 0 are masked; the NLL is summed and divided by the count of
+    unmasked targets, and aux_loss_coef * aux added. Returns (total,
+    {"ce", "aux"}).
+
+    Under a mesh, `tokens` are the rank's dp rows over the whole sequence;
+    with cfg.context_parallel the rank takes its cp chunk of inputs and
+    targets. The count is the global one (summed over the data group), the
+    rank's NLL sum over it is its share, and the shares are summed by psum,
+    whose backward is the identity: the returned values are the global
+    loss, and the gradient each rank computes is its data's share of the
+    global gradient (the training step sums the shares over the data
+    group)."""
+    cfg, mesh = params.cfg, params.mesh
+    tokens = batch["tokens"]
+    inputs, targets = tokens[:, :-1], tokens[:, 1:]
+    data = None if mesh is None else mesh.data_group(cfg.context_parallel)
+    if mesh is not None and cfg.context_parallel:
+        S = inputs.shape[1]
+        if S % mesh.cp:
+            raise ValueError(f"sequence {S} not divisible by cp={mesh.cp}")
+        chunk = slice(mesh.cp_rank * (S // mesh.cp), (mesh.cp_rank + 1) * (S // mesh.cp))
+        inputs, targets = inputs[:, chunk], targets[:, chunk]
+    logits, aux = forward(params, inputs)
+    logp = torch.log_softmax(logits, dim=-1)
+    nll = -logp.gather(-1, targets.clamp(min=0).long()[..., None])[..., 0]
+    mask = (targets >= 0).float()
+    count = mask.sum()
+    if data is not None:
+        dist.all_reduce(count, group=data)
+    ce = psum((nll * mask).sum() / torch.clamp(count, min=1.0), data)
+    return ce + cfg.aux_loss_coef * aux, {"ce": ce, "aux": aux}
 
 
 # ---------------------------------------------------------------------------

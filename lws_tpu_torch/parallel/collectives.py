@@ -1,0 +1,173 @@
+"""The collectives the training path differentiates through, each a
+torch.autograd.Function whose backward is the transpose JAX gives the same
+collective inside shard_map (lws_tpu/ops/ring.py, lws_tpu/models/pipeline.py)
+or that GSPMD gives the Megatron layout of lws_tpu/models/llama.py:
+param_shardings.
+
+  * `copy_to(x, group)`: identity forward, all-reduce backward. It stands at
+    the input of a computation split over the group (the column-parallel
+    products, a rank's experts, the pipeline's replicated input), whose
+    ranks each see a part of the input's gradient.
+  * `psum(x, group)`: all-reduce forward, identity backward. It ends a
+    computation split over the group (after wo, the FFN, the masked
+    embedding, the pipeline's broadcast from the last stage and its aux):
+    the sum is then replicated, every rank computes the same loss from it,
+    and the gradient each rank holds is the one gradient of the sum.
+  * `all_gather(x, group, dim)`: the group's tensors concatenated along
+    `dim` in rank order; backward, the rank's own slice of the gradient
+    (the lm_head's vocabulary shards, the weight-gathered layer stack: every
+    rank's consumer is a replica of the same computation).
+  * `all_gather_partial(x, group, dim)`: the same forward; backward, the
+    gradient summed over the group, then the rank's slice (reduce-scatter):
+    the consumers are not replicas (the MoE's dispatch over a cp-split
+    sequence, where each rank keeps its own chunk of the output).
+  * `ppermute(tensors, group, shift)`: rank r's tensors go to rank
+    (r + shift) % n of the group, one batch of sends and receives; backward,
+    the gradients travel the other way.
+
+`group=None` means no group: every function returns its input. A group of
+one rank still runs its collective (a copy), except `ppermute`, whose
+one-rank shift is the identity. Peers of a point-to-point are named by
+their global rank (dist.get_global_rank), as batch_isend_irecv requires
+over a subgroup.
+
+Under torch.no_grad (serving) `psum` all-reduces its argument in place and
+returns it, and `all_gather` gathers without the autograd Function's host
+cost: no autograd node is built.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+import torch
+import torch.distributed as dist
+
+# all_gather_into_tensor was renamed all_gather_single (torch 2.13).
+_all_gather_single = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
+
+
+def group_size(group) -> int:
+    return 1 if group is None else dist.get_world_size(group)
+
+
+def group_rank(group) -> int:
+    return 0 if group is None else dist.get_rank(group)
+
+
+def _all_reduce(x: torch.Tensor, group) -> torch.Tensor:
+    out = x.contiguous().clone()
+    dist.all_reduce(out, group=group)
+    return out
+
+
+def _gather(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    n = group_size(group)
+    flat = x.new_empty((n * x.shape[0], *x.shape[1:]))
+    _all_gather_single(flat, x.contiguous(), group=group)
+    # [n, ...x] in rank order; n moves in front of `dim` and merges with it.
+    parts = flat.reshape(n, *x.shape).movedim(0, dim)
+    return parts.reshape(*x.shape[:dim], n * x.shape[dim], *x.shape[dim + 1:])
+
+
+def _own_slice(g: torch.Tensor, group, dim: int) -> torch.Tensor:
+    n = group_size(group)
+    return g.chunk(n, dim=dim)[group_rank(group)].contiguous()
+
+
+def _shift(tensors: Sequence[torch.Tensor], group, shift: int) -> list[torch.Tensor]:
+    n = group_size(group)
+    me = group_rank(group)
+    dst = dist.get_global_rank(group, (me + shift) % n)
+    src = dist.get_global_rank(group, (me - shift) % n)
+    outs = [torch.empty_like(t, memory_format=torch.contiguous_format) for t in tensors]
+    ops = []
+    for t, o in zip(tensors, outs):
+        ops.append(dist.P2POp(dist.isend, t.contiguous(), dst, group))
+        ops.append(dist.P2POp(dist.irecv, o, src, group))
+    for req in dist.batch_isend_irecv(ops):
+        req.wait()
+    return outs
+
+
+class _CopyTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, ctx.group), None
+
+
+class _Psum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return _all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim, partial):
+        ctx.group, ctx.dim, ctx.partial = group, dim, partial
+        return _gather(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.partial:
+            g = _all_reduce(g, ctx.group)
+        return _own_slice(g, ctx.group, ctx.dim), None, None, None
+
+
+class _Ppermute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, group, shift, *tensors):
+        ctx.group, ctx.shift = group, shift
+        return tuple(_shift(tensors, group, shift))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        # Unused outputs arrive as zeros (materialized grads), so every rank
+        # of the group posts the same shift.
+        return (None, None, *_shift(grads, ctx.group, -ctx.shift))
+
+
+def copy_to(x: torch.Tensor, group) -> torch.Tensor:
+    if group is None or not torch.is_grad_enabled():
+        return x
+    return _CopyTo.apply(x, group)
+
+
+def psum(x: torch.Tensor, group) -> torch.Tensor:
+    if group is None:
+        return x
+    if not torch.is_grad_enabled():
+        dist.all_reduce(x, group=group)
+        return x
+    return _Psum.apply(x, group)
+
+
+def all_gather(x: torch.Tensor, group, dim: int = -1) -> torch.Tensor:
+    if group is None:
+        return x
+    if not torch.is_grad_enabled():
+        return _gather(x, group, dim % x.dim())
+    return _AllGather.apply(x, group, dim % x.dim(), False)
+
+
+def all_gather_partial(x: torch.Tensor, group, dim: int = -1) -> torch.Tensor:
+    if group is None:
+        return x
+    return _AllGather.apply(x, group, dim % x.dim(), True)
+
+
+def ppermute(tensors: Sequence[torch.Tensor], group: Optional[object],
+             shift: int = 1) -> tuple[torch.Tensor, ...]:
+    if group_size(group) == 1:
+        return tuple(tensors)
+    return _Ppermute.apply(group, shift, *tensors)

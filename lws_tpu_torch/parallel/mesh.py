@@ -10,10 +10,12 @@ reshape(dp, pp, cp, tp); the port lays out the group's ranks the same way
 and holds JAX's tp shard of that index.
 
 `build_mesh` returns a `Mesh` over every rank of the started group: this
-rank's coordinates plus one process group along each axis the serving path
-reduces over (tp for the all-reduces and the vocab all-gather, dp for the
-dense engine's token gather). pp or cp > 1 raise NotImplementedError: the
-pipeline and ring paths come with the training slice.
+rank's coordinates plus one process group along each axis (tp for the
+all-reduces and the vocab all-gather, dp for the dense engine's token
+gather and the training batch, pp for the pipeline's stages and the
+weight-gathered layer stack, cp for the ring) and one over dp and cp
+together (the ranks whose gradients a training step sums when the sequence
+splits over cp).
 """
 
 from __future__ import annotations
@@ -53,7 +55,8 @@ def auto_meshspec(n_devices: int, prefer_tp: int = 0, pp: int = 1, cp: int = 1) 
 class Mesh:
     """Rank `rank`'s place on the (dp, pp, cp, tp) grid of the group's ranks
     0..size-1: `coords[axis]` is its index along each axis, `groups[axis]`
-    the process group of its row along dp and tp."""
+    the process group of its row along that axis (and `groups["dp_cp"]` the
+    ranks that share its pp and tp coordinates)."""
 
     def __init__(self, spec: MeshSpec, rank: int, groups: dict) -> None:
         self.spec = spec
@@ -76,6 +79,14 @@ class Mesh:
         return self.spec.dp
 
     @property
+    def pp(self) -> int:
+        return self.spec.pp
+
+    @property
+    def cp(self) -> int:
+        return self.spec.cp
+
+    @property
     def tp_rank(self) -> int:
         return self.coords["tp"]
 
@@ -84,12 +95,34 @@ class Mesh:
         return self.coords["dp"]
 
     @property
+    def pp_rank(self) -> int:
+        return self.coords["pp"]
+
+    @property
+    def cp_rank(self) -> int:
+        return self.coords["cp"]
+
+    @property
     def tp_group(self):
         return self.groups["tp"]
 
     @property
     def dp_group(self):
         return self.groups["dp"]
+
+    @property
+    def pp_group(self):
+        return self.groups["pp"]
+
+    @property
+    def cp_group(self):
+        return self.groups["cp"]
+
+    def data_group(self, context_parallel: bool):
+        """The ranks that hold different data of one step: dp, and cp too
+        when the sequence splits over it (cfg.context_parallel); otherwise
+        cp ranks hold the same sequence and compute the same numbers."""
+        return self.groups["dp_cp"] if context_parallel else self.groups["dp"]
 
     def __repr__(self) -> str:
         return f"Mesh({self.shape}, rank={self.rank}, coords={self.coords})"
@@ -104,21 +137,23 @@ def build_mesh(spec: MeshSpec) -> Mesh:
     if not dist.is_initialized():
         raise RuntimeError("build_mesh: torch.distributed is not initialized "
                            "(parallel.initialize_from_env, group_of_one=True for one process)")
-    if spec.pp > 1 or spec.cp > 1:
-        raise NotImplementedError(f"mesh spec {spec}: pp and cp > 1 come with the training slice")
     world = dist.get_world_size()
     if world != spec.size:
         raise ValueError(f"mesh spec {spec} needs {spec.size} devices, have {world}")
     me = dist.get_rank()
     grid = np.arange(world).reshape(spec.dp, spec.pp, spec.cp, spec.tp)
     groups = {}
-    for axis in ("dp", "tp"):
-        i = spec.axis_names().index(axis)
-        for row in np.moveaxis(grid, i, -1).reshape(-1, grid.shape[i]):
+    names = spec.axis_names()
+    for key, axes in (("dp", ("dp",)), ("pp", ("pp",)), ("cp", ("cp",)), ("tp", ("tp",)),
+                      ("dp_cp", ("dp", "cp"))):
+        idx = [names.index(a) for a in axes]
+        size = int(np.prod([grid.shape[i] for i in idx]))
+        rows = np.moveaxis(grid, idx, list(range(4 - len(idx), 4))).reshape(-1, size)
+        for row in rows:
             row = [int(r) for r in row]
             g = dist.new_group(row)
             if me in row:
-                groups[axis] = g
+                groups[key] = g
     return Mesh(spec, me, groups)
 
 

@@ -105,7 +105,8 @@ def run_tp_forward(device_arg=None) -> int:
     cfg = _small_cfg(32, dev)
     params = shard_params(_model(cfg, dev), mesh)
     tokens = torch.arange(16, device=dev)[None, :]
-    logits = forward(params, tokens)
+    with torch.no_grad():
+        logits, _ = forward(params, tokens)
     checksum = float(logits.abs().sum())
     line = (f"process={info.process_id}/{info.num_processes} devices={mesh.spec.size} "
             f"tp={mesh.tp} checksum={checksum:.4f}")

@@ -80,7 +80,11 @@ def shard_params_for_serving(params: Llama, cfg: LlamaConfig, mesh) -> Llama:
 
 
 def check_mesh(cfg: LlamaConfig, mesh) -> None:
-    """The engines' refusal of a mesh whose tp does not divide the KV heads."""
+    """The engines' refusal of a mesh whose tp does not divide the KV heads,
+    and of pp or cp > 1 (serving runs tp and dp; pipeline and context
+    parallelism are the training path's)."""
+    if mesh.pp > 1 or mesh.cp > 1:
+        raise NotImplementedError(f"serving over pp={mesh.pp}, cp={mesh.cp} is not ported")
     if cfg.n_kv_heads % mesh.tp:
         raise ValueError(f"n_kv_heads={cfg.n_kv_heads} not divisible by tp={mesh.tp}")
 

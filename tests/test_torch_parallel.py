@@ -6,8 +6,9 @@ BootstrapInfo on a table of env dicts; `auto_meshspec` and the
 contract-to-shape rule of `mesh_from_bootstrap` give JAX's shapes and
 errors (JAX's side on the 8-device virtual CPU mesh of tests/conftest.py);
 a rank's mesh coordinates are its device's place in JAX's mesh array.
-Then the port alone: a one-rank gloo group (group_of_one) builds a mesh,
-refuses pp and cp, and a missing GPU raises; two spawned gloo ranks all-
+Then the port alone: a one-rank gloo group (group_of_one) builds a mesh
+(pp and cp > 1 are refused only for want of ranks: the training slice runs
+them), and a missing GPU raises; two spawned gloo ranks all-
 reduce and gather over their axes, and rank 0 builds the kernels while rank
 1 waits at the barrier.
 
@@ -185,11 +186,13 @@ def test_group_of_one_builds_a_mesh_and_refuses_pp_cp(one_rank_group):
     assert dist.get_world_size() == 1 and dist.get_backend() == "gloo"
     mesh = build_mesh(MeshSpec())
     assert (mesh.tp, mesh.dp, mesh.tp_rank, mesh.dp_rank) == (1, 1, 0, 0)
+    assert (mesh.pp, mesh.cp, mesh.pp_rank, mesh.cp_rank) == (1, 1, 0, 0)
     x = torch.ones(3)
-    dist.all_reduce(x, group=mesh.tp_group)  # the one-rank group's collective runs
+    for axis in ("dp", "pp", "cp", "tp", "dp_cp"):
+        dist.all_reduce(x, group=mesh.groups[axis])  # each one-rank group's collective runs
     assert x.tolist() == [1.0, 1.0, 1.0]
     for spec in (MeshSpec(pp=2), MeshSpec(cp=2)):
-        with pytest.raises(NotImplementedError, match="training slice"):
+        with pytest.raises(ValueError, match="needs 2 devices, have 1"):
             build_mesh(spec)
     with pytest.raises(ValueError, match="needs 2 devices, have 1"):
         build_mesh(MeshSpec(tp=2))
@@ -218,14 +221,15 @@ def test_a_missing_gpu_raises():
 def _collectives_member(rank: int, out_dir: str) -> None:
     import torch.distributed as dist
 
-    from lws_tpu_torch.models.llama import tp_all_gather, tp_all_reduce
     from lws_tpu_torch.parallel import mesh_from_bootstrap
     from lws_tpu_torch.parallel.bootstrap import bootstrap_info_from_env as info_from_env
+    from lws_tpu_torch.parallel.collectives import all_gather, psum
 
     info = initialize_from_env(device="cpu")
     mesh = mesh_from_bootstrap(info)
-    x = tp_all_reduce(torch.full((2,), float(rank + 1)), mesh)
-    g = tp_all_gather(torch.full((1, 2), float(rank)), mesh)
+    with torch.no_grad():  # as the serving engines call them
+        x = psum(torch.full((2,), float(rank + 1)), mesh.tp_group)
+        g = all_gather(torch.full((1, 2), float(rank)), mesh.tp_group)
     with open(os.path.join(out_dir, f"{rank}.json"), "w") as f:
         json.dump({"info": dataclasses.asdict(info_from_env()), "tp": mesh.tp,
                    "tp_rank": mesh.tp_rank, "sum": x.tolist(), "gather": g.tolist()}, f)

@@ -145,8 +145,8 @@ def test_moe_expert_parallel_at_mixtral_geometry(cards, tmp_path):
 def _head_member(rank: int, out_dir: str) -> None:
     import torch.distributed as dist
 
-    from lws_tpu_torch.models.llama import tp_all_gather
     from lws_tpu_torch.ops.int8_matmul import int8_matmul, int8_matmul_reference
+    from lws_tpu_torch.parallel.collectives import all_gather
 
     dev, mesh = _start()
     V, D = 128256, 4096
@@ -163,7 +163,8 @@ def _head_member(rank: int, out_dir: str) -> None:
         plain = int8_matmul_reference(x, q_l, s_l)
         mag = plain.float().abs().max().item()
         rec["local_err"][m] = (local.float() - plain.float()).abs().max().item() / mag
-        gathered = tp_all_gather(local, mesh)
+        with torch.no_grad():  # as the engines' lm_head gathers
+            gathered = all_gather(local, mesh.tp_group)
         full = int8_matmul_reference(x, q, scale)
         rec["gathered_err"][m] = (gathered.float() - full.float()).abs().max().item() / \
             full.float().abs().max().item()
