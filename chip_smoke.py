@@ -10,14 +10,16 @@ kernels to their plain PyTorch versions.
                                        # and NCCL's share of a tensor-parallel step
     python3 chip_smoke.py --tp-only --tp 4   # path 14 alone on 4 cards, against
                                        # single-card references it computes first
+    python3 chip_smoke.py --disagg-only --tp 2  # path 16 alone: each role on 2 of 4
+                                       # cards, against one-card handoffs of its own
     python3 chip_smoke.py --train-only # path 15 alone on one card
     python3 chip_smoke.py --train-only --mesh 2,1,1,2 --mesh 1,2,1,2:4 ...
                                        # path 15's config on several cards, one
                                        # layout per --mesh DP,PP,CP,TP[:GPipe M]
 
 Phases (each raises on failure; the script then exits non-zero and prints
-no result line): 1-4 build and hold the kernels, 5-14 drive the engine
-paths, 15 trains.
+no result line): 1-4 build and hold the kernels, 5-14 and 16 drive the
+engine paths, 15 trains.
   1. the card (nvidia-smi name and power limit, CUDA version) and the build of
      every CUDA source in lws_tpu_torch/csrc/ for sm_90a, one nvcc per source,
      started together; the compile ledger (lws_tpu_torch/obs/device.py) must
@@ -26,7 +28,8 @@ paths, 15 trains.
   2. the flash prefill kernel against reference_attention at the flagship's
      attention shapes (H=32, Hkv=8, D=128, bf16, causal): B=1 at several S
      (the paged engines' prefills, and S = 127, 129, 257 for ragged 128-row
-     q tiles) and B=8, S=512 (the dense engine's), with
+     q tiles) and B=8, S=512 (the dense engine's), and at a rank's share of
+     a tp = 2 prefill role (H=16, Hkv=4; S = 24, 100, 1000), with
      times of the kernel, the plain version and, as a yardstick only,
      torch's scaled_dot_product_attention;
   3. the paged-decode kernel against its plain version (gather + dense
@@ -44,7 +47,9 @@ paths, 15 trains.
      held to the plain version first; a shape it refuses is printed) and the
      bf16 F.linear of the same shape (the product the bf16 flagship runs);
      at 128 and 256 rows also the dequantizing route that larger prefills
-     take; the int8 dense-cache decode kernel against its plain
+     take; at the tp = 2 splits of the five products (the lm_head's V/2
+     shard ending in a ragged tile) at 1, 24 and 100 rows, path 16's
+     shapes on two cards; the int8 dense-cache decode kernel against its plain
      version at B=8, T=2048 with mixed and scalar positions. Decode-shaped
      kernels are timed with the L2 cache scrubbed (a 256 MB read) between
      launches;
@@ -103,7 +108,13 @@ paths, 15 trains.
      to a KVHostArena, restored from it, and restored by a second engine
      through a RemotePrefixSource over the first engine's KVServer: the
      restored rows equal the spilled rows byte for byte, and the restored
-     streams equal the HBM-tier hit's;
+     streams equal the HBM-tier hit's. Then the wire's
+     serving_kv_transfer_bytes_total{role} on both roles and the handoff
+     counters equal the bytes the handoffs moved; each handoff's shipped
+     spans are there and add up to its record within 5 %; and one chaos
+     drill, kv.stream.send_chunk=partial_write:64:1, tears the 1,000-token
+     stream, which re-queues and replays the fault-free rows byte for byte
+     and decodes the same tokens;
  11. MoE: the Mixtral-8x7B geometry (32 layers, 8 experts, top-2, capacity
      factor 2.0) with random int8 weights built in place (~47 GB) and an
      int8 K/V pool: prefill and paged decode logits held to the plain path,
@@ -139,6 +150,24 @@ paths, 15 trains.
      rank and engine, and the host and device time of one all-reduce of a
      decode step's [8, 4096] activation and of the lm_head's all-gather
      (--profile: NCCL's share of 16 TP decode steps).
+ 16. (run after 14, before 11) the tensor-parallel disaggregated pair: the
+     workers' int8-weight, bf16-K/V flagship, each role a real OS process
+     (`python -m lws_tpu_torch.serving.disagg_worker prefill|decode` with
+     LWS_TPU_MODEL=flagship and LWS_TPU_TP; on one card a one-rank mesh
+     each, both on card 0; --disagg-only --tp 2 on four cards: prefill on
+     cards 0-1, decode on 2-3), paired over loopback TCP through a stand-in
+     of the API server's records. The 1,000-token prompt streamed in chunks
+     of 256, the 100-token prompt, 16 requests of the JAX package's
+     shared_prefix scenario (seed 0) open-loop through loadgen.DisaggTarget,
+     then the prefill role restarted with LWS_TPU_KV_CHUNK=0 for the
+     1,000-token prompt monolithic, then a SIGTERM drain. Bundle bytes and
+     tokens equal path 12's one-card handoffs (tokens may fork only at an
+     argmax near-tie); every load-runner request completes on the client
+     and in both roles' logs; the launches each role's rank 0 prints at exit
+     equal the handoffs' formulas; both roles exit 0 and no spawned process
+     outlives them. It prints TTFT across the handoff, gather, wire,
+     deserialize and reshard ms, tok/s per role and the path's seconds; on
+     four cards NCCL's share of the decode role's steps.
  15. (last) training at benchmarks/train_bench.py's on-accelerator config
      (vocab 32000, d_model 1536, 12 layers, 12 heads, 6 KV heads, d_ff 4096,
      remat; f32 parameters, bf16 compute; AdamW at lr 3e-4; a fixed batch of
@@ -273,15 +302,19 @@ def phase_flash(torch, dev, cfg) -> dict:
 
     from lws_tpu_torch.ops.attention import flash_attention, reference_attention
 
-    H, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    D = cfg.head_dim
     g = torch.Generator(device=dev).manual_seed(1)
     record, worst = None, 0.0
-    # (B, S): the paged engines' one-request prefills at their buckets and
-    # edges, and the dense engine's batched prefill (8 prompts of 512).
+    # (B, S, tp): the paged engines' one-request prefills at their buckets
+    # and edges, and the dense engine's batched prefill (8 prompts of 512).
     # S = 127, 129 and 257 put a ragged q tile on each side of the kernel's
-    # 128-row tile edges.
-    for B, S in ((1, 16), (1, 127), (1, 128), (1, 129), (1, 257), (1, 1000), (1, 1024),
-                 (1, 2048), (SLOTS, 512)):
+    # 128-row tile edges. tp = 2: a rank's share of path 16's tensor-parallel
+    # prefill role on two cards (H/2 query and Hkv/2 KV heads) at its
+    # prompts: the short one, the load runner's and the 1,000-token one.
+    for B, S, tp in ((1, 16, 1), (1, 127, 1), (1, 128, 1), (1, 129, 1), (1, 257, 1),
+                     (1, 1000, 1), (1, 1024, 1), (1, 2048, 1), (SLOTS, 512, 1),
+                     (1, 24, 2), (1, 100, 2), (1, 1000, 2)):
+        H, Hkv = cfg.n_heads // tp, cfg.n_kv_heads // tp
         q = torch.randn(B, S, H, D, generator=g, device=dev, dtype=torch.bfloat16)
         k = torch.randn(B, S, Hkv, D, generator=g, device=dev, dtype=torch.bfloat16)
         v = torch.randn(B, S, Hkv, D, generator=g, device=dev, dtype=torch.bfloat16)
@@ -292,7 +325,7 @@ def phase_flash(torch, dev, cfg) -> dict:
         err = (out.float() - ref.float()).abs().max().item()
         worst = max(worst, err)
         check(torch.allclose(out.float(), ref.float(), atol=FLASH_TOL, rtol=FLASH_TOL),
-              f"flash B={B} S={S}: max abs err {err} beyond atol=rtol={FLASH_TOL}")
+              f"flash B={B} S={S} H={H}: max abs err {err} beyond atol=rtol={FLASH_TOL}")
         ms = time_cuda(torch, lambda: flash_attention(q, k, v, causal=True))
         plain_ms = time_cuda(torch, lambda: reference_attention(q, k, v, causal=True))
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
@@ -306,10 +339,10 @@ def phase_flash(torch, dev, cfg) -> dict:
         flops = B * 4 * H * D * S * (S + 1) / 2  # QK^T and PV over the causal half
         nbytes = 2 * (q.numel() * 2 + k.numel() + v.numel())  # q, k, v in; o out
         bound_ms, bound_by = bound(flops, nbytes)
-        print(f"flash B={B} S={S:5d}: max_abs_err={err:.3e} kernel={ms:.4f} ms "
+        print(f"flash B={B} S={S:5d} H={H} Hkv={Hkv}: max_abs_err={err:.3e} kernel={ms:.4f} ms "
               f"plain={plain_ms:.4f} ms sdpa={library_ms:.4f} ms bound={bound_ms:.4f} ms "
               f"({bound_by}) roofline={bound_ms / ms:.1%}")
-        if (B, S) == (1, 1024):  # the bucket of the longest paged prompt on the main path
+        if (B, S, tp) == (1, 1024, 1):  # the bucket of the longest paged prompt on the main path
             record = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                       "bound_by": bound_by, "library_ms": library_ms}
     record["max_abs_err"] = worst
@@ -575,8 +608,50 @@ def phase_int8_matmul(torch, dev, cfg) -> dict:
               f"{fmt(t['int8pack'])}, bf16 F.linear {fmt(t['bf16'])}")
     for r in refused:
         print(f"int8_matmul: torch._weight_int8pack_mm refused {r}")
+    worst = max(worst, int8_matmul_shards(torch, dev, cfg, g, flush))
     record["max_abs_err"] = worst  # relative to max |plain| (outputs reach ~1e2)
     return record
+
+
+def int8_matmul_shards(torch, dev, cfg, g, flush, tp: int = 2) -> float:
+    """int8_matmul against its plain version at a rank's share of path 16's
+    tensor-parallel roles on two cards: the tp = 2 splits of the five
+    flagship products (wq, wk/wv, w_gate/w_up and the lm_head split by
+    output column, its shard of V/2 = 64,128 columns ending in a ragged
+    tile; wo and w_down by input row), at the rows the roles give them (a
+    decode step's 1, the load runner's and the short prompt's prefills).
+    Returns the largest error relative to max |plain|."""
+    import torch.nn.functional as F
+
+    from lws_tpu_torch.ops.int8_matmul import int8_matmul, int8_matmul_reference
+
+    d, kv, f, V = cfg.d_model, cfg.n_kv_heads * cfg.head_dim, cfg.d_ff, cfg.vocab_size
+    worst = 0.0
+    for D, Fo in ((d, d // tp), (d, kv // tp), (d, f // tp), (d, V // tp), (d // tp, d),
+                  (f // tp, d)):
+        q = torch.randint(-127, 128, (Fo, D), generator=g, device=dev, dtype=torch.int8)
+        scale = torch.rand(Fo, generator=g, device=dev) * D**-0.5 / 73.3
+        w_bf16 = q.to(torch.bfloat16)
+        for m in (1, 24, 100):
+            x = torch.randn(m, D, generator=g, device=dev, dtype=torch.bfloat16)
+            out = int8_matmul(x, q, scale)
+            ref = int8_matmul_reference(x, q, scale)
+            torch.cuda.synchronize()
+            mag = ref.float().abs().max().item()
+            err = (out.float() - ref.float()).abs().max().item()
+            worst = max(worst, err / mag)
+            check(bool(torch.isfinite(out).all()) and torch.allclose(
+                out.float(), ref.float(), atol=MATMUL_TOL * mag, rtol=MATMUL_TOL),
+                f"int8_matmul tp={tp} shard m={m} ({D},{Fo}): max abs err {err} "
+                f"(max |plain| {mag})")
+            ms = time_cuda(torch, lambda: int8_matmul(x, q, scale), flush=flush)
+            bf16_ms = time_cuda(torch, lambda: F.linear(x, w_bf16), flush=flush)
+            bound_ms, bound_by = bound(2 * m * D * Fo, m * D * 2 + Fo * D + Fo * 4 + m * Fo * 2)
+            print(f"int8_matmul tp={tp} shard m={m:3d} (D,F)=({D},{Fo}): rel err "
+                  f"{err / mag:.2e} kernel={ms:.4f} ms bf16 F.linear={bf16_ms:.4f} ms "
+                  f"bound={bound_ms:.4f} ms ({bound_by}) roofline={bound_ms / ms:.1%}")
+        del q, w_bf16
+    return worst
 
 
 def phase_int8_decode(torch, dev, cfg) -> dict:
@@ -644,7 +719,9 @@ def reset_counts() -> None:
 
 
 def read_counts() -> dict:
-    return {name: fn.launches for name, fn in kernel_counters().items()}
+    from lws_tpu_torch.ops import launch_counts
+
+    return launch_counts()
 
 
 def weight_bytes_per_step(cfg, model) -> int:
@@ -1938,6 +2015,13 @@ def payload_header_bytes(entries) -> int:
     return 4 + len(json.dumps({"arrays": entries}).encode())
 
 
+def wait_until(predicate, timeout: float = 5.0) -> bool:
+    deadline = time.monotonic() + timeout
+    while not predicate() and time.monotonic() < deadline:
+        time.sleep(0.01)
+    return predicate()
+
+
 def run_in_thread(fn):
     """Start fn() in a thread; returns a join() that re-raises its error."""
     box = {}
@@ -2006,8 +2090,8 @@ def one_handoff(torch, pre, dec, server, prompt, chunk: int, rid: str, gamma: in
 
         def process(meta, payload):
             rec["t_landed"] = time.perf_counter()
-            rec["toks"], rec["stats"], _ = dw._decode_bundle(dec, payload, HANDOFF_STEPS,
-                                                             gamma=gamma, ngram=NGRAM)
+            rec["toks"], rec["stats"], rec["dspans"] = dw._decode_bundle(
+                dec, payload, HANDOFF_STEPS, gamma=gamma, ngram=NGRAM)
             rec["meta"] = meta
             landed["payload"] = payload
             return True
@@ -2046,6 +2130,7 @@ def one_handoff(torch, pre, dec, server, prompt, chunk: int, rid: str, gamma: in
                 got_rows = kt.host_array(bufs[name][:, :, lo:hi])
                 check(got_rows.tobytes() == arrays[name].tobytes(),
                       f"handoff {rid}: assembled {name} rows {lo}..{hi} differ from the chunk")
+        rec["landed"] = rows_digest(kt, bufs, S)
     else:
         payload = landed["payload"]
         (hlen,) = struct.unpack("!I", payload[:4])
@@ -2060,10 +2145,95 @@ def one_handoff(torch, pre, dec, server, prompt, chunk: int, rid: str, gamma: in
             got_rows = kt.host_array(getattr(landed["cache"], name)[:, :, :S])
             check(got_rows.tobytes() == sent[name].tobytes(),
                   f"handoff {rid}: landed {name} rows differ from the bundle's")
+        rec["landed"] = rows_digest(kt, {n: getattr(landed["cache"], n) for n in ("k", "v")}, S)
+    rec["wire_bytes"] = meta["payload_bytes"] if streamed else stats["bundle_bytes"]
     return rec
 
 
-def path_disagg(torch, dev, model8) -> dict:
+def rows_digest(kt, bufs: dict, rows: int) -> str:
+    """sha256 of the K and V rows [0, rows) that landed on the decode side."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for name in ("k", "v"):
+        h.update(kt.host_array(bufs[name][:, :, :rows]).tobytes())
+    return h.hexdigest()
+
+
+def check_handoff_telemetry(rec, rid: str) -> None:
+    """The shipped spans of one handoff (prefill's in the bundle meta,
+    decode's from _decode_bundle) are there, and the handoff record's times
+    are theirs: each within the record's 0.1 ms rounding, and their sum
+    within 5 % of the record's."""
+    spans = {sp["name"]: sp for sp in rec["meta"].get("spans", []) + rec["dspans"]}
+    want = {"serve.request", "serve.prefill", "kv.gather", "kv.deserialize", "kv.reshard",
+            "serve.decode_dispatch"}
+    check(want <= set(spans), f"handoff {rid}: spans {sorted(spans)}, want {sorted(want)}")
+    h = {**rec["meta"]["handoff"], **rec["stats"]}
+    pairs = [("prefill_s", "serve.prefill"), ("deserialize_s", "kv.deserialize"),
+             ("reshard_s", "kv.reshard"), ("decode_s", "serve.decode_dispatch")]
+    if not rec["streamed"]:  # a stream's kv.gather span covers its whole window
+        pairs.append(("gather_s", "kv.gather"))
+    for key, name in pairs:
+        check(abs(h[key] - spans[name]["duration_s"]) <= 6e-5,
+              f"handoff {rid}: {key} {h[key]} vs span {name} {spans[name]['duration_s']}")
+    got, want_s = (sum(spans[n]["duration_s"] for _, n in pairs), sum(h[k] for k, _ in pairs))
+    check(abs(got - want_s) <= 0.05 * want_s,
+          f"handoff {rid}: spans add up to {got:.4f} s, the record to {want_s:.4f} s")
+
+
+def chaos_drill(torch, pre, dec, server, rec) -> dict:
+    """One chaos drill on the card: `kv.stream.send_chunk=partial_write:64:1`
+    tears the first delivery of `rec`'s prompt as a stream, the server
+    re-queues it whole, and the replay lands the fault-free handoff's rows
+    byte for byte and decodes its tokens. Returns the replay's record."""
+    from lws_tpu_torch.core import faults, flightrecorder
+    from lws_tpu_torch.serving import disagg_worker as dw
+    from lws_tpu_torch.serving import kv_transport as kt
+
+    prompt, ep = rec["prompt"], ("127.0.0.1", server.port)
+    factory = lambda m: kt.CacheAssembler(max_len=dec.max_len, device=dec.device)  # noqa: E731
+    out = {}
+    flightrecorder.RECORDER.clear()
+    faults.INJECTOR.arm("kv.stream.send_chunk", "partial_write:64:1")
+    try:
+        prefill = run_in_thread(lambda: dw._prefill_streamed(pre, server, {"id": "chaos"},
+                                                             "chaos", prompt, CHUNK, None))
+        try:
+            kt.pull_bundle(ep, timeout=120.0, ack_timeout=600.0, receiver_factory=factory)
+            torn = False
+        except OSError:
+            torn = True
+
+        def process(meta, payload):
+            out["toks"], out["stats"], _ = dw._decode_bundle(dec, payload, HANDOFF_STEPS)
+            out["landed"] = rows_digest(kt, payload._bufs, len(prompt))
+            out["meta"] = meta
+            return True
+
+        got = kt.pull_bundle(ep, timeout=120.0, process=process, ack_timeout=600.0,
+                             receiver_factory=factory)
+        prefill()
+        trips = faults.INJECTOR.snapshot()["trips"]
+    finally:
+        faults.INJECTOR.disarm()
+    torn_events = [e for e in flightrecorder.RECORDER.events()
+                   if e["kind"] == "kv_stream_torn" and e.get("request_id") == "chaos"]
+    check(torn and got is True and trips == {"kv.stream.send_chunk": 1} and torn_events,
+          f"chaos drill: torn {torn}, replayed {got}, trips {trips}, "
+          f"{len(torn_events)} kv_stream_torn events")
+    check(out["landed"] == rec["landed"], "chaos drill: the replayed rows differ from the "
+                                          "fault-free handoff's")
+    check(np.array_equal(out["toks"], rec["toks"]),
+          "chaos drill: the replay's tokens differ from the fault-free handoff's")
+    print(f"disagg handoff chaos drill: kv.stream.send_chunk=partial_write:64:1 tore the "
+          f"{len(prompt)}-token stream's first delivery; it re-queued whole and the replay "
+          f"({out['meta']['chunks']} chunks) landed the fault-free rows byte for byte and "
+          f"decoded its tokens")
+    return out
+
+
+def path_disagg(torch, dev, model8) -> tuple:
     """12. The disaggregated handoff at full width: the flagship with int8
     weights and bf16 K/V (kv_quant off) as the port's disagg_worker builds
     it, two Engine(batch_size=1, max_len=2048) on those weights, one the
@@ -2080,7 +2250,9 @@ def path_disagg(torch, dev, model8) -> dict:
     count, each handoff's tokens against the decode engine's own prefill
     (or prefill_chunked) + decode_n, the speculative stream against an
     independent forward, and each restored stream against the HBM-tier
-    hit's. Returns the launches."""
+    hit's. Returns the launches and path 16's references (the 100- and
+    1,000-token handoffs by (prompt length, chunk))."""
+    from lws_tpu_torch.core import metrics
     from lws_tpu_torch.serving import disagg_worker as dw
     from lws_tpu_torch.serving import kv_transport as kt
     from lws_tpu_torch.serving.engine import Engine
@@ -2096,6 +2268,11 @@ def path_disagg(torch, dev, model8) -> dict:
     ml = importlib.util.find_spec("ml_dtypes") is not None
     server = kt.KVServer(port=0, host="127.0.0.1")
     counted = {"spec_steps": 0, "tail_steps": 0}
+    reg = metrics.REGISTRY
+    wire0 = {role: reg.counter_value("serving_kv_transfer_bytes_total", {"role": role})
+             for role in ("prefill", "decode")}
+    handoffs0 = (reg.counter_value("serving_kv_handoffs_total"),
+                 reg.counter_value("serving_kv_handoff_bytes_total"))
     torch.cuda.synchronize()
     reset_counts()
     try:
@@ -2116,6 +2293,26 @@ def path_disagg(torch, dev, model8) -> dict:
             spec = one_handoff(torch, pre, dec, server, prompts[-1], CHUNK, "spec", gamma=GAMMA)
         finally:
             del dec._spec_step, dec.decode
+        # The wire's counters, by role, equal the bytes the handoffs moved;
+        # each handoff's spans add up to its record.
+        moved = sum(r["wire_bytes"] for r in recs + [spec])
+        for role in ("prefill", "decode"):  # the server counts its send after the client's read
+            wait_until(lambda: reg.counter_value("serving_kv_transfer_bytes_total",
+                                                 {"role": role}) - wire0[role] == moved)
+            got = reg.counter_value("serving_kv_transfer_bytes_total", {"role": role}) - wire0[role]
+            check(got == moved, f"disagg handoff: serving_kv_transfer_bytes_total{{role={role}}} "
+                                f"rose by {got}, the handoffs moved {moved} B")
+        n_handoffs = reg.counter_value("serving_kv_handoffs_total") - handoffs0[0]
+        n_bytes = reg.counter_value("serving_kv_handoff_bytes_total") - handoffs0[1]
+        check(n_handoffs == len(recs) + 1 and n_bytes == moved,
+              f"disagg handoff: {n_handoffs} handoffs / {n_bytes} B counted, "
+              f"{len(recs) + 1} / {moved} made")
+        for r in recs + [spec]:
+            check_handoff_telemetry(r, f"{'s' if r['streamed'] else 'm'}{len(r['prompt'])}")
+        print(f"disagg handoff: the wire counted {moved} B on each role over {len(recs) + 1} "
+              f"handoffs, as moved; every handoff's spans add up to its record")
+        chaos_drill(torch, pre, dec, server,
+                    next(r for r in recs if r["streamed"] and len(r["prompt"]) == 1000))
     finally:
         server.close()
     tiers, tier_launch = path_prefix_tiers(torch, dev, model8)
@@ -2131,6 +2328,8 @@ def path_disagg(torch, dev, model8) -> dict:
             want["int8_matmul"] += 7 * L * (S <= MAX_ROWS) + 1
         steps = (counted["spec_steps"] + counted["tail_steps"]) if r["gamma"] else HANDOFF_STEPS
         want["int8_matmul"] += (7 * L + 1) * steps
+    # The chaos drill: one streamed prefill (replayed from its buffer) and one decode.
+    want["int8_matmul"] += 7 * L * -(-1000 // CHUNK) + 1 + (7 * L + 1) * HANDOFF_STEPS
     for name, n in tier_launch.items():
         want[name] = want.get(name, 0) + n
     check_launches("disagg handoff", launches, want)
@@ -2180,7 +2379,9 @@ def path_disagg(torch, dev, model8) -> dict:
           f"{gap:.3e} of each row's max under an independent forward")
     print(tiers)
     print(f"disagg handoff: path wall time {time.perf_counter() - t_path:.1f} s")
-    return launches
+    # Path 16's references: the one-card handoffs of its prompts.
+    refs = {(len(r["prompt"]), r["chunk"]): r for r in recs if len(r["prompt"]) in (100, 1000)}
+    return launches, refs
 
 
 def tier_rows(engine, blk: int) -> dict:
@@ -2931,6 +3132,439 @@ def path_tp_group(torch, dev, world: int, models: dict, prompts, dense_prompt, r
 
 
 # ---------------------------------------------------------------------------
+# Path 16: the tensor-parallel disaggregated pair, as real worker processes.
+
+PAIR_REQUESTS = 16  # the load runner's requests over the pair
+PAIR_MODEL, PAIR_DEVICE = "flagship", "cuda"  # the workers' LWS_TPU_MODEL and --device
+PAIR_READY_S = 600.0  # a role's start: imports, the card, the full flagship, the group
+
+
+class StandInApi:
+    """The control plane's API server as the disagg workers read it
+    (lws_tpu_torch/client.py: GET /apis/<kind> and /apis/<kind>/<ns>/<name>),
+    serving fixed records: each role's ready pod with its KV port, and the
+    DisaggregatedSet's revision-aware `-prv` services that select them. The
+    JAX control plane does not run beside the port on the card."""
+
+    def __init__(self, kv_ports: dict) -> None:
+        import http.server
+
+        from lws_tpu_torch.serving import kv_transport as kt
+
+        ds = {kt.DS_NAME_LABEL_KEY: "pair", kt.DS_REVISION_LABEL_KEY: "r1",
+              kt.DS_SLICE_LABEL_KEY: "0"}
+        pods, services = [], []
+        for role, port in kv_ports.items():
+            labels = {**ds, kt.DS_ROLE_LABEL_KEY: role}
+            pods.append({"metadata": {"namespace": "default", "name": f"{role}-0",
+                                      "labels": labels},
+                         "status": {"ready": True, "address": "127.0.0.1"},
+                         "spec": {"containers": [{"name": role, "env": [
+                             {"name": "LWS_TPU_KV_PORT", "value": str(port)}]}]}})
+            services.append({"metadata": {"namespace": "default", "name": f"pair-{role}-prv",
+                                          "labels": labels},
+                             "spec": {"selector": {kt.DS_NAME_LABEL_KEY: "pair",
+                                                   kt.DS_ROLE_LABEL_KEY: role}}})
+        records = {"Pod": pods, "Service": services}
+
+        class Handler(http.server.BaseHTTPRequestHandler):
+            def do_GET(self):  # noqa: N802 — the http.server hook
+                parts = self.path.strip("/").split("/")
+                body, code = None, 404
+                if len(parts) == 2 and parts[0] == "apis":
+                    body, code = records.get(parts[1], []), 200
+                elif len(parts) == 4 and parts[0] == "apis":
+                    body = next((r for r in records.get(parts[1], [])
+                                 if r["metadata"]["namespace"] == parts[2]
+                                 and r["metadata"]["name"] == parts[3]), None)
+                    code = 200 if body is not None else 404
+                data = json.dumps(body if code == 200 else {"error": "not found"}).encode()
+                self.send_response(code)
+                self.send_header("Content-Type", "application/json")
+                self.send_header("Content-Length", str(len(data)))
+                self.end_headers()
+                self.wfile.write(data)
+
+            def log_message(self, *a):
+                pass
+
+        self._server = http.server.ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+        self.url = f"http://127.0.0.1:{self._server.server_address[1]}"
+        threading.Thread(target=self._server.serve_forever, daemon=True).start()
+
+    def close(self) -> None:
+        self._server.shutdown()
+        self._server.server_close()
+
+
+class Role:
+    """One role's worker process (`python -m lws_tpu_torch.serving.disagg_worker
+    <role>`), its log and its KV endpoint."""
+
+    def __init__(self, role: str, port: int, api_url: str, tp: int, cards: str, chunk: int,
+                 log_dir: str, tag: str) -> None:
+        repo = os.path.dirname(os.path.abspath(__file__))
+        env = dict(os.environ, LWS_TPU_MODEL=PAIR_MODEL, LWS_TPU_TP=str(tp),
+                   LWS_TPU_KV_PORT=str(port), LWS_TPU_API=api_url, POD_NAME=f"{role}-0",
+                   POD_NAMESPACE="default", LWS_TPU_KV_CHUNK=str(chunk),
+                   CUDA_VISIBLE_DEVICES=cards,
+                   PYTHONPATH=repo + os.pathsep + os.environ.get("PYTHONPATH", ""))
+        self.role, self.ep = role, ("127.0.0.1", port)
+        self.log_path = os.path.join(log_dir, f"{role}-{tag}.log")
+        self._log = open(self.log_path, "w")
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "lws_tpu_torch.serving.disagg_worker", role, "--steps",
+             str(HANDOFF_STEPS), "--max-len", str(MAX_LEN), "--device", PAIR_DEVICE],
+            env=env, cwd=repo, stdout=self._log, stderr=subprocess.STDOUT)
+
+    def log(self) -> str:
+        with open(self.log_path) as f:
+            return f.read()
+
+    def alive(self) -> None:
+        check(self.proc.poll() is None, f"the {self.role} worker exited with "
+                                        f"{self.proc.returncode}:\n{self.log()[-3000:]}")
+
+    def wait_ready(self, deadline: float) -> None:
+        import socket
+
+        while time.monotonic() < deadline:
+            self.alive()
+            try:
+                with socket.create_connection(self.ep, timeout=1.0):
+                    return
+            except OSError:
+                time.sleep(0.5)
+        check(False, f"the {self.role} worker never listened:\n{self.log()[-3000:]}")
+
+    def children(self) -> list[int]:
+        return proc_children(self.proc.pid)
+
+    def stop(self) -> dict:
+        """SIGTERM (the drain); the worker must exit 0. Returns the kernel
+        launches its rank 0 printed at exit."""
+        import signal
+
+        self.proc.send_signal(signal.SIGTERM)
+        try:
+            rc = self.proc.wait(timeout=180)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            rc = self.proc.wait()
+        self._log.close()
+        log = self.log()
+        check(rc == 0, f"the {self.role} worker's drain exited {rc}:\n{log[-3000:]}")
+        line = [ln for ln in log.splitlines() if f"[{self.role}] kernel launches " in ln]
+        check(len(line) == 1, f"the {self.role} worker printed {len(line)} launch lines")
+        return json.loads(line[0].split(" kernel launches ", 1)[1])
+
+
+def proc_children(pid: int) -> list[int]:
+    """The live processes whose parent is `pid` (from /proc)."""
+    out = []
+    for entry in os.listdir("/proc"):
+        if not entry.isdigit():
+            continue
+        try:
+            with open(f"/proc/{entry}/stat") as f:
+                fields = f.read().rsplit(")", 1)[1].split()
+        except OSError:
+            continue
+        if int(fields[1]) == pid and fields[0] != "Z":
+            out.append(int(entry))
+    return out
+
+
+def pid_alive(pid: int) -> bool:
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().rsplit(")", 1)[1].split()[0] != "Z"
+    except OSError:
+        return False
+
+
+def pair_request(roles: dict, rid: str, prompt, timeout: float = 600.0) -> tuple:
+    """One prompt through the pair: submitted to prefill, its result polled
+    from decode. Returns (the result's meta, its tokens [1, steps + 1])."""
+    from lws_tpu_torch.serving import kv_transport as kt
+
+    kt.submit_prompt(roles["prefill"].ep, rid, kt.arrays_to_bytes(prompt=prompt))
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        for r in roles.values():
+            r.alive()
+        got = kt.pull_result(roles["decode"].ep, rid)
+        if got is not None:
+            meta, payload = got
+            check("failed" not in meta, f"pair request {rid} failed: {meta.get('failed')}")
+            return meta, kt.bytes_to_arrays(payload)["tokens"]
+        time.sleep(0.05)
+    check(False, f"pair request {rid}: no result in {timeout:.0f} s")
+
+
+def pair_refs(torch, dev) -> dict:
+    """Path 16's one-card references without path 12 (--disagg-only): path
+    12's engines and handoffs for the 100-token prompt (monolithic) and the
+    1,000-token prompt (monolithic and streamed), each stream held to the
+    decode engine's own prefill + decode_n."""
+    from lws_tpu_torch.serving import disagg_worker as dw
+    from lws_tpu_torch.serving import kv_transport as kt
+    from lws_tpu_torch.serving.engine import Engine
+
+    cfg, model = dw.build_model(MAX_LEN, dev, scale="full")
+    pre, dec = (Engine(cfg, model, batch_size=1, max_len=MAX_LEN, device=dev) for _ in range(2))
+    V = cfg.vocab_size
+    rng = np.random.default_rng(16)
+    pre.generate(rng.integers(1, V, (1, 32)).astype(np.int32), 4)  # warm-up (path 12's draws)
+    prompts = {len(p): p for p in (rng.integers(1, V, n).astype(np.int32)
+                                   for n in paged_prompt_lens())}
+    server = kt.KVServer(port=0, host="127.0.0.1")
+    refs = {}
+    try:
+        for S, chunk in ((100, 0), (1000, 0), (1000, CHUNK)):
+            r = one_handoff(torch, pre, dec, server, prompts[S], chunk, f"ref-{chunk}-{S}")
+            p = prompts[S][None]
+            tok, cache = dec.prefill_chunked(p, chunk_size=CHUNK) if chunk else dec.prefill(p)
+            _, _, toks = dec.decode_n(tok, cache, HANDOFF_STEPS)
+            oracle = np.concatenate([tok.cpu().numpy()[:, None], toks.cpu().numpy()], axis=1)
+            check(np.array_equal(r["toks"], oracle), f"pair reference {chunk}/{S}: the one-card "
+                                                     f"handoff differs from its oracle")
+            refs[(S, chunk)] = r
+    finally:
+        server.close()
+    return refs
+
+
+def check_pair_stream(torch, dev, got, ref, what: str, model_box: dict) -> str:
+    """`got` equals the one-card handoff's tokens, or forks from them only
+    at an argmax near-tie under the one-card model (built on demand)."""
+    want = np.asarray(ref["toks"])
+    got = np.asarray(got)
+    i = first_difference(got[0], want[0])
+    if i >= want.shape[1]:
+        check(got.shape == want.shape, f"{what}: tokens {got.shape} vs {want.shape}")
+        return "equal"
+    if "model" not in model_box:
+        from lws_tpu_torch.serving import disagg_worker as dw
+
+        model_box["cfg"], model_box["model"] = dw.build_model(MAX_LEN, dev, scale="full")
+    gap = check_greedy_chain(torch, dev, model_box["cfg"], model_box["model"],
+                             np.asarray(ref["prompt"])[None], got[0], what)
+    return f"forks at step {i} (a near-tie: every token within {gap:.3e} of its row's max)"
+
+
+def disagg_profile_member(rank: int, out_dir: str, prompt) -> None:
+    """A rank of the decode role's profile group: the decode engine at full
+    width on its tp mesh, one prefill of `prompt`, then HANDOFF_STEPS decode
+    steps profiled on rank 0 (every rank runs them in lockstep)."""
+    import torch
+    import torch.distributed as dist
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    import contextlib
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from lws_tpu_torch.parallel import MeshSpec, build_mesh, initialize_from_env, local_device
+    from lws_tpu_torch.serving import disagg_worker as dw
+
+    info = initialize_from_env(timeout_s=TP_TIMEOUT_S)
+    dev = local_device(info)
+    mesh = build_mesh(MeshSpec(tp=info.num_processes))
+    engine = dw.build_engine(1, MAX_LEN, dev, mesh=mesh)
+    token, cache = engine.prefill(np.asarray(prompt)[None])
+    token, cache, _ = engine.decode_n(token, cache, 8)  # warm
+    torch.cuda.synchronize()
+    ctx = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) if rank == 0 \
+        else contextlib.nullcontext()
+    with ctx as prof:
+        t0 = time.perf_counter()
+        engine.decode_n(token, cache, HANDOFF_STEPS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    if rank == 0:
+        nccl = busy = 0.0
+        for ev in prof.key_averages():
+            if ev.device_type == DeviceType.CUDA:
+                busy += ev.self_device_time_total
+                if "nccl" in ev.key.lower():
+                    nccl += ev.self_device_time_total
+        with open(os.path.join(out_dir, "profile.json"), "w") as f:
+            json.dump({"wall_ms": wall * 1e3, "busy_ms": busy / 1e3, "nccl_ms": nccl / 1e3}, f)
+    dist.destroy_process_group()
+
+
+def disagg_decode_profile(tp: int, cards: str, prompt) -> dict:
+    """NCCL's share of the decode role's steps at tp on `cards`: a spawned
+    group of its own (the workers' processes carry no profiler)."""
+    import tempfile
+
+    from lws_tpu_torch.parallel import launch
+
+    saved = os.environ.get("CUDA_VISIBLE_DEVICES")
+    os.environ["CUDA_VISIBLE_DEVICES"] = cards  # the children see the decode role's cards
+    try:
+        with tempfile.TemporaryDirectory() as out_dir:
+            ctx, _ = launch.spawn_group(disagg_profile_member, tp, args=(out_dir, prompt))
+            launch.join(ctx, timeout_s=900)
+            with open(os.path.join(out_dir, "profile.json")) as f:
+                return json.load(f)
+    finally:
+        if saved is None:
+            os.environ.pop("CUDA_VISIBLE_DEVICES")
+        else:
+            os.environ["CUDA_VISIBLE_DEVICES"] = saved
+
+
+def path_tp_disagg(torch, dev, tp: int, refs: dict, profile_nccl: bool = False) -> dict:
+    """16. The tensor-parallel disaggregated pair at full width: the workers'
+    int8-weight, bf16-K/V flagship (LWS_TPU_MODEL=flagship), each role a
+    real OS process (`python -m lws_tpu_torch.serving.disagg_worker
+    prefill|decode`) with LWS_TPU_TP=tp: on one card each role is a one-rank
+    mesh; with 2 x tp cards prefill takes cards 0..tp-1 and decode the next
+    tp. They pair over loopback TCP through a stand-in API server. Traffic:
+    the 1,000-token prompt streamed (LWS_TPU_KV_CHUNK=CHUNK), the 100-token
+    prompt, the JAX package's shared_prefix scenario (seed 0, its first
+    PAIR_REQUESTS requests) open-loop through loadgen.DisaggTarget; then the
+    prefill role restarts with LWS_TPU_KV_CHUNK=0 and the 1,000-token prompt
+    hands off monolithic; then a SIGTERM drain of both roles. Each measured
+    prompt first goes through once unmeasured (a fresh process's warm-up). Checked: each
+    bundle's bytes equal path 12's one-card handoff's for the prompt, and
+    its tokens too (or fork only at an argmax near-tie); the handoff record
+    says tp_gathered and carries its reshard; every load-runner request
+    completes on the client and is handed off on both roles (their logs);
+    each role's kernel launches, printed by its rank 0 at exit, equal the
+    handoffs' formulas; both roles exit 0 and leave no process behind.
+    Returns the two roles' launches."""
+    import tempfile
+
+    from lws_tpu_torch import loadgen
+    from lws_tpu_torch.parallel import launch
+    from lws_tpu_torch.models.flagship import flagship_config
+
+    t_path = time.perf_counter()
+    L = flagship_config("full" if PAIR_MODEL == "flagship" else "smoke").n_layers
+    cards_all = torch.cuda.device_count()
+    split = cards_all >= 2 * tp
+    cards = {"prefill": ",".join(str(c) for c in range(tp)),
+             "decode": ",".join(str(c) for c in (range(tp, 2 * tp) if split else range(tp)))}
+    ports: dict = {}
+    while len(set(ports.values())) < 2:  # a port one probe releases may come back from the next
+        ports = {role: launch.free_port() for role in ("prefill", "decode")}
+    api = StandInApi(ports)
+    long_p, short_p = refs[(1000, 0)]["prompt"], refs[(100, 0)]["prompt"]
+    spec = loadgen.load_scenario("shared_prefix")
+    schedule = loadgen.build_schedule(spec, 0)[:PAIR_REQUESTS]
+    results, launches, followers = {}, {}, []
+    with tempfile.TemporaryDirectory() as log_dir:
+        roles = {role: Role(role, ports[role], api.url, tp, cards[role],
+                            CHUNK if role == "prefill" else 0, log_dir, "a")
+                 for role in ("decode", "prefill")}
+        try:
+            deadline = time.monotonic() + PAIR_READY_S
+            for r in roles.values():
+                r.wait_ready(deadline)
+            t_ready = time.perf_counter() - t_path
+            followers = [c for r in roles.values() for c in r.children()]
+            # A fresh process's first prefill and decode pay its warm-up
+            # (library loads, first launches): each measured request runs once
+            # unmeasured first.
+            pair_request(roles, "warm-s", long_p)
+            pair_request(roles, "warm-short", short_p)
+            results["long-s"] = pair_request(roles, "long-s", long_p)
+            results["short"] = pair_request(roles, "short", short_p)
+            target = loadgen.DisaggTarget(roles["prefill"].ep, roles["decode"].ep, id_prefix="lg")
+            run = loadgen.run_schedule(schedule, target, max_wall_s=600.0)
+            launches["prefill-a"] = roles["prefill"].stop()
+            roles["prefill"] = Role("prefill", ports["prefill"], api.url, tp, cards["prefill"], 0,
+                                    log_dir, "b")
+            roles["prefill"].wait_ready(time.monotonic() + PAIR_READY_S)
+            followers += roles["prefill"].children()
+            pair_request(roles, "warm-m", long_p)
+            results["long-m"] = pair_request(roles, "long-m", long_p)
+            launches["prefill-b"] = roles["prefill"].stop()
+            launches["decode"] = roles["decode"].stop()
+            logs = {name: open(os.path.join(log_dir, name)).read() for name in os.listdir(log_dir)}
+        finally:
+            for r in roles.values():
+                if r.proc.poll() is None:
+                    r.proc.kill()
+            api.close()
+    wait_until(lambda: not any(pid_alive(p) for p in followers), timeout=60.0)
+    check(not [p for p in followers if pid_alive(p)],
+          f"tp disagg pair: processes {[p for p in followers if pid_alive(p)]} outlived the drain")
+    check(tp == 1 or len(followers) >= 2 * (tp - 1),
+          f"tp disagg pair: {len(followers)} spawned processes for tp={tp}")
+    # Client and server ledgers of the load runner's requests.
+    outs = run.outcomes
+    check(len(outs) == PAIR_REQUESTS and all(o.completed and not o.failed for o in outs),
+          f"tp disagg pair: {sum(o.completed and not o.failed for o in outs)} of "
+          f"{PAIR_REQUESTS} load-runner requests completed")
+    for role, log in (("prefill", logs["prefill-a.log"]), ("decode", logs["decode-a.log"])):
+        n = sum(1 for ln in log.splitlines() if ln.startswith(f"[{role}] HANDOFF lg-"))
+        check(n == PAIR_REQUESTS, f"tp disagg pair: the {role} role handed off {n} of "
+                                  f"{PAIR_REQUESTS} load-runner requests")
+    # Bundles and tokens against path 12's one-card handoffs.
+    model_box: dict = {}
+    verdicts = {}
+    for rid, (S, chunk) in (("long-s", (1000, CHUNK)), ("short", (100, 0)),
+                            ("long-m", (1000, 0))):
+        meta, toks = results[rid]
+        ref, h = refs[(S, chunk)], meta["handoff"]
+        check(h["bundle_bytes"] == ref["stats"]["bundle_bytes"],
+              f"tp disagg pair {rid}: bundle {h['bundle_bytes']} B, one card "
+              f"{ref['stats']['bundle_bytes']} B")
+        check(h["tp_gathered"] is True and bool(h.get("streamed")) == bool(chunk)
+              and h["pos"] == S and "reshard_s" in h,
+              f"tp disagg pair {rid}: handoff record {h}")
+        names = {sp["name"] for sp in meta["spans"]}
+        check({"kv.gather", "kv.reshard", "serve.decode_dispatch"} <= names,
+              f"tp disagg pair {rid}: spans {sorted(names)}")
+        verdicts[rid] = check_pair_stream(torch, dev, toks, ref, f"tp disagg pair {rid}",
+                                          model_box)
+        ttft = (h["wire_s"] if chunk else h["prefill_s"] + h["gather_s"] + h["wire_s"]) \
+            + h["deserialize_s"] + h["reshard_s"]
+        print(f"tp disagg pair tp={tp} {rid} ({S} tokens, "
+              f"{'streamed' if chunk else 'monolithic'}): TTFT across the handoff "
+              f"{ttft * 1e3:.1f} ms (prefill {h['prefill_s'] * 1e3:.1f} ms = "
+              f"{S / h['prefill_s']:.0f} prompt tok/s on the prefill role, gather "
+              f"{h['gather_s'] * 1e3:.1f} ms, wire {h['wire_s'] * 1e3:.1f} ms, deserialize "
+              f"{h['deserialize_s'] * 1e3:.1f} ms, reshard {h['reshard_s'] * 1e3:.1f} ms); "
+              f"decode role {HANDOFF_STEPS / h['decode_s']:.1f} tok/s; bundle "
+              f"{h['bundle_bytes'] / 1e6:.2f} MB; tokens vs one card: {verdicts[rid]}")
+    # Each role's launches, as its rank 0 printed them at exit.
+    lg = [len(r.prompt) for r in schedule]
+    mono = lambda S: {"flash_attention": L, "int8_matmul": 7 * L * (S <= 256) + 1}  # noqa: E731
+    streamed_1000 = 7 * L * -(-1000 // CHUNK) + 1
+    want = {"prefill-a": {"flash_attention": 0, "int8_matmul": 2 * streamed_1000},
+            "prefill-b": {k: 2 * v for k, v in mono(1000).items()},
+            "decode": {"int8_matmul": (7 * L + 1) * HANDOFF_STEPS * (6 + PAIR_REQUESTS)}}
+    for S in [100, 100] + lg:
+        for k, v in mono(S).items():
+            want["prefill-a"][k] += v
+    total = {name: 0 for name in kernel_counters()}
+    for role, got in launches.items():
+        check_launches(f"tp disagg pair {role}", got, want[role])
+        for k, v in got.items():
+            total[k] += v
+    print(f"tp disagg pair tp={tp} ({'prefill on cards ' + cards['prefill'] + ', decode on '
+                                       + cards['decode'] if split else 'both roles on card 0'}):"
+          f" {PAIR_REQUESTS} load-runner requests of shared_prefix completed on the client and "
+          f"both roles' logs; p50 TTFT {statistics.median(o.ttft_s for o in outs) * 1e3:.1f} ms "
+          f"(the client's proxy: the prefill leg); roles ready {t_ready:.1f} s after launch; "
+          f"SIGTERM drained both roles (exit 0) and {len(followers)} spawned processes; path "
+          f"wall time {time.perf_counter() - t_path:.1f} s")
+    if profile_nccl and split:
+        p = disagg_decode_profile(tp, cards["decode"], long_p)
+        print(f"tp disagg pair tp={tp} decode role profile: {HANDOFF_STEPS} decode steps (B=1) "
+              f"wall {p['wall_ms']:.2f} ms ({p['wall_ms'] / HANDOFF_STEPS:.2f} ms/step), device "
+              f"busy {p['busy_ms']:.2f} ms, NCCL {p['nccl_ms']:.3f} ms = "
+              f"{p['nccl_ms'] / p['busy_ms']:.1%} of device time, "
+              f"{p['nccl_ms'] / p['wall_ms']:.1%} of wall")
+    return total
+
+
+# ---------------------------------------------------------------------------
 # Path 15: training (loss and backward, AdamW, checkpoints; the ring and
 # GPipe in their one-rank forms here, on several cards with --train-only).
 
@@ -3442,6 +4076,10 @@ def main(argv=None) -> int:
     ap.add_argument("--tp-only", action="store_true",
                     help="build, then path 14 alone, against single-card references of its "
                          "own (the multi-card run; no kernels line)")
+    ap.add_argument("--disagg-only", action="store_true",
+                    help="build, then path 16 alone at --tp (default 1) against one-card "
+                         "handoffs of its own; with 2 x tp cards the roles take separate "
+                         "cards and NCCL's share of the decode role's steps is printed")
     ap.add_argument("--train-only", action="store_true",
                     help="path 15 alone (no build, no kernels line); with --mesh, its config "
                          "on several cards")
@@ -3496,6 +4134,14 @@ def main(argv=None) -> int:
     world = args.tp or torch.cuda.device_count()
     check(1 <= world <= torch.cuda.device_count(),
           f"--tp {world}: {torch.cuda.device_count()} card(s) visible")
+    if args.disagg_only:
+        path_tp_disagg(torch, dev, args.tp or 1, pair_refs(torch, dev), profile_nccl=True)
+        print(f"chip_smoke: path 16 passed in {time.perf_counter() - t_start:.1f} s")
+        print(f"card: {card}")
+        print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                                 "kind": torch.cuda.get_device_name(0),
+                                                 "count": torch.cuda.device_count()}}))
+        return 0
     if args.tp_only:
         path_tp_only(torch, dev, cfg, world, args.profile)
         print(f"chip_smoke: path 14 passed in {time.perf_counter() - t_start:.1f} s")
@@ -3568,7 +4214,7 @@ def main(argv=None) -> int:
     del batch_engine
     torch.cuda.empty_cache()
     watch.begin()
-    by_path["disagg handoff"] = path_disagg(torch, dev, model8)
+    by_path["disagg handoff"], pair_refs = path_disagg(torch, dev, model8)
     watch.end("disagg handoff")
     torch.cuda.empty_cache()
     watch.begin()
@@ -3580,6 +4226,8 @@ def main(argv=None) -> int:
         torch, dev, world, {"bf16": model, "int8": model8}, prompts, dense_batch(cfg8)[1],
         {"bf16": bf16_streams, "int8": paged_streams, "dense": dense_tokens}, args.profile)
     del model, model8  # the flagships go before the MoE model is built
+    torch.cuda.empty_cache()
+    by_path["tensor-parallel disagg pair"] = path_tp_disagg(torch, dev, 1, pair_refs)
     torch.cuda.empty_cache()
     watch.begin()
     by_path["int8 MoE engines"], kernels["int8_matmul"]["moe_expert_rows"] = path_int8_moe(

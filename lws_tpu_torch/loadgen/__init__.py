@@ -12,8 +12,10 @@ and grades goodput with the rule their server-side SLO ledger uses.
     report = loadgen.summarize(result, loadgen.class_targets(spec),
                                spec["horizon_s"], spec["name"], 0)
 
-Left out: the report renderer, the closed-loop sweep and the `lws-tpu
-loadgen` CLI (lws_tpu/loadgen/report.py, closedloop.py), and `DisaggTarget`.
+`DisaggTarget(prefill_endpoint, decode_endpoint)` drives a live
+disaggregated pair the same way. Left out: the report renderer, the
+closed-loop sweep and the `lws-tpu loadgen` CLI (lws_tpu/loadgen/report.py,
+closedloop.py).
 """
 
 from lws_tpu_torch.loadgen.arrivals import (
@@ -27,6 +29,7 @@ from lws_tpu_torch.loadgen.arrivals import (
     piecewise_poisson,
 )
 from lws_tpu_torch.loadgen.runner import (
+    DisaggTarget,
     EngineTarget,
     RequestOutcome,
     RunResult,
@@ -59,6 +62,7 @@ from lws_tpu_torch.loadgen.workload import (
 __all__ = [
     "SCENARIOS",
     "BurstProcess",
+    "DisaggTarget",
     "EngineTarget",
     "FlashCrowdProcess",
     "GammaProcess",

@@ -1,9 +1,8 @@
 """The open-loop driver: the port's copy of lws_tpu/loadgen/runner.py over
-the port's engines (`EngineTarget`, `build_local_target`, `run_schedule`,
-`summarize`, `worst_requests`). Left out: `DisaggTarget`, which waits for
-the disaggregated handoff's telemetry (the port's `submit_prompt` carries
-no workload class yet). Play a materialized schedule against a target and
-record what the CLIENT observed.
+the port's engines and workers (`EngineTarget`, `DisaggTarget`,
+`build_local_target`, `run_schedule`, `summarize`, `worst_requests`). Play a
+materialized schedule against a target and record what the CLIENT
+observed.
 
 Open-loop means arrivals come from the schedule's timer and NEVER wait on
 completions: a target that falls behind accumulates a waiting queue, queue
@@ -156,6 +155,53 @@ class EngineTarget:
         if toks is None:
             return None
         return {"n_tokens": len(toks)}
+
+
+class DisaggTarget:
+    """Drive a live disaggregated pair over the client path: submit_prompt
+    to the prefill worker's KV port (the class label rides the frame meta
+    to both legs' SLO series), poll pull_result on the decode worker."""
+
+    def __init__(self, prefill_endpoint, decode_endpoint, id_prefix: str = "lg") -> None:
+        self.prefill = prefill_endpoint
+        self.decode = decode_endpoint
+        self.id_prefix = id_prefix
+
+    def submit(self, req: ScheduledRequest, arrival_wall_t: float) -> Optional[str]:
+        from lws_tpu_torch.serving import kv_transport as kt
+
+        rid = f"{self.id_prefix}-{req.index}"
+        try:
+            kt.submit_prompt(self.prefill, rid, kt.arrays_to_bytes(prompt=req.prompt),
+                             klass=req.klass)
+        except OSError:
+            return None  # endpoint saturated or unreachable: open-loop backpressure
+        return rid
+
+    def step(self) -> None:
+        time.sleep(0.01)  # a remote pair: pace the poll loop, not a busy spin
+
+    def poll(self, rid: str) -> Optional[dict]:
+        from lws_tpu_torch.serving import kv_transport as kt
+
+        try:
+            got = kt.pull_result(self.decode, rid, timeout=2.0)
+        except OSError:
+            return None
+        if got is None:
+            return None
+        meta, payload = got
+        if meta.get("failed"):
+            return {"n_tokens": 0, "failed": True}
+        tokens = kt.bytes_to_arrays(payload)["tokens"]
+        handoff = meta.get("handoff", {})
+        return {
+            "n_tokens": int(np.asarray(tokens).shape[1]),
+            # The client's TTFT proxy for a pair without token streaming: the
+            # prefill leg's own dispatch time (the first token exists once
+            # prefill lands), in wall seconds after admission.
+            "ttft_after_admit_wall_s": handoff.get("prefill_s"),
+        }
 
 
 def build_local_target(kind: str, spec: dict, device: DeviceLike = None) -> EngineTarget:

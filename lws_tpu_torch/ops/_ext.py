@@ -18,6 +18,7 @@ allocates outputs, checks shapes and types, and raises on a nonzero return.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import functools
 import hashlib
 import os
@@ -90,14 +91,30 @@ def build(names: Iterable[str]) -> dict[str, str]:
     (obs/device.py: `LEDGER.observe(seconds, executable=name)`), on the
     calling thread, so an ambient `compile_site` attributes it; `seconds` is
     the wall time from the common start to that nvcc's exit. A library
-    already built (found by its hash) records nothing."""
+    already built (found by its hash) records nothing.
+
+    Processes that build together (two tensor-parallel groups starting on
+    one host, say) take turns on an exclusive lock on `_build/.lock`: the
+    first compiles, the others then find every library by its hash and
+    compile nothing, so each library is compiled once."""
+    names = list(names)
+    if all(_library_path(n).exists() for n in names):
+        return {}
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / ".lock", "a") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            return _build_unlocked([n for n in names if not _library_path(n).exists()])
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
+
+
+def _build_unlocked(todo: list) -> dict[str, str]:
     from lws_tpu_torch.obs import device as devicemod
 
-    todo = [n for n in names if not _library_path(n).exists()]
     if not todo:
         return {}
     nvcc = _nvcc()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
     procs, done = {}, {}
     for n in todo:

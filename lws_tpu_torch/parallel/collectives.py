@@ -25,6 +25,22 @@ param_shardings.
     (r + shift) % n of the group, one batch of sends and receives; backward,
     the gradients travel the other way.
 
+Three host-driven helpers serve the disaggregated handoff under a mesh,
+outside autograd (they move K/V, not activations):
+
+  * `broadcast_object(obj, group)`: a small picklable host object (a
+    command, a bundle's array specs, a prefix fetch's result) from the
+    group's rank 0 to every rank;
+  * `gather_heads(x, group, dim)`: KV-head shards ([L, B, T, Hkv/tp, hd]
+    values or [L, B, T, Hkv/tp] scales, heads at `dim`) into the full
+    heads, in rank order, on every rank: what JAX's np.asarray of a
+    tp-sharded cache gives;
+  * `scatter_heads(full, shape, dtype, device, group, dim)`: its inverse,
+    rank 0's full heads split by head, rank r receiving slice r (of local
+    `shape`): what jax.device_put onto the cache's shardings does.
+
+They run over NCCL on CUDA tensors and over gloo on the CPU.
+
 `group=None` means no group: every function returns its input. A group of
 one rank still runs its collective (a copy), except `ppermute`, whose
 one-rank shift is the identity. Peers of a point-to-point are named by
@@ -171,3 +187,36 @@ def ppermute(tensors: Sequence[torch.Tensor], group: Optional[object],
     if group_size(group) == 1:
         return tuple(tensors)
     return _Ppermute.apply(group, shift, *tensors)
+
+
+def broadcast_object(obj, group):
+    """`obj` as the group's rank 0 holds it, on every rank of `group`
+    (the other ranks' argument is ignored)."""
+    if group is None:
+        return obj
+    box = [obj if group_rank(group) == 0 else None]
+    dist.broadcast_object_list(box, src=dist.get_global_rank(group, 0), group=group)
+    return box[0]
+
+
+def gather_heads(x: torch.Tensor, group, dim: int = 3) -> torch.Tensor:
+    """Every rank's head shard `x` concatenated along `dim` in rank order,
+    on every rank."""
+    if group is None:
+        return x
+    with torch.no_grad():
+        return _gather(x, group, dim % x.dim())
+
+
+def scatter_heads(full: Optional[torch.Tensor], shape: Sequence[int], dtype: torch.dtype,
+                  device, group, dim: int = 3) -> torch.Tensor:
+    """Rank r of `group` gets slice r (of `shape`) of rank 0's `full` split
+    evenly along `dim`; the other ranks pass full=None."""
+    if group is None:
+        return full
+    out = torch.empty(tuple(shape), dtype=dtype, device=device)
+    parts = None
+    if group_rank(group) == 0:
+        parts = [c.contiguous() for c in full.chunk(group_size(group), dim=dim)]
+    dist.scatter(out, parts, src=dist.get_global_rank(group, 0), group=group)
+    return out

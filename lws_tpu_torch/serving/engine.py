@@ -26,7 +26,8 @@ KV heads; the batch splits over the dp ranks (rank dp_rank takes rows
 [dp_rank*B/dp, (dp_rank+1)*B/dp)) and each step's tokens are gathered back
 over dp, so every rank returns the whole batch's tokens. The collectives
 are the model's (models/llama.py); `prefill_chunked_stream`, the
-disaggregated handoff's producer, is not ported for a mesh yet.
+disaggregated handoff's producer, gathers each chunk's KV heads over tp on
+every rank and emits the single-device engine's rows on tp rank 0.
 
 Telemetry rides the JAX engine's seams with its names and labels: a
 `serve.request` span, an SLO timeline (first token after the prefill, one
@@ -63,6 +64,7 @@ from lws_tpu_torch.models.llama import (
     shard_params,
     speculative_accept,
 )
+from lws_tpu_torch.parallel.collectives import gather_heads
 from lws_tpu_torch.serving.kv_transport import host_array
 from lws_tpu_torch.serving.pipeline import DecodePipeline
 
@@ -330,12 +332,16 @@ class Engine:
         not), and "tokens", the prompt's [B, lo:hi] slice: the shapes and
         bytes of JAX's arrays (lws_tpu/serving/engine.py:360). A chunk's
         rows are copied on the device before the next chunk runs. Returns (first token [B], the
-        cache at pos S, stats {"chunks", "gather_s"}). Not under a mesh yet:
-        a rank holds only its KV heads, and the tensor-parallel handoff is
-        not ported."""
-        if self.mesh is not None:
-            raise NotImplementedError("prefill_chunked_stream under a mesh: the tensor-parallel "
-                                      "handoff is not ported yet")
+        cache at pos S, stats {"chunks", "gather_s"}).
+
+        Under a mesh every rank computes each chunk, and every rank gathers
+        chunk N's KV heads over the tp group (in chunk order, on this
+        thread and stream, after chunk N+1 is launched: a collective never
+        runs on a side thread); only tp rank 0 copies the full heads to the
+        host and calls `emit` (the other ranks' `emit` is never called and
+        may be None). `gather_s` then covers the head gather too."""
+        group = self.mesh.tp_group if self.mesh is not None else None
+        emits = self.mesh is None or self.mesh.tp_rank == 0
         tokens_host = tokens.cpu().numpy() if isinstance(tokens, torch.Tensor) \
             else np.asarray(tokens)
         tokens = self._tokens(tokens)
@@ -355,10 +361,14 @@ class Engine:
         def drain_one() -> None:
             lo, hi, slices = pending.popleft()
             t0 = time.perf_counter()
-            arrays = {name: host_array(x) for name, x in slices.items()}  # the gather's fence
+            if group is not None:
+                slices = {name: gather_heads(x, group, dim=3) for name, x in slices.items()}
+            if emits:
+                arrays = {name: host_array(x) for name, x in slices.items()}  # the fence
             stats["gather_s"] += time.perf_counter() - t0
-            arrays["tokens"] = tokens_host[:, lo:hi]
-            emit(lo, hi, arrays)
+            if emits:
+                arrays["tokens"] = tokens_host[:, lo:hi]
+                emit(lo, hi, arrays)
             stats["chunks"] += 1
 
         for i in range(0, S + pad, chunk_size):

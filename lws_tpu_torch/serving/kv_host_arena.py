@@ -1,8 +1,11 @@
 """Host-RAM spill tier for the paged engine's prefix cache: the port of
 lws_tpu/serving/kv_host_arena.py (KVHostArena, from_env, the spilled-block
-registry, the occupancy gauges, the spill byte counter and the
-`arena_restore` pool provider), without the advertised fetch port and the
-/debug/prefixes snapshot registry that feed the fleet prefix index.
+registry, the occupancy gauges, the spill byte counter, the
+`arena_restore` pool provider, and the process prefix registry: engines
+register a snapshot provider (weakly: a dead engine falls out), workers
+register their KV fetch port, and `debug_prefixes()` merges both into the
+digest advertisement a fleet prefix index folds in (the body the JAX
+package's telemetry server serves at /debug/prefixes).
 
 When the paged engine evicts an LRU-parked prefix block, it spills the
 block's K/V into a bounded host arena, one blob in the KV wire's
@@ -21,7 +24,7 @@ from __future__ import annotations
 import os
 import threading
 import weakref
-from typing import Optional
+from typing import Callable, Optional
 
 from lws_tpu_torch.core import metrics
 from lws_tpu_torch.obs import device
@@ -31,6 +34,10 @@ ARENA_MB_ENV = "LWS_TPU_KV_HOST_ARENA_MB"
 
 _REG_LOCK = threading.Lock()
 _ARENAS: list = []  # weakrefs to every live KVHostArena; guarded-by: _REG_LOCK
+# name -> snapshot provider; a provider returns {"block_size", "digests":
+# [bytes...], "arena_digests": [bytes...]}, or None once its engine died.
+_PREFIX_SOURCES: dict[str, Callable[[], Optional[dict]]] = {}  # guarded-by: _REG_LOCK
+_FETCH_PORT: Optional[int] = None  # guarded-by: _REG_LOCK
 
 
 class KVHostArena:
@@ -152,3 +159,46 @@ def arena_pool_bytes() -> float:
 
 # Registered once at import: the pool reads 0 until an arena exists.
 device.register_pool_provider("arena_restore", arena_pool_bytes)
+
+
+def register_prefix_source(name: str, provider: Callable[[], Optional[dict]]) -> None:
+    with _REG_LOCK:
+        _PREFIX_SOURCES[name] = provider
+
+
+def unregister_prefix_source(name: str) -> None:
+    with _REG_LOCK:
+        _PREFIX_SOURCES.pop(name, None)
+
+
+def register_fetch_port(port: Optional[int]) -> None:
+    """Advertise the KV wire port siblings should `fetch_prefix` against
+    (the worker's KVServer port). None clears it."""
+    global _FETCH_PORT
+    with _REG_LOCK:
+        _FETCH_PORT = int(port) if port is not None else None
+
+
+def debug_prefixes(limit: int = 256) -> dict:
+    """The prefix advertisement: every live source's resident (device) and
+    arena digests as hex, capped at `limit` each, plus the advertised KV
+    fetch port. Dead sources (provider returned None) are pruned."""
+    with _REG_LOCK:
+        sources = list(_PREFIX_SOURCES.items())
+        port = _FETCH_PORT
+    digests: list[str] = []
+    arena: list[str] = []
+    dead: list[str] = []
+    for name, provider in sources:
+        snap = provider()
+        if snap is None:
+            dead.append(name)
+            continue
+        digests.extend(d.hex() for d in snap.get("digests", []))
+        arena.extend(d.hex() for d in snap.get("arena_digests", []))
+    for name in dead:
+        unregister_prefix_source(name)
+    if limit:
+        digests, arena = digests[:limit], arena[:limit]
+    return {"digests": digests, "arena_digests": arena,
+            "count": len(digests) + len(arena), "kv_port": port}

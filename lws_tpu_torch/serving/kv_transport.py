@@ -9,8 +9,22 @@ crc32. The server (`KVServer`) queues prompts in, bundles out and results,
 and serves cached prefix blocks (`fetch_prefix`); the client helpers
 (`submit_prompt`, `pull_bundle`, `pull_result`, `fetch_prefix`,
 `RemotePrefixSource`, `discover_role_endpoint`) bind to the caller's
-`resilience.Deadline`. Left out: the metrics counters and the fault points
-(the telemetry slice).
+`resilience.Deadline`.
+
+Telemetry and faults are the JAX wire's, at the same moments:
+`serving_kv_transfer_bytes_total{role}` and `serving_kv_transfer_seconds
+{role}` per delivery (role prefill: a bundle or stream sent; decode: one
+received; prefix: a sibling prefix leg), `serving_kv_copy_bytes_total{site}`
+for the one join `arrays_to_bytes` costs, `serving_kv_stream_inflight_chunks`
+(chunks produced and not yet acked, over the process's live streams) and
+`serving_kv_connection_errors_total` for a connection that died on the
+server; `kv_requeue` and `kv_stream_torn` flight-recorder events. The fault
+points are `kv.server.recv`, `kv.server.send_bundle` (partial_write, pace),
+`kv.server.send_result` (partial_write), `kv.stream.send_chunk`
+(partial_write, pace), `kv.client.connect`, `kv.client.recv`,
+`kv.stream.recv_chunk` (drop, partial_write), `kv.ack` (drop) and
+`kv.prefix.fetch`; the cooperative modes in brackets are honored where they
+fire (core/faults.py:COOPERATIVE_POINTS).
 
 bf16 on the wire. The spec names bf16 arrays "bfloat16", as JAX's
 ml_dtypes type does. The port never relies on ml_dtypes for that: a
@@ -23,7 +37,12 @@ installed.
 
 Device seams (`cache_arrays`, `cache_to_bundle`, `bundle_to_cache`,
 `CacheAssembler`) move K/V between the port's `KVCache` (torch tensors on
-the engine's device, host-int `pos`) and the wire's host arrays.
+the engine's device, host-int `pos`) and the wire's host arrays. Under a
+tensor-parallel mesh a rank's cache holds only its Hkv/tp KV heads: the
+bundle side gathers the heads over the tp group first (every rank calls it,
+tp rank 0 gets the bytes), and the decode side scatters them by head from
+tp rank 0 (every rank places only its own). The bundle is the single-device
+engine's either way.
 """
 
 from __future__ import annotations
@@ -43,8 +62,9 @@ import numpy as np
 import torch
 
 from lws_tpu_torch._device import DeviceLike, resolve_device
-from lws_tpu_torch.core import resilience
+from lws_tpu_torch.core import faults, flightrecorder, metrics, resilience
 from lws_tpu_torch.models.llama import KVCache
+from lws_tpu_torch.obs import device as devicemod
 
 _FRAME = struct.Struct("!II")
 _SPEC = struct.Struct("!I")
@@ -130,6 +150,23 @@ def send_msg(sock: socket.socket, meta: dict, payload: Payload = b"") -> None:
     _sendall_vectored(sock, [memoryview(frame)] + views)
 
 
+def _send_partial(sock: socket.socket, meta: dict, payload: Payload, nbytes: int) -> None:
+    """The cooperative `partial_write` fault: ship only the first `nbytes`
+    of the frame, leaving the peer a truncated read (the mid-frame death the
+    re-queue and re-insert paths must survive)."""
+    header = json.dumps(meta).encode()
+    body = b"".join(bytes(v) for v in _as_views(payload))
+    frame = _FRAME.pack(len(header), len(body)) + header + body
+    sock.sendall(frame[: max(0, nbytes)])
+
+
+def _pace_sleep(fault, nbytes: int) -> None:
+    """The cooperative `pace:MBPS` fault: a link of MBPS megabytes a second,
+    slept per frame by its byte count (fair per byte across monolithic and
+    streamed deliveries)."""
+    time.sleep(nbytes / (max(float(fault.arg), 1e-6) * 1e6))
+
+
 def recv_msg(sock: socket.socket) -> tuple[Optional[dict], bytes]:
     raw = _recv_exact(sock, _FRAME.size)
     if raw is None:
@@ -202,8 +239,11 @@ def pack_payload(arrays: dict) -> tuple[list, int]:
 def arrays_to_bytes(**arrays) -> bytes:
     """Pack arrays into ONE contiguous payload: the convenience path for
     small payloads (prompts, token results, tests); the join is its one
-    host copy."""
-    bufs, _ = pack_payload(arrays)
+    host copy, counted in `serving_kv_copy_bytes_total{site}`."""
+    bufs, nbytes = pack_payload(arrays)
+    if nbytes:
+        metrics.inc("serving_kv_copy_bytes_total", {"site": "arrays_to_bytes"},
+                    value=float(nbytes))
     return b"".join(bufs)
 
 
@@ -248,60 +288,138 @@ def to_tensor(arr, device: torch.device) -> torch.Tensor:
     return t.to(device)
 
 
-def cache_arrays(cache: KVCache, token) -> dict:
+_KV_NAMES = ("k", "v", "k_scale", "v_scale")
+
+
+def cache_arrays(cache: KVCache, token, mesh=None) -> Optional[dict]:
     """KVCache + first token [B] -> the wire array dict, cut to the cache's
     `pos` rows: the one place the bundle schema lives. k/v (and k_scale/
     v_scale for an int8 cache) are host copies of rows [0, pos); pos ships
     as a 0-d int32 array and token as [B] int32, as JAX ships them. Bundle
-    bytes follow the prompt's length, not the prefill engine's max_len."""
+    bytes follow the prompt's length, not the prefill engine's max_len.
+
+    Under `mesh` (the engine's tensor-parallel mesh) every rank calls it:
+    the KV heads are gathered over the tp group, so the arrays are the
+    single-device engine's, and tp rank 0 gets them (the other ranks None)."""
     p = int(cache.pos)
+    rows = {n: getattr(cache, n)[:, :, :p] for n in _KV_NAMES if getattr(cache, n) is not None}
+    if mesh is not None:
+        from lws_tpu_torch.parallel.collectives import gather_heads
+
+        rows = {n: gather_heads(t, mesh.tp_group, dim=3) for n, t in rows.items()}
+        if mesh.tp_rank != 0:
+            return None
     arrays = {
-        "k": host_array(cache.k[:, :, :p]),
-        "v": host_array(cache.v[:, :, :p]),
+        "k": host_array(rows["k"]),
+        "v": host_array(rows["v"]),
         "pos": np.asarray(p, np.int32),
         "token": np.asarray(token.cpu() if isinstance(token, torch.Tensor) else token,
                             np.int32),
     }
-    if cache.k_scale is not None:
-        arrays.update(k_scale=host_array(cache.k_scale[:, :, :p]),
-                      v_scale=host_array(cache.v_scale[:, :, :p]))
+    if "k_scale" in rows:
+        arrays.update(k_scale=host_array(rows["k_scale"]), v_scale=host_array(rows["v_scale"]))
     return arrays
 
 
-def cache_to_bundle(cache: KVCache, token) -> bytes:
-    """KVCache + first token -> one monolithic wire bundle."""
-    return arrays_to_bytes(**cache_arrays(cache, token))
+def cache_to_bundle(cache: KVCache, token, mesh=None) -> Optional[bytes]:
+    """KVCache + first token -> one monolithic wire bundle (under `mesh`,
+    on tp rank 0; None on the other ranks, which take part in the gather)."""
+    arrays = cache_arrays(cache, token, mesh)
+    return None if arrays is None else arrays_to_bytes(**arrays)
 
 
-def bundle_to_cache(data, max_len: Optional[int] = None, device: DeviceLike = None
-                    ) -> tuple[KVCache, torch.Tensor]:
+def _check_rows(bundle: dict, max_len: Optional[int]) -> None:
+    for name in _KV_NAMES:
+        if name in bundle and max_len is not None and bundle[name].shape[2] > max_len:
+            raise ValueError(
+                f"bundle holds {bundle[name].shape[2]} KV rows but decode max_len={max_len}")
+
+
+def _fit(t: torch.Tensor, max_len: Optional[int]) -> torch.Tensor:
+    """Rows [L, B, T, ...] in a zeroed [L, B, max_len, ...] buffer."""
+    if max_len is None or t.shape[2] == max_len:
+        return t
+    out = t.new_zeros((*t.shape[:2], max_len, *t.shape[3:]))
+    out[:, :, :t.shape[2]] = t
+    return out
+
+
+def bundle_to_cache(data, max_len: Optional[int] = None, device: DeviceLike = None,
+                    mesh=None) -> tuple[KVCache, torch.Tensor]:
     """Wire bundle (payload bytes, or an unpacked array dict such as a
     stream's HostAssembler gives) -> (KVCache on `device`, first token [B]
     int32). `max_len` is the DECODE side's budget: the wire's rows are
     copied into zeroed [L, B, max_len, ...] buffers with room to append, and
     a bundle of more rows raises ValueError. Omitted, the cache is exactly
-    the wire length."""
+    the wire length.
+
+    Under `mesh` (the decode engine's) every rank calls it, tp rank 0 with
+    the bundle and the others with None: rank 0 checks the bundle and
+    broadcasts its array specs (or its refusal, which every rank then
+    raises), then scatters each array by KV head, so every rank places only
+    its Hkv/tp heads."""
     device = resolve_device(device)
+    if mesh is not None:
+        return _bundle_to_mesh(data, max_len, device, mesh)
     bundle = data if isinstance(data, dict) else bytes_to_arrays(data)
-    for name in ("k", "v", "k_scale", "v_scale"):
-        if name in bundle and max_len is not None and bundle[name].shape[2] > max_len:
-            raise ValueError(
-                f"bundle holds {bundle[name].shape[2]} KV rows but decode max_len={max_len}")
-
-    def fit(a):
-        t = to_tensor(a, device)
-        if max_len is None or t.shape[2] == max_len:
-            return t
-        out = t.new_zeros((*t.shape[:2], max_len, *t.shape[3:]))
-        out[:, :, :t.shape[2]] = t
-        return out
-
+    _check_rows(bundle, max_len)
     cache = KVCache(
-        k=fit(bundle["k"]), v=fit(bundle["v"]), pos=int(np.asarray(bundle["pos"])),
-        k_scale=fit(bundle["k_scale"]) if "k_scale" in bundle else None,
-        v_scale=fit(bundle["v_scale"]) if "v_scale" in bundle else None,
+        k=_fit(to_tensor(bundle["k"], device), max_len),
+        v=_fit(to_tensor(bundle["v"], device), max_len),
+        pos=int(np.asarray(bundle["pos"])),
+        k_scale=_fit(to_tensor(bundle["k_scale"], device), max_len) if "k_scale" in bundle
+        else None,
+        v_scale=_fit(to_tensor(bundle["v_scale"], device), max_len) if "v_scale" in bundle
+        else None,
     )
+    devicemod.record_transfer("kv.bundle_to_cache", sum(
+        int(np.asarray(bundle[n]).nbytes) for n in _KV_NAMES if n in bundle))
     return cache, to_tensor(np.asarray(bundle["token"], np.int32), device)
+
+
+def _bundle_to_mesh(data, max_len: Optional[int], device: torch.device, mesh
+                    ) -> tuple[KVCache, torch.Tensor]:
+    from lws_tpu_torch.parallel import collectives
+
+    group, tp = mesh.tp_group, mesh.tp
+    bundle, head = None, None
+    if mesh.tp_rank == 0:
+        try:
+            bundle = data if isinstance(data, dict) else bytes_to_arrays(data)
+            _check_rows(bundle, max_len)
+            specs = {}
+            for n in _KV_NAMES:
+                if n in bundle:
+                    arr = np.asarray(bundle[n])
+                    if arr.shape[3] % tp:
+                        raise ValueError(f"bundle {n} has {arr.shape[3]} KV heads, not "
+                                         f"divisible by tp={tp}")
+                    specs[n] = (list(arr.shape), _wire_dtype(arr))
+            head = {"arrays": specs, "pos": int(np.asarray(bundle["pos"])),
+                    "token": np.asarray(bundle["token"], np.int32)}
+        except Exception as e:  # noqa: BLE001 — every rank raises the refusal
+            head = {"error": str(e)}
+            err = e
+    head = collectives.broadcast_object(head, group)  # the decision before any scatter
+    if "error" in head:
+        if mesh.tp_rank == 0:
+            raise err
+        raise ValueError(head["error"])
+    out = {}
+    for n, (shape, dt) in head["arrays"].items():
+        local = list(shape)
+        local[3] //= tp
+        full = to_tensor(bundle[n], device) if bundle is not None else None
+        dtype = torch.bfloat16 if dt == "bfloat16" else \
+            torch.from_numpy(np.zeros(0, np.dtype(dt))).dtype
+        out[n] = _fit(collectives.scatter_heads(full, local, dtype, device, group, dim=3),
+                      max_len)
+    if bundle is not None:
+        devicemod.record_transfer("kv.bundle_to_cache", sum(
+            int(np.asarray(bundle[n]).nbytes) for n in head["arrays"]))
+    cache = KVCache(k=out["k"], v=out["v"], pos=head["pos"], k_scale=out.get("k_scale"),
+                    v_scale=out.get("v_scale"))
+    return cache, to_tensor(head["token"], device)
 
 
 # ---------------------------------------------------------------------------
@@ -310,6 +428,20 @@ def bundle_to_cache(data, max_len: Optional[int] = None, device: DeviceLike = No
 # Axis each per-position array chunks along ("tokens" is the [B, width]
 # prompt slice a stream ships so decode can seed its drafting history).
 _CHUNK_AXES = {"k": 2, "v": 2, "k_scale": 2, "v_scale": 2, "tokens": 1}
+
+# serving_kv_stream_inflight_chunks: chunks produced by prefill and not yet
+# acked by a decode puller, summed over this process's live streams.
+_INFLIGHT_LOCK = threading.Lock()
+_INFLIGHT_CHUNKS = 0  # guarded-by: _INFLIGHT_LOCK
+
+
+def _inflight_delta(delta: int) -> None:
+    global _INFLIGHT_CHUNKS
+    with _INFLIGHT_LOCK:
+        _INFLIGHT_CHUNKS = max(0, _INFLIGHT_CHUNKS + delta)
+        value = _INFLIGHT_CHUNKS
+    metrics.set("serving_kv_stream_inflight_chunks", float(value))
+
 
 class _StreamFailed(Exception):
     """Producer-side failure: the stream is dead and is dropped, not
@@ -345,7 +477,10 @@ class KVStream:
         self._failed = False                             # guarded-by: _cond
         self.checksum = 0                                # guarded-by: _cond
         self.payload_bytes = 0                           # guarded-by: _cond
+        self._acked_hw = 0                               # guarded-by: _cond
         self._t0 = time.monotonic()
+        # When each position range left prefill compute (stream-relative s).
+        self.chunk_timeline: list[dict] = []             # guarded-by: _cond
 
     @property
     def failed(self) -> bool:
@@ -362,16 +497,27 @@ class KVStream:
         a puller."""
         bufs, _ = pack_payload(arrays)
         wire_len = _payload_len(bufs)
-        with self._cond:
-            if self._end is not None or self._failed:
-                raise RuntimeError("put_chunk on a finished KVStream")
-            for view in bufs:
-                self.checksum = zlib.crc32(view, self.checksum)
-            meta = {"chunk": len(self._chunks), "pos_range": [int(lo), int(hi)],
-                    "t_produce_s": round(time.monotonic() - self._t0, 6)}
-            self._chunks.append((meta, bufs, wire_len))
-            self.payload_bytes += wire_len
-            self._cond.notify_all()
+        # The gauge rises BEFORE the chunk becomes visible: a connection
+        # thread may deliver and ack it the moment notify lands, and its -1
+        # ahead of this +1 would be eaten by the gauge's zero clamp.
+        _inflight_delta(+1)
+        try:
+            with self._cond:
+                if self._end is not None or self._failed:
+                    raise RuntimeError("put_chunk on a finished KVStream")
+                for view in bufs:
+                    self.checksum = zlib.crc32(view, self.checksum)
+                produce_t = round(time.monotonic() - self._t0, 6)
+                meta = {"chunk": len(self._chunks), "pos_range": [int(lo), int(hi)],
+                        "t_produce_s": produce_t}
+                self.chunk_timeline.append({"chunk": meta["chunk"], "t_s": produce_t,
+                                            "bytes": wire_len})
+                self._chunks.append((meta, bufs, wire_len))
+                self.payload_bytes += wire_len
+                self._cond.notify_all()
+        except BaseException:
+            _inflight_delta(-1)  # the chunk never became visible
+            raise
 
     def finish(self, end_meta: dict, end_arrays: Optional[dict] = None) -> None:
         bufs, _ = pack_payload(end_arrays or {})
@@ -380,10 +526,27 @@ class KVStream:
             self._cond.notify_all()
 
     def fail(self) -> None:
-        """Producer died or raised: wake pullers with a terminal verdict."""
+        """Producer died or raised: wake pullers with a terminal verdict,
+        and release the un-acked chunks from the in-flight gauge."""
         with self._cond:
             self._failed = True
+            pending = len(self._chunks) - self._acked_hw
+            # An ack already in flight then finds nothing to release.
+            self._acked_hw = len(self._chunks)
             self._cond.notify_all()
+        if pending > 0:
+            _inflight_delta(-pending)
+
+    def chunk_acked(self, idx: int) -> None:
+        """First-time ack bookkeeping for the in-flight gauge (a redelivery
+        re-sends acked chunks without releasing them twice)."""
+        delta = 0
+        with self._cond:
+            if idx + 1 > self._acked_hw:
+                delta = idx + 1 - self._acked_hw
+                self._acked_hw = idx + 1
+        if delta:
+            _inflight_delta(-delta)
 
     def read(self, idx: int, timeout: float):
         """Next item for a delivery at position `idx`: ("chunk", meta,
@@ -456,7 +619,7 @@ class CacheAssembler:
 
     def chunk(self, cmeta: dict, arrays: dict) -> None:
         lo, hi = (int(x) for x in cmeta["pos_range"])
-        for name in ("k", "v", "k_scale", "v_scale"):
+        for name in _KV_NAMES:
             arr = arrays.get(name)
             if arr is None:
                 continue
@@ -478,6 +641,7 @@ class CacheAssembler:
             buf[:, :, lo: lo + arr.shape[2]] = arr
             return
         rows = to_tensor(arr, self.device)
+        devicemod.record_transfer("kv.assembler_insert", int(arr.nbytes))
         if buf is None:
             buf = self._bufs[name] = rows.new_zeros(
                 (*rows.shape[:2], self.max_len, *rows.shape[3:]))
@@ -500,11 +664,25 @@ class CacheAssembler:
             raise RuntimeError("take() before the stream END landed")
         cache = KVCache(k=self._bufs["k"], v=self._bufs["v"], pos=self._pos,
                         k_scale=self._bufs.get("k_scale"), v_scale=self._bufs.get("v_scale"))
-        context = np.concatenate(self._token_parts, axis=1) if self._token_parts else None
+        context = self.context()
         token = np.asarray(self._token, np.int32)
         if self.device is not False:
             token = to_tensor(token, self.device)
         return cache, token, self._pos, context
+
+    def context(self) -> Optional[np.ndarray]:
+        """The prompt tokens [B, pos] the stream shipped (None without)."""
+        return np.concatenate(self._token_parts, axis=1) if self._token_parts else None
+
+    def bundle(self) -> dict:
+        """A host assembly (device=False) as the monolithic bundle's array
+        dict, cut to pos rows: what bundle_to_cache takes for a mesh's
+        reshard."""
+        if self._pos is None or self.device is not False:
+            raise RuntimeError("bundle() needs a finished host assembly")
+        out = {n: buf[:, :, :self._pos] for n, buf in self._bufs.items()}
+        out.update(pos=np.asarray(self._pos, np.int32), token=np.asarray(self._token, np.int32))
+        return out
 
 
 # ---------------------------------------------------------------------------
@@ -579,11 +757,20 @@ class KVServer:
             # pull is charged when the bundle ships.
             meta["_offered_t"] = time.monotonic()
         self._bundles.put((meta, payload))
+        self._backlog_beat()
 
     def offer_stream(self, meta: dict, stream: KVStream) -> None:
         """Offer a STREAMED handoff before prefill computes, so a puller
         attaches while chunks are still being produced."""
         self.offer_bundle(meta, stream)
+
+    def _backlog_beat(self) -> None:
+        # The handoff backlog's heartbeat: progress = bundles pulled and
+        # acked, depth = bundles still waiting.
+        with self._counts_lock:
+            delivered = self.bundles_delivered
+        flightrecorder.beat(f"kv_backlog:{self.port}", progress=delivered,
+                            depth=self._bundles.qsize())
 
     def delivery_counts(self) -> tuple[int, int]:
         """(bundles_delivered, results_served) read under the lock."""
@@ -624,9 +811,10 @@ class KVServer:
                 tune_socket(conn)
                 self._handle_one(conn)
         except OSError:
-            pass
+            metrics.inc("serving_kv_connection_errors_total")
 
     def _handle_one(self, conn: socket.socket) -> None:
+        faults.fire("kv.server.recv")
         meta, payload = recv_msg(conn)
         if meta is None:
             return
@@ -651,6 +839,10 @@ class KVServer:
                 send_msg(conn, {"none": True})
                 return
             try:
+                fault = faults.fire("kv.server.send_result")
+                if fault is not None and fault.mode == "partial_write":
+                    _send_partial(conn, entry[0], entry[1], int(fault.arg))
+                    raise OSError("injected partial result write")
                 send_msg(conn, entry[0], entry[1])
             except OSError:
                 with self._results_lock:
@@ -682,13 +874,25 @@ class KVServer:
             if isinstance(bpayload, KVStream):
                 self._send_stream(conn, bmeta, bpayload, ack_timeout)
             else:
+                t0 = time.perf_counter()
+                fault = faults.fire("kv.server.send_bundle")
+                if fault is not None and fault.mode == "partial_write":
+                    _send_partial(conn, bmeta, bpayload, int(fault.arg))
+                    raise OSError("injected partial bundle write")
+                if fault is not None and fault.mode == "pace":
+                    _pace_sleep(fault, len(bpayload))
                 send_msg(conn, bmeta, bpayload)
+                metrics.inc("serving_kv_transfer_bytes_total", {"role": "prefill"},
+                            value=float(len(bpayload)))
+                metrics.observe("serving_kv_transfer_seconds", time.perf_counter() - t0,
+                                {"role": "prefill"})
             conn.settimeout(ack_timeout)
             ack, _ = recv_msg(conn)
             if not (ack or {}).get("ack"):
                 raise OSError("no ack")
             with self._counts_lock:
                 self.bundles_delivered += 1
+            self._backlog_beat()
         except _StreamFailed:
             return  # a dead producer's stream is dropped, never re-queued
         except OSError:
@@ -697,7 +901,10 @@ class KVServer:
                 now = time.monotonic()
                 bmeta["deadline_s"] = max(0.0, float(bmeta["deadline_s"]) - (now - pop_t))
                 bmeta["_offered_t"] = now
+            # The id is the only key joining this requeue to its request.
+            flightrecorder.record("kv_requeue", request_id=str(bmeta.get("id") or ""))
             self._bundles.put((bmeta, bpayload))
+            self._backlog_beat()
 
     def _serve_prefix(self, conn: socket.socket, meta: dict) -> None:
         """The contiguous prefix of the requested digest chain this instance
@@ -712,25 +919,33 @@ class KVServer:
         ack_timeout = float(meta.get("ack_timeout", 30.0))
         stream = KVStream()
         served: list[str] = []
-        for d in digests:
-            arrays = provider(d)
-            if arrays is None:
-                break
-            stream.put_chunk(len(served), len(served) + 1, arrays)
-            served.append(d.hex())
-        if not served:
-            send_msg(conn, {"none": True})
-            return
-        stream.finish({"digests": served})
-        # A torn leg raises OSError to _serve_one with no re-queue: the
-        # requester's retry re-serves from scratch.
-        self._send_stream(conn, {"op": "fetch_prefix"}, stream, ack_timeout)
+        try:
+            for d in digests:
+                arrays = provider(d)
+                if arrays is None:
+                    break
+                stream.put_chunk(len(served), len(served) + 1, arrays)
+                served.append(d.hex())
+            if not served:
+                send_msg(conn, {"none": True})
+                return
+            stream.finish({"digests": served})
+            # A torn leg raises OSError to _serve_one with no re-queue: the
+            # requester's retry re-serves from scratch.
+            self._send_stream(conn, {"op": "fetch_prefix"}, stream, ack_timeout, role="prefix")
+        finally:
+            # After a fully acked delivery a no-op; on a torn leg it releases
+            # the un-acked chunks from the in-flight gauge (no redelivery).
+            stream.fail()
 
     def _send_stream(self, conn: socket.socket, bmeta: dict, stream: KVStream,
-                     ack_timeout: float) -> None:
+                     ack_timeout: float, role: str = "prefill") -> None:
         """One streamed delivery attempt: BEGIN, chunk/ack pairs as the
         producer lands them, then END. Raises OSError on a torn leg (the
-        caller re-queues) or _StreamFailed when the producer died."""
+        caller re-queues) or _StreamFailed when the producer died. `role`
+        labels the transfer metrics: "prefill" for a handoff, "prefix" for a
+        sibling's prefix leg."""
+        t0 = time.perf_counter()
         send_msg(conn, {**bmeta, "stream": True})
         idx = 0
         while True:
@@ -744,14 +959,25 @@ class KVServer:
                     pass
                 raise _StreamFailed(bmeta.get("id", "?"))
             if kind == "chunk":
+                fault = faults.fire("kv.stream.send_chunk")
+                if fault is not None and fault.mode == "partial_write":
+                    _send_partial(conn, cmeta, bufs, int(fault.arg))
+                    raise OSError("injected partial stream chunk write")
+                if fault is not None and fault.mode == "pace":
+                    _pace_sleep(fault, _payload_len(bufs))
                 send_msg(conn, cmeta, bufs)
                 conn.settimeout(ack_timeout)
                 ack, _ = recv_msg(conn)
                 if ack is None or ack.get("ack_chunk") != cmeta["chunk"]:
                     raise OSError("kv stream chunk unacked")
+                stream.chunk_acked(idx)
                 idx += 1
                 continue
             send_msg(conn, cmeta, bufs)  # END
+            metrics.inc("serving_kv_transfer_bytes_total", {"role": role},
+                        value=float(stream.payload_bytes))
+            metrics.observe("serving_kv_transfer_seconds", time.perf_counter() - t0,
+                            {"role": role})
             return
 
 
@@ -771,9 +997,11 @@ def _one_shot(endpoint: tuple[str, int], meta: dict, payload: bytes = b"",
     # Every blocking point checks the bound deadline BEFORE waiting and
     # clamps its socket timeout to the remaining budget.
     resilience.check("kv.connect")
+    faults.fire("kv.client.connect")
     with socket.create_connection(endpoint, timeout=resilience.clamp_timeout(timeout)) as sock:
         tune_socket(sock)
         send_msg(sock, _auth(meta), payload)
+        faults.fire("kv.client.recv")
         return recv_msg(sock)
 
 
@@ -785,10 +1013,23 @@ def _deadline_meta(meta: dict) -> dict:
     return meta
 
 
-def submit_prompt(endpoint, req_id: str, prompt_bytes: bytes) -> None:
-    """Queue a prompt on a prefill worker; the bound Deadline (if any) rides
-    the frame meta, so the worker drops the prompt once it has expired."""
+def submit_prompt(endpoint, req_id: str, prompt_bytes: bytes,
+                  trace_ctx: Optional[dict] = None, klass: Optional[str] = None) -> None:
+    """Queue a prompt on a prefill worker. `trace_ctx` (default: the
+    caller's current span context) rides the frame meta, so the prefill
+    worker's span subtree grafts onto the caller's trace; the bound Deadline
+    (if any) rides the same way, so the worker drops the prompt once it has
+    expired; `klass`, the request's workload class, rides to the prefill leg
+    and on with the bundle to decode, so both workers' SLO series carry it."""
+    if trace_ctx is None:
+        from lws_tpu_torch.core import trace
+
+        trace_ctx = trace.current_context()
     meta = _deadline_meta({"op": "submit_prompt", "id": req_id})
+    if trace_ctx:
+        meta["trace"] = trace_ctx
+    if klass:
+        meta["klass"] = klass
     meta, _ = _one_shot(endpoint, meta, prompt_bytes)
     if not (meta or {}).get("ok"):
         raise RuntimeError(f"submit_prompt failed: {meta}")
@@ -804,9 +1045,18 @@ def _recv_stream(sock: socket.socket, begin_meta: dict, receiver,
     crc = 0
     n = 0
     nbytes = 0
+    t0 = time.monotonic()
+    # When each chunk landed off the wire (stream-relative s), beside when
+    # it left prefill.
+    chunk_timeline: list[dict] = []
     poison: Optional[BaseException] = None
     while True:
         resilience.check("kv.stream.recv")
+        fault = faults.fire("kv.stream.recv_chunk")
+        if fault is not None and fault.mode in ("drop", "partial_write"):
+            # Receive-side loss: the connection is abandoned mid-stream as
+            # if the read tore.
+            raise OSError(f"injected kv stream recv loss at chunk {n}")
         sock.settimeout(resilience.clamp_timeout(ack_timeout))
         cmeta, payload = recv_msg(sock)
         if cmeta is None:
@@ -823,6 +1073,7 @@ def _recv_stream(sock: socket.socket, begin_meta: dict, receiver,
             merged["payload_bytes"] = nbytes
             try:
                 receiver.payload_bytes = nbytes
+                receiver.chunk_timeline = chunk_timeline
             except AttributeError:
                 pass
             if poison is None:
@@ -837,6 +1088,10 @@ def _recv_stream(sock: socket.socket, begin_meta: dict, receiver,
         if int(cmeta.get("chunk", -1)) != n:
             raise OSError("out-of-order kv stream chunk")
         crc = zlib.crc32(payload, crc)
+        chunk_timeline.append({"chunk": n, "t_s": round(time.monotonic() - t0, 6),
+                               "bytes": len(payload),
+                               **({"t_produce_s": cmeta["t_produce_s"]}
+                                  if "t_produce_s" in cmeta else {})})
         # Ack on receipt, then insert: the ack keeps the sender moving while
         # this side uploads; durability is the END checksum + final ack.
         send_msg(sock, {"ack_chunk": n})
@@ -867,12 +1122,14 @@ def pull_bundle(endpoint, timeout: float = 1.0, process=None,
     gains `wire_s`, the seconds from the reply's first byte to its last (a
     local measurement, never on the wire)."""
     resilience.check("kv.pull_bundle")
+    faults.fire("kv.client.connect")
     with socket.create_connection(
         endpoint, timeout=resilience.clamp_timeout(timeout + 9.0)
     ) as sock:
         tune_socket(sock)
         send_msg(sock, _auth({"op": "pull_bundle", "timeout": timeout,
                               "ack_timeout": ack_timeout}))
+        faults.fire("kv.client.recv")
         # The wire clock opens at the FIRST reply byte: the wait before it
         # is the server's long poll for a bundle.
         raw = _recv_exact(sock, _FRAME.size)
@@ -886,16 +1143,37 @@ def pull_bundle(endpoint, timeout: float = 1.0, process=None,
             return None
         if meta.get("stream"):
             receiver = receiver_factory(meta) if receiver_factory else HostAssembler(meta)
-            meta, payload, _ = _recv_stream(sock, meta, receiver, ack_timeout)
+            try:
+                meta, payload, rx_bytes = _recv_stream(sock, meta, receiver, ack_timeout)
+            except OSError as e:
+                # The server re-queues the whole stream; the id joins the
+                # torn leg to the request it delayed.
+                flightrecorder.record("kv_stream_torn", request_id=str(meta.get("id") or ""),
+                                      error=repr(e)[:200])
+                raise
+        else:
+            rx_bytes = len(payload)
         meta["wire_s"] = time.perf_counter() - t0
+        metrics.inc("serving_kv_transfer_bytes_total", {"role": "decode"},
+                    value=float(rx_bytes))
+        metrics.observe("serving_kv_transfer_seconds", meta["wire_s"], {"role": "decode"})
         if process is None:
-            send_msg(sock, {"ack": True})
+            _send_ack(sock)
             if isinstance(payload, PoisonPayload):
                 raise payload.error
             return meta, payload
         result = process(meta, payload)  # raise => no ack => the server re-queues
-        send_msg(sock, {"ack": True})
+        _send_ack(sock)
         return result
+
+
+def _send_ack(sock: socket.socket) -> None:
+    fault = faults.fire("kv.ack")
+    if fault is not None and fault.mode == "drop":
+        # Ack loss: the connection closes unacked, the server re-queues, and
+        # the next pull replays the bundle into the puller's dedup guard.
+        return
+    send_msg(sock, {"ack": True})
 
 
 def pull_result(endpoint, req_id: str, timeout: float = 10.0):
@@ -936,10 +1214,12 @@ def fetch_prefix(endpoint, digests: Sequence, timeout: float = 5.0,
     contiguous chain prefix it held; {} when it held nothing. A torn leg
     raises OSError without a partial result."""
     resilience.check("kv.prefix.fetch")
+    faults.fire("kv.prefix.fetch")
     with socket.create_connection(endpoint, timeout=resilience.clamp_timeout(timeout)) as sock:
         tune_socket(sock)
         send_msg(sock, _auth({"op": "fetch_prefix", "digests": [d.hex() for d in digests],
                               "ack_timeout": ack_timeout}))
+        t0 = time.perf_counter()
         meta, _ = recv_msg(sock)
         if meta is None:
             raise OSError("truncated fetch_prefix reply")
@@ -949,9 +1229,12 @@ def fetch_prefix(endpoint, digests: Sequence, timeout: float = 5.0,
             return {}
         if not meta.get("stream"):
             raise OSError("fetch_prefix reply was not a stream")
-        merged, blocks, _ = _recv_stream(sock, meta, _PrefixReceiver(), ack_timeout)
+        merged, blocks, rx_bytes = _recv_stream(sock, meta, _PrefixReceiver(), ack_timeout)
         if isinstance(blocks, PoisonPayload):
             raise OSError(f"fetch_prefix receiver failed: {blocks.error!r}")
+        metrics.inc("serving_kv_transfer_bytes_total", {"role": "prefix"}, value=float(rx_bytes))
+        metrics.observe("serving_kv_transfer_seconds", time.perf_counter() - t0,
+                        {"role": "prefix"})
         served = [bytes.fromhex(h) for h in merged.get("digests", [])]
         return dict(zip(served, blocks))
 

@@ -62,8 +62,10 @@ holding its tp shard of the weights and pools on its Hkv/tp KV heads (int8
 scale pools too); pools replicate over dp. Every kernel call then sees the
 rank's local heads; the collectives are the model's. Unseeded sampling
 broadcasts rank 0's entropy, so every rank draws the same stream.
-The host-arena and remote prefix tiers are not ported for a mesh yet (they
-come with the tensor-parallel handoff) and raise.
+The host-arena and remote prefix tiers run beside a mesh in the
+single-device wire format: a spill gathers the block's heads over tp, a
+restore places each rank's heads, and a remote fetch is tp rank 0's alone,
+its result broadcast before the hit walk goes on.
 
 Telemetry rides the JAX engine's seams with its names and labels: each
 request's SLO timeline (queue wait at slot acquisition, first token at
@@ -84,6 +86,7 @@ import hashlib
 import itertools
 import os
 import time
+import weakref
 from dataclasses import dataclass, field
 from typing import Optional
 
@@ -109,6 +112,7 @@ from lws_tpu_torch.models.llama import (
 )
 from lws_tpu_torch.models.quant import quantized_bytes
 from lws_tpu_torch.obs import device as devicemod
+from lws_tpu_torch.parallel.collectives import broadcast_object, gather_heads
 from lws_tpu_torch.serving import kv_host_arena
 from lws_tpu_torch.serving.engine import (
     Engine,
@@ -209,9 +213,15 @@ class PagedBatchEngine:
         set later by set_remote_prefix) fetches them from siblings. With
         `mesh`, `params` (full, or already sharded for it) are sharded for
         the rank and the pools hold its Hkv/tp heads; a mesh whose tp does
-        not divide n_kv_heads is refused, and so is a host arena or remote
-        tier beside a mesh (not ported yet). `donate_steps` has no
-        counterpart (the pool is updated in place)."""
+        not divide n_kv_heads is refused. Beside a mesh the prefix tiers
+        keep the single-device wire format: a spill gathers the block's
+        heads over tp and every rank's arena stores the whole block (the
+        ranks' arenas take the same puts in the same order, so they hold the
+        same digests), a restore places each rank's heads, and a remote
+        fetch is dialed by tp rank 0 alone and its result (or its miss)
+        broadcast before anything else, so every rank makes the same hit
+        decision; every rank must be given a remote tier or none.
+        `donate_steps` has no counterpart (the pool is updated in place)."""
         self.device = resolve_device(device)
         if params.device.type != self.device.type or (
             self.device.index is not None and params.device != self.device
@@ -262,9 +272,21 @@ class PagedBatchEngine:
         if prefix_cache and host_arena is None:
             self._host_arena = kv_host_arena.from_env()
         self._remote_prefix = remote_prefix
-        if mesh is not None and (self._host_arena is not None or remote_prefix is not None):
-            raise NotImplementedError("the host-arena and remote prefix tiers under a mesh are "
-                                      "not ported yet (they come with the tensor-parallel handoff)")
+        if prefix_cache:
+            # Advertise this engine's resident and spilled digests
+            # (kv_host_arena.debug_prefixes), weakly: a dead engine's
+            # provider returns None and the registry prunes it.
+            me = weakref.ref(self)
+
+            def prefix_snapshot():
+                eng = me()
+                if eng is None:
+                    return None
+                return {"block_size": eng.block_size, "digests": list(eng._prefix_map),
+                        "arena_digests": (eng._host_arena.digests()
+                                          if eng._host_arena is not None else [])}
+
+            kv_host_arena.register_prefix_source(f"paged-engine-{id(self):x}", prefix_snapshot)
         # A request mid-chunked-admission holds blocks but is not active yet:
         # pool_accounting counts its blocks live.
         self._admitting: Optional[PagedRequest] = None
@@ -384,10 +406,25 @@ class PagedBatchEngine:
 
     # ---- prefix caching -----------------------------------------------
     def set_remote_prefix(self, source) -> None:
-        """Wire (or clear) the remote tier after construction."""
-        if self.mesh is not None and source is not None:
-            raise NotImplementedError("the remote prefix tier under a mesh is not ported yet")
+        """Wire (or clear) the remote tier after construction (under a mesh,
+        on every rank alike)."""
         self._remote_prefix = source
+
+    def _fetch_remote(self, digests: list[bytes]) -> dict:
+        """The remote tier's blocks for `digests`; under a mesh tp rank 0
+        alone dials, and its result or miss reaches every rank before the
+        walk goes on."""
+        if self.mesh is None:
+            return self._remote_prefix.fetch(digests) or {}
+        found = (self._remote_prefix.fetch(digests) or {}) if self.mesh.tp_rank == 0 else None
+        return broadcast_object(found, self.mesh.tp_group)
+
+    def _head_slice(self, arr):
+        """This rank's KV heads of a whole block's [L, bs, Hkv(, hd)] array."""
+        if self.mesh is None:
+            return arr
+        h = arr.shape[2] // self.mesh.tp
+        return arr[:, :, self.mesh.tp_rank * h:(self.mesh.tp_rank + 1) * h]
 
     def _block_digests(self, prompt: np.ndarray, n: int) -> list[bytes]:
         """Position-binding hash chain over the first n full blocks: block
@@ -441,8 +478,10 @@ class PagedBatchEngine:
         wire's format. Eviction proceeds the same whether the arena took
         the entry or dropped it as oversized."""
         names = ("k", "v", "k_scale", "v_scale") if self.cfg.kv_quant else ("k", "v")
-        if self._host_arena.put(digest, {n: host_array(getattr(self.cache, n)[:, blk])
-                                         for n in names}):
+        rows = {n: getattr(self.cache, n)[:, blk] for n in names}
+        if self.mesh is not None:  # the whole block, in the single-device format
+            rows = {n: gather_heads(t, self.mesh.tp_group, dim=2) for n, t in rows.items()}
+        if self._host_arena.put(digest, {n: host_array(t) for n, t in rows.items()}):
             self.stats_prefix["spills"] += 1
 
     def _restore_block(self, digest: bytes, arrays: dict) -> Optional[int]:
@@ -455,7 +494,7 @@ class PagedBatchEngine:
         if got is None:
             return None
         blk = got[0]
-        rows = {n: to_tensor(a, self.device) for n, a in arrays.items()}
+        rows = {n: to_tensor(self._head_slice(a), self.device) for n, a in arrays.items()}
         scales = (rows["k_scale"], rows["v_scale"]) if self.cfg.kv_quant else ()
         paged_insert(self.cache, rows["k"], rows["v"],
                      torch.tensor([blk], device=self.device), *scales)
@@ -731,7 +770,7 @@ class PagedBatchEngine:
             if arrays is None:
                 if self._remote_prefix is not None and remote_found is None:
                     # One fetch per admission for the whole remaining chain.
-                    remote_found = self._remote_prefix.fetch(digests[i:]) or {}
+                    remote_found = self._fetch_remote(digests[i:])
                 tier, arrays = "remote", (remote_found or {}).get(d)
                 if arrays is None:
                     break

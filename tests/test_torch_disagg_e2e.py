@@ -130,7 +130,15 @@ def test_port_workers_hand_off_under_the_control_plane(tmp_path, oracle, chunk):
         for key in ("pos", "bundle_bytes", "prefill_s", "gather_s", "tp_gathered",
                     "deserialize_s", "reshard_s", "decode_s"):
             assert key in handoff, (key, handoff)
-        assert meta["spans"] == []
+        # The result ships the handoff's span subtree, one tree across the
+        # two processes, and the handoff record is read off its durations.
+        spans = {sp["name"]: sp for sp in meta["spans"]}
+        assert set(spans) == {"serve.request", "serve.prefill", "kv.gather", "kv.deserialize",
+                              "kv.reshard", "serve.decode_dispatch"}, sorted(spans)
+        assert len({sp["trace_id"] for sp in meta["spans"]}) == 1
+        for key, name in (("prefill_s", "serve.prefill"), ("deserialize_s", "kv.deserialize"),
+                          ("reshard_s", "kv.reshard"), ("decode_s", "serve.decode_dispatch")):
+            assert handoff[key] == round(spans[name]["duration_s"], 4), (key, handoff)
         cfg = flagship_config("smoke", max_seq_len=MAX_LEN)
         assert handoff["pos"] == len(prompt)
         assert handoff["bundle_bytes"] >= len(prompt) * kv_row_bytes(cfg), handoff

@@ -2,8 +2,8 @@
 (lws_tpu_torch/serving/paged_engine.py: step_speculative, its host-loop
 oracle step_speculative_sync, run_until_drained_speculative) and its model
 functions (forward_verify_paged, ngram_draft, speculative_accept) held to the
-JAX package on the CPU, case by case after tests/test_paged_speculative.py
-(all but its TP-mesh case).
+JAX package on the CPU, case by case after tests/test_paged_speculative.py;
+its TP-mesh case runs in tests/test_torch_tp_serving.py's world-2 spawn.
 
 Both engines run the same converted f32 weights and prompts, the JAX one on
 its Pallas paged kernel in interpret mode. Greedy streams must be

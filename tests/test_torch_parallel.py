@@ -283,9 +283,11 @@ def test_rank_zero_builds_the_kernels_behind_a_barrier(tmp_path):
 
 
 def test_a_mesh_refuses_what_is_not_ported(one_rank_group):
-    """Beside a mesh the host-arena and remote prefix tiers and the
-    streamed prefill (the tensor-parallel handoff's parts) raise, and
-    quantize_params refuses a shard; tp = 1 serves as the full model."""
+    """quantize_params refuses a shard (quantize the full model, then shard
+    it); tp = 1 serves as the full model. The tensor-parallel handoff's
+    parts now run beside a mesh: the host-arena and remote prefix tiers
+    are accepted at construction and after it, and the streamed prefill
+    emits the chunks the mesh-free engine emits."""
     from lws_tpu_torch.models.llama import LlamaConfig, init_params, shard_params
     from lws_tpu_torch.models.quant import quantize_params
     from lws_tpu_torch.serving.engine import Engine
@@ -298,16 +300,23 @@ def test_a_mesh_refuses_what_is_not_ported(one_rank_group):
     model = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
     mesh = build_mesh(MeshSpec())
     kw = dict(slots=2, max_len=32, block_size=8, mesh=mesh, prefix_cache=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="tensor-parallel handoff"):
-        PagedBatchEngine(cfg, model, host_arena=KVHostArena(1 << 20), **kw)
-    with pytest.raises(NotImplementedError, match="tensor-parallel handoff"):
-        PagedBatchEngine(cfg, model, remote_prefix=RemotePrefixSource(endpoints=()), **kw)
+    arena = KVHostArena(1 << 20)
+    assert PagedBatchEngine(cfg, model, host_arena=arena, **kw)._host_arena is arena
+    src = RemotePrefixSource(endpoints=())
+    assert PagedBatchEngine(cfg, model, remote_prefix=src, **kw)._remote_prefix is src
     engine = PagedBatchEngine(cfg, model, **kw)
-    with pytest.raises(NotImplementedError, match="remote prefix tier under a mesh"):
-        engine.set_remote_prefix(RemotePrefixSource(endpoints=()))
+    engine.set_remote_prefix(src)
+    assert engine._remote_prefix is src
     dense = Engine(cfg, model, batch_size=1, max_len=32, mesh=mesh, device="cpu")
-    with pytest.raises(NotImplementedError, match="under a mesh"):
-        dense.prefill_chunked_stream(np.arange(5)[None], 4, lambda *a: None)
+    chunks = {}
+    for name, eng in (("mesh", dense), ("plain", Engine(cfg, model, batch_size=1, max_len=32,
+                                                         device="cpu"))):
+        chunks[name] = []
+        eng.prefill_chunked_stream(np.arange(5)[None], 4,
+                                   lambda lo, hi, a, out=chunks[name]: out.append((lo, hi, a)))
+    assert [c[:2] for c in chunks["mesh"]] == [c[:2] for c in chunks["plain"]] == [(0, 4), (4, 5)]
+    for (_, _, got), (_, _, want) in zip(chunks["mesh"], chunks["plain"]):
+        assert all(np.array_equal(got[n], want[n]) for n in want)
     with pytest.raises(ValueError, match="quantize the full model"):
         quantize_params(shard_params(model, mesh))
     prompt = np.array([5, 9, 2, 11], np.int32)

@@ -1,7 +1,8 @@
 """The port's PagedBatchEngine with prefix caching and chunked-prefill
 admission (lws_tpu_torch/serving/paged_engine.py) held to the JAX engine on
 the CPU, case by case after tests/test_prefix_cache.py and
-tests/test_chunked_admission.py (all but their TP-mesh cases).
+tests/test_chunked_admission.py; their TP-mesh cases run in
+tests/test_torch_tp_serving.py's world-2 spawn.
 
 Both engines run the same converted f32 weights and prompts, the JAX one on
 its Pallas paged kernel in interpret mode (as tests/test_torch_paged_engine.py

@@ -227,7 +227,7 @@ def test_flight_recorder_dump_embeds_profile_and_compiles():
 ])
 def test_fault_schedules_fire_alike(spec):
     def run(f):
-        inj = f.FaultInjector(**({} if f is faults else {"env": ""}))
+        inj = f.FaultInjector(env="")
         inj.arm("pipeline.dispatch", spec)
         out = []
         for _ in range(8):
@@ -243,21 +243,30 @@ def test_fault_schedules_fire_alike(spec):
 
 def test_fault_grammar_and_refusals_match():
     """A malformed spec is refused by both injectors at arm time, and
-    nothing is armed. The port keeps only the raising and delay modes, so
-    JAX's cooperative modes (honored only at its KV wire's points) are
-    unknown modes to the port."""
+    nothing is armed. A cooperative mode (drop, partial_write, pace) arms
+    only at a point whose call site honors it: both refuse it at a bare
+    point with the same message, and both arm it at the KV wire's points."""
     for bad in ("nope", "", "unknown:1", "fail_n_times", "every_k:0",
-                "delay:x", "prob:0.5", "fail_n_times:1:KeyError"):
+                "delay:x", "prob:0.5", "fail_n_times:1:KeyError", "pace:0"):
         for f in (faults, jfaults):
-            inj = f.FaultInjector(**({} if f is faults else {"env": ""}))
+            inj = f.FaultInjector(env="")
             with pytest.raises(ValueError):
                 inj.arm("pipeline.dispatch", bad)
             assert not inj.armed and inj.snapshot()["armed"] == {}
-    for coop in ("drop:1", "partial_write:8:1", "pace:10"):
-        with pytest.raises(ValueError, match="unknown fault mode"):
-            faults.FaultInjector().arm("pipeline.dispatch", coop)
-        with pytest.raises(ValueError):
-            jfaults.FaultInjector(env="").arm("pipeline.dispatch", coop)
+    for point, coop in (("pipeline.dispatch", "drop:1"), ("kv.ack", "partial_write:8:1"),
+                        ("kv.server.send_result", "pace:10")):
+        msgs = []
+        for f in (faults, jfaults):
+            with pytest.raises(ValueError) as info:
+                f.FaultInjector(env="").arm(point, coop)
+            msgs.append(str(info.value))
+        assert msgs[0] == msgs[1] and "does not honor cooperative mode" in msgs[0]
+    for point, modes in jfaults.COOPERATIVE_POINTS.items():
+        for mode in modes:
+            spec = {"drop": "drop:1", "partial_write": "partial_write:8:1", "pace": "pace:10"}[mode]
+            inj = faults.FaultInjector(env="")
+            inj.arm(point, spec)
+            assert inj.snapshot()["armed"] == {point: spec}
 
 
 @pytest.mark.parametrize("name", sorted(jloadgen.SCENARIOS))

@@ -19,7 +19,10 @@ neither jax nor the JAX package; run it on a four-card machine with
     rank, 250.5 tiles of 128 (the first ragged last tile the int8_matmul
     kernel meets on this path), at every row count the engines give the
     head; each rank's product is held to int8_matmul's plain version, and
-    the all-gathered logits to the full head's plain product.
+    the all-gathered logits to the full head's plain product;
+  * the disaggregated handoff under a tp = 2 mesh: the head gather and
+    scatter over NCCL (two cards), and the two-role pair of chip_smoke.py's
+    path 16 with each role on two cards.
 """
 
 import dataclasses
@@ -184,3 +187,77 @@ def test_vocab_sharded_lm_head_ragged_tile_at_tp4(cards, tmp_path):
             assert err <= TOL, (r, m, err)
         for m, err in rec["gathered_err"].items():
             assert err <= TOL, (r, m, err)
+
+
+def _handoff_member(rank: int, out_dir: str) -> None:
+    """A rank of a tp = 2 NCCL group: the handoff's device seams on given
+    bf16 rows at the flagship's KV geometry, and the broadcast of a host
+    object (what the TP workers' prefix tier and reshard broadcast)."""
+    _repo_on_path()
+    import hashlib
+
+    import torch.distributed as dist
+
+    from lws_tpu_torch.models.llama import KVCache
+    from lws_tpu_torch.parallel.collectives import broadcast_object
+    from lws_tpu_torch.serving import kv_transport as kt
+
+    dev, mesh = _start()
+    g = torch.Generator(device="cpu").manual_seed(7)
+    L, T, Hkv, hd, pos = 32, 1000, 8, 128, 987
+    full = {n: torch.randn(L, 1, T, Hkv, hd, generator=g).to(torch.bfloat16) for n in ("k", "v")}
+    h = Hkv // mesh.tp
+    mine = {n: t[:, :, :, mesh.tp_rank * h:(mesh.tp_rank + 1) * h].to(dev) for n, t in full.items()}
+    cache = KVCache(k=mine["k"], v=mine["v"], pos=pos)
+    bundle = kt.cache_to_bundle(cache, torch.tensor([42], dtype=torch.int32, device=dev),
+                                mesh=mesh)
+    single = kt.cache_to_bundle(KVCache(k=full["k"], v=full["v"], pos=pos),
+                                torch.tensor([42], dtype=torch.int32))
+    rec = {"gathered_equal": None if bundle is None else bundle == single}
+    placed, token = kt.bundle_to_cache(single if mesh.tp_rank == 0 else None, max_len=2048,
+                                       device=dev, mesh=mesh)
+    rec["placed_equal"] = all(torch.equal(getattr(placed, n)[:, :, :pos].cpu(),
+                                          mine[n][:, :, :pos].cpu()) for n in ("k", "v"))
+    rec["placed_shape"] = list(placed.k.shape)
+    rec["token"] = token.tolist()
+    rec["broadcast"] = broadcast_object({"rank0": hashlib.sha256(single).hexdigest()}
+                                        if mesh.tp_rank == 0 else None, mesh.tp_group)
+    rec["digest"] = hashlib.sha256(single).hexdigest()
+    with open(os.path.join(out_dir, f"{rank}.json"), "w") as f:
+        json.dump(rec, f)
+    dist.destroy_process_group()
+
+
+def test_tp2_handoff_seams_over_nccl(tmp_path):
+    """cache_to_bundle(mesh=) gathers the ranks' KV heads over NCCL into the
+    single-device bundle byte for byte (on tp rank 0), and
+    bundle_to_cache(mesh=) scatters it back, each rank placing exactly its
+    heads, at the flagship's KV geometry and a 1,000-row prompt."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs 2 CUDA GPUs")
+    ctx, _ = launch.spawn_group(_handoff_member, 2, args=(str(tmp_path),))
+    launch.join(ctx, timeout_s=600)
+    recs = [json.loads((tmp_path / f"{r}.json").read_text()) for r in range(2)]
+    assert recs[0]["gathered_equal"] is True and recs[1]["gathered_equal"] is None
+    for rec in recs:
+        assert rec["placed_equal"] and rec["placed_shape"] == [32, 1, 2048, 4, 128]
+        assert rec["token"] == [42] and rec["broadcast"] == {"rank0": rec["digest"]}
+
+
+def test_tp2_disaggregated_pair_on_four_cards(cards):
+    """chip_smoke.py's path 16 at tp = 2: the prefill role on cards 0-1 and
+    the decode role on 2-3, each a real worker process with a spawned
+    second rank, the full flagship, over loopback TCP; held to one-card
+    handoffs of the same prompts (bundle bytes, tokens up to argmax
+    near-ties, launches, the drain)."""
+    _repo_on_path()
+    import chip_smoke as cs
+
+    dev = torch.device("cuda", 0)
+    from lws_tpu_torch.ops import _ext
+
+    _ext.build(sorted(p.stem for p in _ext.CSRC_DIR.glob("*.cu")))
+    refs = cs.pair_refs(torch, dev)
+    torch.cuda.empty_cache()
+    launches = cs.path_tp_disagg(torch, dev, 2, refs)
+    assert launches["flash_attention"] > 0 and launches["int8_matmul"] > 0

@@ -12,7 +12,12 @@ value; each rank's pool holds Hkv/tp heads. f32 tiny configs throughout.
 The cases mirror tests/test_serving_paged_tp.py (kv_quant off and on, a
 (dp=2, tp=2) mesh, indivisible heads refused) and
 tests/test_moe_serving.py:96 (expert parallelism), plus int8 weights with
-int8 KV at tp = 2. The JAX-only cases have no counterpart here:
+int8 KV at tp = 2, and the serving modes under a tp = 2 mesh:
+tests/test_prefix_cache.py:167 (the prefix cache's hits),
+tests/test_chunked_admission.py:145 (chunked admission with interleaved
+decode steps) and tests/test_paged_speculative.py:95 (device-resident
+speculation), each against JAX's single-device engine without the mode.
+The JAX-only cases have no counterpart here:
   * test_paged_tp_kernel_interpret_matches: the port's CPU path runs each
     kernel's plain version, and the kernels are held to their plain
     versions on the card (chip_smoke.py, tests/test_torch_kernels_gpu.py);
@@ -87,7 +92,31 @@ def run_refused(case, mesh) -> str:
     raise AssertionError(f"{case['name']}: the engine accepted tp={mesh.tp}")
 
 
-RUNNERS = {"paged": run_paged, "refused": run_refused}
+def run_mode(case, mesh) -> dict:
+    """A serving mode (prefix cache, chunked admission, speculation) of
+    PagedBatchEngine(mesh=...): case["prompts"] with case["max_new"] tokens
+    each, `step_n` steps after each submit, then drained plainly or
+    speculatively (case["spec"] = (gamma, ngram))."""
+    from lws_tpu_torch.serving.paged_engine import PagedBatchEngine
+
+    engine = PagedBatchEngine(case["cfg"], _params(case, mesh), mesh=mesh, device="cpu",
+                              **case["engine"])
+    rids = []
+    for p, n in zip(case["prompts"], case["max_new"]):
+        rids.append(engine.submit(p, max_new_tokens=n))
+        if case.get("step_n"):
+            engine.step_n(case["step_n"])
+    assert all(r is not None for r in rids)
+    if case.get("spec"):
+        gamma, ngram = case["spec"]
+        engine.run_until_drained_speculative(gamma=gamma, ngram=ngram)
+    else:
+        engine.run_until_drained()
+    return {"tokens": [engine.result(r) for r in rids], "stats": dict(engine.stats),
+            "stats_prefix": dict(engine.stats_prefix)}
+
+
+RUNNERS = {"paged": run_paged, "refused": run_refused, "mode": run_mode}
 
 
 def member(rank: int, cases: list, out_dir: str, runners_module: str) -> None:
@@ -262,12 +291,71 @@ def case(setup: dict, name: str, dp: int, tp: int, run: str = "paged", **kw) -> 
             "engine": setup["engine"], "step_n": setup["step_n"], **kw}
 
 
+# The serving modes' configs, prompts and engines, as the three JAX tests
+# set them up (their tiny_cfg, weights from jax.random.key(0)).
+SYS = np.arange(1, 17, dtype=np.int32)  # 16 tokens = 2 full 8-blocks
+
+
+def mode_setups() -> dict:
+    rng3, rng0 = np.random.RandomState(3), np.random.RandomState(0)
+    pat = rng0.randint(1, 60, size=8).astype(np.int32)
+    return {
+        "prefix": dict(cfg=dict(), engine=dict(slots=3, max_len=64, block_size=8),
+                       mode=dict(prefix_cache=True),
+                       prompts=[np.concatenate([SYS, [40, 41, 42]]).astype(np.int32),
+                                np.concatenate([SYS, [50, 51]]).astype(np.int32)],
+                       max_new=[6, 6], step_n=0),
+        "chunked": dict(cfg=dict(vocab_size=256, max_seq_len=256),
+                        engine=dict(slots=2, max_len=256, block_size=16),
+                        mode=dict(prefill_chunk=16, interleave_steps=2),
+                        prompts=[rng3.randint(1, 200, size=n).astype(np.int32) for n in (12, 70)],
+                        max_new=[10, 10], step_n=2),
+        "spec": dict(cfg=dict(vocab_size=64, max_seq_len=256),
+                     engine=dict(slots=4, max_len=256, block_size=16), mode=dict(),
+                     prompts=[np.tile(pat, 6), rng0.randint(1, 60, size=20).astype(np.int32)],
+                     max_new=[24, 16], step_n=0, spec=(4, 3)),
+    }
+
+
 @pytest.fixture(scope="module")
-def world2(setups, tmp_path_factory):
+def modes():
+    """Each mode's JAX config and weights, and its want: JAX's single-device
+    engine without the mode (as the JAX tests compare)."""
+    import jax
+
+    from lws_tpu.models import init_params
+    from lws_tpu.serving.paged_engine import PagedBatchEngine
+    from lws_tpu_torch.models.convert import config_from_jax
+
+    out = {}
+    for name, m in mode_setups().items():
+        jcfg = tiny_cfg(**m["cfg"])
+        jparams = jax.jit(lambda c=jcfg: init_params(c, jax.random.key(0)))()
+        engine = PagedBatchEngine(jcfg, jparams, **m["engine"])
+        rids = []
+        for p, n in zip(m["prompts"], m["max_new"]):
+            rids.append(engine.submit(p, max_new_tokens=n))
+            if m["step_n"]:
+                engine.step_n(m["step_n"])
+        engine.run_until_drained()
+        out[name] = dict(m, jcfg=jcfg, jparams=jparams, cfg=config_from_jax(jcfg),
+                         tree=port_tree(jparams), want=[engine.result(r) for r in rids])
+    return out
+
+
+def mode_case(m: dict, name: str) -> dict:
+    return {"name": name, "dp": 1, "tp": 2, "run": "mode", "cfg": m["cfg"], "tree": m["tree"],
+            "prompts": m["prompts"], "max_new": m["max_new"], "step_n": m["step_n"],
+            "engine": {**m["engine"], **m["mode"]}, "spec": m.get("spec")}
+
+
+@pytest.fixture(scope="module")
+def world2(setups, modes, tmp_path_factory):
     cases = [case(setups["kv_off"], "kv_off", 1, 2, shards=True),
              case(setups["kv_on"], "kv_on", 1, 2),
              case(setups["int8"], "int8", 1, 2, shards=True),
              case(setups["moe"], "moe", 1, 2, shards=True)]
+    cases += [mode_case(modes[name], f"mode_{name}") for name in ("prefix", "chunked", "spec")]
     return spawn_cases(2, cases, tmp_path_factory.mktemp("world2"), __name__)
 
 
@@ -356,3 +444,34 @@ def test_ranks_agree(world2, world4):
                 assert (got if isinstance(got, str) else got["tokens"]) == \
                     (want if isinstance(want, str) else want["tokens"]), name
 
+
+
+def test_prefix_cache_under_tp_mesh(modes, world2):
+    """tests/test_prefix_cache.py:167: under tp = 2 the prefix cache's
+    streams equal JAX's single-device engine without the cache, and the
+    second prompt hits the first's two system-prompt blocks."""
+    for res in world2:
+        got = res["mode_prefix"]
+        assert got["tokens"] == modes["prefix"]["want"]
+        assert got["stats_prefix"]["hit_tokens"] == 16 and got["stats_prefix"]["hit_blocks"] == 2
+
+
+def test_chunked_admission_token_exact_tp_mesh(modes, world2):
+    """tests/test_chunked_admission.py:145: chunked admission with
+    interleaved decode steps under tp = 2 equals JAX's plain single-device
+    engine."""
+    for res in world2:
+        got = res["mode_chunked"]
+        assert got["tokens"] == modes["chunked"]["want"]
+        assert got["stats"]["chunked_admissions"] == 1  # the 70-token prompt
+        assert got["stats"]["interleaved_decode_steps"] > 0
+
+
+def test_paged_speculative_tp_mesh_exact(modes, world2):
+    """tests/test_paged_speculative.py:95: device-resident speculation
+    under tp = 2 equals JAX's plain single-device engine, and accepts
+    drafts."""
+    for res in world2:
+        got = res["mode_spec"]
+        assert got["tokens"] == modes["spec"]["want"]
+        assert got["stats"]["spec_accepted"] > 0
