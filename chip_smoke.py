@@ -160,14 +160,32 @@ engine paths, 15 trains.
      of 256, the 100-token prompt, 16 requests of the JAX package's
      shared_prefix scenario (seed 0) open-loop through loadgen.DisaggTarget,
      then the prefill role restarted with LWS_TPU_KV_CHUNK=0 for the
-     1,000-token prompt monolithic, then a SIGTERM drain. Bundle bytes and
+     1,000-token prompt monolithic, then a fault armed live on the decode
+     role and two 100-token requests, then the drains. Bundle bytes and
      tokens equal path 12's one-card handoffs (tokens may fork only at an
      argmax near-tie); every load-runner request completes on the client
      and in both roles' logs; the launches each role's rank 0 prints at exit
      equal the handoffs' formulas; both roles exit 0 and no spawned process
-     outlives them. It prints TTFT across the handoff, gather, wire,
-     deserialize and reshard ms, tok/s per role and the path's seconds; on
-     four cards NCCL's share of the decode role's steps.
+     outlives them. Each role serves the worker telemetry server
+     (LWS_TPU_METRICS_PORT; the decode role also profiles at
+     LWS_TPU_PROFILE_HZ): /healthz answers once the role is ready; a
+     scraper thread reads both roles' /metrics once a second while the load
+     runner runs (scrape latency and the decode role's tok/s in that window
+     are printed, not gated); the prefill role's TTFT count and the decode
+     role's ITL count equal the handoffs each handled;
+     serving_kv_transfer_bytes_total moves by each 1,000-token bundle's
+     bytes on both roles; the device-memory gauges name the card; the
+     1,000-token prompt's journeys (/debug/request/<id>), streamed and
+     monolithic, are complete on both roles with their spans and, streamed,
+     one chunk-timeline entry per chunk; every compile record made during a
+     request names it and rides its journey; POST /debug/faults arms
+     disagg.decode.process once: that request ends errored and its journey
+     is kept so, the next equals its oracle; the decode role's collapsed
+     profile is not empty; the prefill role drains through POST
+     /debug/drain and the decode role on SIGTERM. It prints TTFT across the
+     handoff, gather, wire, deserialize and reshard ms, tok/s per role and
+     the path's seconds; on four cards NCCL's share of the decode role's
+     steps.
  15. (last) training at benchmarks/train_bench.py's on-accelerator config
      (vocab 32000, d_model 1536, 12 layers, 12 heads, 6 KV heads, d_ff 4096,
      remat; f32 parameters, bf16 compute; AdamW at lr 3e-4; a fixed batch of
@@ -3137,6 +3155,10 @@ def path_tp_group(torch, dev, world: int, models: dict, prompts, dense_prompt, r
 PAIR_REQUESTS = 16  # the load runner's requests over the pair
 PAIR_MODEL, PAIR_DEVICE = "flagship", "cuda"  # the workers' LWS_TPU_MODEL and --device
 PAIR_READY_S = 600.0  # a role's start: imports, the card, the full flagship, the group
+PAIR_PROFILE_HZ = 67.0  # the decode role's continuous profiler (LWS_TPU_PROFILE_HZ)
+# The poison prompt: more rows than the decode role's max_len (MAX_LEN),
+# prefilled by the second prefill process, whose budget is larger.
+PAIR_POISON_LEN, PAIR_POISON_MAX_LEN = MAX_LEN + 64, MAX_LEN + 128
 
 
 class StandInApi:
@@ -3202,19 +3224,25 @@ class Role:
     <role>`), its log and its KV endpoint."""
 
     def __init__(self, role: str, port: int, api_url: str, tp: int, cards: str, chunk: int,
-                 log_dir: str, tag: str) -> None:
+                 log_dir: str, tag: str, metrics_port: int, max_len: int = MAX_LEN) -> None:
         repo = os.path.dirname(os.path.abspath(__file__))
+        # Every journey is kept (LWS_TPU_JOURNEY_SAMPLE=1): the path reads
+        # back named healthy requests, which a 2 % reservoir could drop.
         env = dict(os.environ, LWS_TPU_MODEL=PAIR_MODEL, LWS_TPU_TP=str(tp),
                    LWS_TPU_KV_PORT=str(port), LWS_TPU_API=api_url, POD_NAME=f"{role}-0",
                    POD_NAMESPACE="default", LWS_TPU_KV_CHUNK=str(chunk),
-                   CUDA_VISIBLE_DEVICES=cards,
+                   CUDA_VISIBLE_DEVICES=cards, LWS_TPU_METRICS_PORT=str(metrics_port),
+                   LWS_TPU_JOURNEY_SAMPLE="1",
                    PYTHONPATH=repo + os.pathsep + os.environ.get("PYTHONPATH", ""))
+        if role == "decode":
+            env["LWS_TPU_PROFILE_HZ"] = str(PAIR_PROFILE_HZ)
         self.role, self.ep = role, ("127.0.0.1", port)
+        self.metrics_port = metrics_port
         self.log_path = os.path.join(log_dir, f"{role}-{tag}.log")
         self._log = open(self.log_path, "w")
         self.proc = subprocess.Popen(
             [sys.executable, "-m", "lws_tpu_torch.serving.disagg_worker", role, "--steps",
-             str(HANDOFF_STEPS), "--max-len", str(MAX_LEN), "--device", PAIR_DEVICE],
+             str(HANDOFF_STEPS), "--max-len", str(max_len), "--device", PAIR_DEVICE],
             env=env, cwd=repo, stdout=self._log, stderr=subprocess.STDOUT)
 
     def log(self) -> str:
@@ -3240,12 +3268,33 @@ class Role:
     def children(self) -> list[int]:
         return proc_children(self.proc.pid)
 
-    def stop(self) -> dict:
-        """SIGTERM (the drain); the worker must exit 0. Returns the kernel
-        launches its rank 0 printed at exit."""
+    def http(self, path: str, body=None) -> tuple:
+        """(status, text) of a GET (a POST with `body`) on the telemetry port."""
+        return http_call(self.metrics_port, path, body)
+
+    def metrics(self) -> dict:
+        code, text = self.http("/metrics")
+        check(code == 200, f"the {self.role} role's /metrics answered {code}")
+        from lws_tpu_torch.core import metrics as metricsmod
+
+        return metricsmod.parse_exposition(text)
+
+    def journey(self, rid: str) -> dict:
+        code, text = self.http(f"/debug/request/{rid}")
+        check(code == 200, f"the {self.role} role has no journey for {rid}: {code} {text[:300]}")
+        return json.loads(text)
+
+    def stop(self, http_drain: bool = False) -> dict:
+        """The drain, by SIGTERM or by POST /debug/drain; the worker must exit
+        0. Returns the kernel launches its rank 0 printed at exit."""
         import signal
 
-        self.proc.send_signal(signal.SIGTERM)
+        if http_drain:
+            code, text = self.http("/debug/drain", {})
+            check((code, text) == (200, '{"draining": true}'),
+                  f"the {self.role} role's POST /debug/drain answered {code} {text}")
+        else:
+            self.proc.send_signal(signal.SIGTERM)
         try:
             rc = self.proc.wait(timeout=180)
         except subprocess.TimeoutExpired:
@@ -3253,7 +3302,8 @@ class Role:
             rc = self.proc.wait()
         self._log.close()
         log = self.log()
-        check(rc == 0, f"the {self.role} worker's drain exited {rc}:\n{log[-3000:]}")
+        check(rc == 0, f"the {self.role} worker's "
+                       f"{'HTTP' if http_drain else 'SIGTERM'} drain exited {rc}:\n{log[-3000:]}")
         line = [ln for ln in log.splitlines() if f"[{self.role}] kernel launches " in ln]
         check(len(line) == 1, f"the {self.role} worker printed {len(line)} launch lines")
         return json.loads(line[0].split(" kernel launches ", 1)[1])
@@ -3283,9 +3333,120 @@ def pid_alive(pid: int) -> bool:
         return False
 
 
-def pair_request(roles: dict, rid: str, prompt, timeout: float = 600.0) -> tuple:
+def http_call(port: int, path: str, body=None, timeout: float = 30.0) -> tuple:
+    """(status, text) of one GET (a POST of `body` as JSON) on 127.0.0.1."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}",
+                                 data=None if body is None else json.dumps(body).encode())
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            return resp.status, resp.read().decode()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read().decode()
+
+
+def metric_sum(fams: dict, family: str, sample: str, **match) -> float:
+    """The sum of `sample`'s values in a parsed exposition whose labels
+    include `match`."""
+    return sum(v for name, labels, v, _ in fams.get(family, {}).get("samples", [])
+               if name == sample and all(labels.get(k) == w for k, w in match.items()))
+
+
+class Scraper:
+    """A fleet collector's stand-in: reads every role's /metrics once a
+    second on a thread, timing each scrape."""
+
+    def __init__(self, roles: dict) -> None:
+        self.roles, self.latency = roles, {r: [] for r in roles}
+        self.tokens: list = []  # (t, the decode role's serving_tokens_total)
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._loop, daemon=True)
+        self._thread.start()
+
+    def _loop(self) -> None:
+        from lws_tpu_torch.core import metrics as metricsmod
+
+        while True:
+            for role, r in self.roles.items():
+                t0 = time.perf_counter()
+                code, text = r.http("/metrics")
+                self.latency[role].append((time.perf_counter() - t0, code))
+                if role == "decode" and code == 200:
+                    fams = metricsmod.parse_exposition(text)
+                    self.tokens.append((time.perf_counter(), metric_sum(
+                        fams, "serving_tokens_total", "serving_tokens_total", engine="disagg")))
+            if self._stop.wait(1.0):
+                return
+
+    def stop(self) -> dict:
+        self._stop.set()
+        self._thread.join(60)
+        out = {}
+        for role, lat in self.latency.items():
+            check(lat and all(code == 200 for _, code in lat),
+                  f"scrapes of the {role} role: {[c for _, c in lat]}")
+            ms = [t * 1e3 for t, _ in lat]
+            out[role] = (len(ms), statistics.median(ms), max(ms))
+        (t0, n0), (t1, n1) = self.tokens[0], self.tokens[-1]
+        out["decode_tok_s"] = (n1 - n0) / (t1 - t0) if t1 > t0 else float("nan")
+        return out
+
+
+def check_journey(r: Role, rid: str, spans: set, chunks: int = 0, outcome: str = "") -> dict:
+    """`rid`'s journey on role `r` is complete, holds `spans`, and (for a
+    streamed handoff) one chunk-timeline entry per chunk: `chunks_produced`
+    on prefill, `chunks` on decode."""
+    j = r.journey(rid)
+    names = {sp["name"] for sp in j["spans"]}
+    check(j["completed"] and spans <= names,
+          f"{r.role} journey {rid}: completed={j['completed']} spans {sorted(names)}")
+    if chunks:
+        key = "chunks_produced" if r.role == "prefill" else "chunks"
+        got = j["annotations"].get(key) or []
+        check(len(got) == chunks, f"{r.role} journey {rid}: {len(got)} {key} of {chunks}")
+    if outcome:
+        check(j["outcome"] == outcome and outcome in j["flags"],
+              f"{r.role} journey {rid}: outcome {j['outcome']}, flags {j['flags']}")
+    return j
+
+
+def check_compile_journeys(r: Role, since_unix: float) -> tuple:
+    """Every compile record the role made during requests (at or after
+    `since_unix`, or naming a request) names its request, and that
+    request's journey carries it. Returns (records, records during requests)."""
+    code, text = r.http("/debug/compile")
+    check(code == 200, f"the {r.role} role's /debug/compile answered {code}")
+    records = json.loads(text)["records"]
+    during = [rec for rec in records if rec["unix"] >= since_unix or rec["request_id"]]
+    for rec in during:
+        check(rec["request_id"], f"{r.role} compile record during requests names none: {rec}")
+        got = r.journey(rec["request_id"])["annotations"].get("compiles") or []
+        check(any(c["executable"] == rec["executable"] and c["unix"] == rec["unix"]
+                  for c in got),
+              f"{r.role} journey {rec['request_id']} lacks compile {rec}")
+    return len(records), len(during)
+
+
+def check_card_gauges(torch, r: Role, cards: str) -> None:
+    """The role's device-memory gauges name its card (gpu:0 of the cards it
+    sees) within its limit, and the limit is that card's memory."""
+    fams = r.metrics()
+    card = int(cards.split(",")[0])
+    want = torch.cuda.get_device_properties(card).total_memory
+    in_use = metric_sum(fams, "serving_hbm_bytes_in_use", "serving_hbm_bytes_in_use",
+                        device="gpu:0")
+    limit = metric_sum(fams, "serving_hbm_bytes_limit", "serving_hbm_bytes_limit", device="gpu:0")
+    check(limit == want and 0 < in_use <= limit,
+          f"the {r.role} role's gpu:0 gauges: in use {in_use}, limit {limit} (card {want})")
+
+
+def pair_request(roles: dict, rid: str, prompt, timeout: float = 600.0,
+                 expect_failed: bool = False) -> tuple:
     """One prompt through the pair: submitted to prefill, its result polled
-    from decode. Returns (the result's meta, its tokens [1, steps + 1])."""
+    from decode. Returns (the result's meta, its tokens [1, steps + 1]; None
+    for a failed result, which only `expect_failed` accepts)."""
     from lws_tpu_torch.serving import kv_transport as kt
 
     kt.submit_prompt(roles["prefill"].ep, rid, kt.arrays_to_bytes(prompt=prompt))
@@ -3296,8 +3457,10 @@ def pair_request(roles: dict, rid: str, prompt, timeout: float = 600.0) -> tuple
         got = kt.pull_result(roles["decode"].ep, rid)
         if got is not None:
             meta, payload = got
-            check("failed" not in meta, f"pair request {rid} failed: {meta.get('failed')}")
-            return meta, kt.bytes_to_arrays(payload)["tokens"]
+            check(("failed" in meta) == expect_failed,
+                  f"pair request {rid}: failed {meta.get('failed')!r}, expected a "
+                  f"{'failure' if expect_failed else 'result'}")
+            return meta, None if expect_failed else kt.bytes_to_arrays(payload)["tokens"]
         time.sleep(0.05)
     check(False, f"pair request {rid}: no result in {timeout:.0f} s")
 
@@ -3416,6 +3579,59 @@ def disagg_decode_profile(tp: int, cards: str, prompt) -> dict:
             os.environ["CUDA_VISIBLE_DEVICES"] = saved
 
 
+def check_pair_telemetry(refs: dict, telemetry: dict, logs: dict, tp: int) -> None:
+    """Path 16's telemetry ledgers against the workers' own logs and the
+    one-card handoffs: each role's TTFT (prefill) or ITL (decode) count
+    equals the handoffs it logged; serving_kv_transfer_bytes_total moved by
+    the 1,000-token bundle's bytes on both roles, streamed and monolithic.
+    Prints the scrape latency under load and the decode role's tok/s in
+    that window."""
+    handoffs = {name: sum(1 for ln in logs[f"{name}.log"].splitlines()
+                          if ln.startswith(f"[{name.split('-')[0]}] HANDOFF "))
+                for name in ("prefill-a", "decode-a")}
+    ttft = metric_sum(telemetry["prefill-a"], "serving_ttft_seconds", "serving_ttft_seconds_count",
+                      engine="disagg")
+    itl = metric_sum(telemetry["decode"], "serving_itl_seconds", "serving_itl_seconds_count",
+                     engine="disagg")
+    check(ttft == handoffs["prefill-a"] and itl == handoffs["decode-a"],
+          f"tp disagg pair: TTFT count {ttft} for {handoffs['prefill-a']} prefill handoffs, ITL "
+          f"count {itl} for {handoffs['decode-a']} decode handoffs")
+    moved = {}
+    for rid, chunk in (("long-s", CHUNK), ("long-m", 0)):
+        before, after = telemetry[rid]
+        want = refs[(1000, chunk)]["stats"]["bundle_bytes"]
+        for role in ("prefill", "decode"):
+            got = (metric_sum(after[role], "serving_kv_transfer_bytes_total",
+                              "serving_kv_transfer_bytes_total", role=role)
+                   - metric_sum(before[role], "serving_kv_transfer_bytes_total",
+                                "serving_kv_transfer_bytes_total", role=role))
+            check(got == want, f"tp disagg pair {rid}: the {role} role's "
+                               f"serving_kv_transfer_bytes_total moved {got}, bundle {want} B")
+            moved[f"{rid}/{role}"] = got
+    sc = telemetry["scrapes"]
+    comp = {k[len("compiles-"):]: v for k, v in telemetry.items() if k.startswith("compiles-")}
+    # The parent builds every library before the roles start, so a role
+    # makes no compile record during a request on the card: say so rather
+    # than count a check that had nothing to hold.
+    during = sum(n for _, n in comp.values())
+    compiles = (f"compile records (total, during requests) {comp}, each during a request on "
+                f"its journey" if during else
+                f"compile journeys not exercised in this run (0 records during requests; "
+                f"totals {({k: v[0] for k, v in comp.items()})})")
+    print(f"tp disagg pair tp={tp} telemetry: /metrics scrapes once a second under the load "
+          f"runner: prefill {sc['prefill'][0]} scrapes, median {sc['prefill'][1]:.2f} ms, max "
+          f"{sc['prefill'][2]:.2f} ms; decode {sc['decode'][0]} scrapes, median "
+          f"{sc['decode'][1]:.2f} ms, max {sc['decode'][2]:.2f} ms; decode role "
+          f"{sc['decode_tok_s']:.1f} tok/s in that window (its serving_tokens_total); TTFT count "
+          f"{ttft:.0f} = prefill handoffs, ITL count {itl:.0f} = decode handoffs; transfer bytes "
+          f"moved {moved} = the 1,000-token bundles; {compiles}; journeys of long-s (4 chunks) "
+          f"and long-m complete on both roles; the armed disagg.decode.process fault (1 trip) "
+          f"left one bundle unacked and its redelivery completed; a poison bundle of "
+          f"{PAIR_POISON_LEN} rows ended errored (journey kept errored) and the next request "
+          f"was served; decode profile {telemetry['profile_stacks']} collapsed stacks at "
+          f"{PAIR_PROFILE_HZ:.0f} Hz")
+
+
 def path_tp_disagg(torch, dev, tp: int, refs: dict, profile_nccl: bool = False) -> dict:
     """16. The tensor-parallel disaggregated pair at full width: the workers'
     int8-weight, bf16-K/V flagship (LWS_TPU_MODEL=flagship), each role a
@@ -3426,8 +3642,13 @@ def path_tp_disagg(torch, dev, tp: int, refs: dict, profile_nccl: bool = False) 
     the 1,000-token prompt streamed (LWS_TPU_KV_CHUNK=CHUNK), the 100-token
     prompt, the JAX package's shared_prefix scenario (seed 0, its first
     PAIR_REQUESTS requests) open-loop through loadgen.DisaggTarget; then the
-    prefill role restarts with LWS_TPU_KV_CHUNK=0 and the 1,000-token prompt
-    hands off monolithic; then a SIGTERM drain of both roles. Each measured
+    prefill role restarts with LWS_TPU_KV_CHUNK=0 and a budget of
+    PAIR_POISON_MAX_LEN rows, and the 1,000-token prompt hands off
+    monolithic; then the 100-token prompt under a live decode fault (its
+    bundle redelivered), a poison prompt of PAIR_POISON_LEN tokens (past the
+    decode role's max_len: ended errored) and the 100-token prompt again;
+    then the prefill role drains by POST /debug/drain and the decode role
+    by SIGTERM. Each measured
     prompt first goes through once unmeasured (a fresh process's warm-up). Checked: each
     bundle's bytes equal path 12's one-card handoff's for the prompt, and
     its tokens too (or fork only at an argmax near-tie); the handoff record
@@ -3443,46 +3664,104 @@ def path_tp_disagg(torch, dev, tp: int, refs: dict, profile_nccl: bool = False) 
     from lws_tpu_torch.models.flagship import flagship_config
 
     t_path = time.perf_counter()
-    L = flagship_config("full" if PAIR_MODEL == "flagship" else "smoke").n_layers
+    pair_cfg = flagship_config("full" if PAIR_MODEL == "flagship" else "smoke")
+    L = pair_cfg.n_layers
     cards_all = torch.cuda.device_count()
     split = cards_all >= 2 * tp
     cards = {"prefill": ",".join(str(c) for c in range(tp)),
              "decode": ",".join(str(c) for c in (range(tp, 2 * tp) if split else range(tp)))}
     ports: dict = {}
-    while len(set(ports.values())) < 2:  # a port one probe releases may come back from the next
-        ports = {role: launch.free_port() for role in ("prefill", "decode")}
-    api = StandInApi(ports)
+    names = ("prefill", "decode", "prefill-metrics", "decode-metrics")
+    while len(set(ports.values())) < len(names):  # a released port may come back
+        ports = {name: launch.free_port() for name in names}
+    api = StandInApi({role: ports[role] for role in ("prefill", "decode")})
     long_p, short_p = refs[(1000, 0)]["prompt"], refs[(100, 0)]["prompt"]
     spec = loadgen.load_scenario("shared_prefix")
     schedule = loadgen.build_schedule(spec, 0)[:PAIR_REQUESTS]
     results, launches, followers = {}, {}, []
+    telemetry: dict = {}
     with tempfile.TemporaryDirectory() as log_dir:
-        roles = {role: Role(role, ports[role], api.url, tp, cards[role],
-                            CHUNK if role == "prefill" else 0, log_dir, "a")
-                 for role in ("decode", "prefill")}
+        def start(role: str, chunk: int, tag: str, max_len: int = MAX_LEN) -> Role:
+            return Role(role, ports[role], api.url, tp, cards[role], chunk, log_dir, tag,
+                        ports[f"{role}-metrics"], max_len)
+
+        roles = {"decode": start("decode", 0, "a"), "prefill": start("prefill", CHUNK, "a")}
         try:
             deadline = time.monotonic() + PAIR_READY_S
             for r in roles.values():
                 r.wait_ready(deadline)
+                check(r.http("/healthz") == (200, "ok"), f"the {r.role} role's /healthz")
             t_ready = time.perf_counter() - t_path
+            t_requests = time.time()  # compile records from here on belong to requests
             followers = [c for r in roles.values() for c in r.children()]
             # A fresh process's first prefill and decode pay its warm-up
             # (library loads, first launches): each measured request runs once
             # unmeasured first.
             pair_request(roles, "warm-s", long_p)
             pair_request(roles, "warm-short", short_p)
+            before = {role: r.metrics() for role, r in roles.items()}
             results["long-s"] = pair_request(roles, "long-s", long_p)
+            telemetry["long-s"] = (before, {role: r.metrics() for role, r in roles.items()})
             results["short"] = pair_request(roles, "short", short_p)
             target = loadgen.DisaggTarget(roles["prefill"].ep, roles["decode"].ep, id_prefix="lg")
-            run = loadgen.run_schedule(schedule, target, max_wall_s=600.0)
-            launches["prefill-a"] = roles["prefill"].stop()
-            roles["prefill"] = Role("prefill", ports["prefill"], api.url, tp, cards["prefill"], 0,
-                                    log_dir, "b")
+            scraper = Scraper(roles)
+            try:
+                run = loadgen.run_schedule(schedule, target, max_wall_s=600.0)
+            finally:
+                telemetry["scrapes"] = scraper.stop()
+            # The streamed journeys, and the first prefill process's own
+            # ledgers, before it drains.
+            check_journey(roles["prefill"], "long-s", {"serve.prefill", "kv.gather"},
+                          chunks=-(-1000 // CHUNK))
+            telemetry["compiles-prefill-a"] = check_compile_journeys(roles["prefill"], t_requests)
+            check_card_gauges(torch, roles["prefill"], cards["prefill"])
+            telemetry["prefill-a"] = roles["prefill"].metrics()
+            launches["prefill-a"] = roles["prefill"].stop(http_drain=True)
+            roles["prefill"] = start("prefill", 0, "b", PAIR_POISON_MAX_LEN)
             roles["prefill"].wait_ready(time.monotonic() + PAIR_READY_S)
             followers += roles["prefill"].children()
             pair_request(roles, "warm-m", long_p)
+            before = {role: r.metrics() for role, r in roles.items()}
             results["long-m"] = pair_request(roles, "long-m", long_p)
-            launches["prefill-b"] = roles["prefill"].stop()
+            telemetry["long-m"] = (before, {role: r.metrics() for role, r in roles.items()})
+            # A decode failure armed live: the raise leaves the bundle
+            # unacked, prefill re-queues it, and the redelivery is served.
+            dec = roles["decode"]
+            code, text = dec.http("/debug/faults",
+                                  {"arm": {"disagg.decode.process": "fail_n_times:1"}})
+            check(code == 200 and json.loads(text)["armed"] == {
+                "disagg.decode.process": "fail_n_times:1"}, f"POST /debug/faults: {code} {text}")
+            results["fault"] = pair_request(roles, "fault", short_p)
+            code, text = dec.http("/debug/faults")
+            check(code == 200 and json.loads(text)["trips"] == {"disagg.decode.process": 1},
+                  f"GET /debug/faults after the fault fired: {code} {text}")
+            check_journey(dec, "fault", {"kv.deserialize", "kv.reshard", "serve.decode_dispatch"})
+            # A poison bundle (more rows than the decode role's max_len)
+            # ends its request errored, its journey kept so; the next one
+            # is served.
+            poison_p = np.random.default_rng(16).integers(
+                1, pair_cfg.vocab_size, PAIR_POISON_LEN).astype(np.int32)
+            poison_meta, _ = pair_request(roles, "poison", poison_p, expect_failed=True)
+            check("max_len" in poison_meta["failed"],
+                  f"tp disagg pair poison: failed {poison_meta['failed']!r}")
+            check_journey(dec, "poison", set(), outcome="errored")
+            results["after-poison"] = pair_request(roles, "after-poison", short_p)
+            for rid, chunks in (("long-s", -(-1000 // CHUNK)), ("long-m", 0)):
+                check_journey(dec, rid, {"kv.deserialize", "kv.reshard", "serve.decode_dispatch"},
+                              chunks=chunks)
+            check_journey(roles["prefill"], "long-m", {"serve.prefill", "kv.gather"})
+            code, text = dec.http("/debug/profile?format=collapsed")
+            check(code == 200 and text.strip(), f"the decode role's collapsed profile: {code}")
+            telemetry["profile_stacks"] = len(text.splitlines())
+            for r in roles.values():
+                for path in ("/debug/history", "/debug/flightrecorder", "/debug/faults"):
+                    code, _ = r.http(path)
+                    check(code == 200, f"the {r.role} role's {path} answered {code}")
+            telemetry["compiles-prefill-b"] = check_compile_journeys(roles["prefill"], t_requests)
+            telemetry["compiles-decode"] = check_compile_journeys(dec, t_requests)
+            check_card_gauges(torch, dec, cards["decode"])
+            telemetry["decode"] = dec.metrics()
+            launches["prefill-b"] = roles["prefill"].stop(http_drain=True)
             launches["decode"] = roles["decode"].stop()
             logs = {name: open(os.path.join(log_dir, name)).read() for name in os.listdir(log_dir)}
         finally:
@@ -3504,11 +3783,13 @@ def path_tp_disagg(torch, dev, tp: int, refs: dict, profile_nccl: bool = False) 
         n = sum(1 for ln in log.splitlines() if ln.startswith(f"[{role}] HANDOFF lg-"))
         check(n == PAIR_REQUESTS, f"tp disagg pair: the {role} role handed off {n} of "
                                   f"{PAIR_REQUESTS} load-runner requests")
+    check_pair_telemetry(refs, telemetry, logs, tp)
     # Bundles and tokens against path 12's one-card handoffs.
     model_box: dict = {}
     verdicts = {}
     for rid, (S, chunk) in (("long-s", (1000, CHUNK)), ("short", (100, 0)),
-                            ("long-m", (1000, 0))):
+                            ("long-m", (1000, 0)), ("fault", (100, 0)),
+                            ("after-poison", (100, 0))):
         meta, toks = results[rid]
         ref, h = refs[(S, chunk)], meta["handoff"]
         check(h["bundle_bytes"] == ref["stats"]["bundle_bytes"],
@@ -3537,8 +3818,9 @@ def path_tp_disagg(torch, dev, tp: int, refs: dict, profile_nccl: bool = False) 
     mono = lambda S: {"flash_attention": L, "int8_matmul": 7 * L * (S <= 256) + 1}  # noqa: E731
     streamed_1000 = 7 * L * -(-1000 // CHUNK) + 1
     want = {"prefill-a": {"flash_attention": 0, "int8_matmul": 2 * streamed_1000},
-            "prefill-b": {k: 2 * v for k, v in mono(1000).items()},
-            "decode": {"int8_matmul": (7 * L + 1) * HANDOFF_STEPS * (6 + PAIR_REQUESTS)}}
+            "prefill-b": {k: 2 * (v + mono(100)[k]) + mono(PAIR_POISON_LEN)[k]
+                          for k, v in mono(1000).items()},
+            "decode": {"int8_matmul": (7 * L + 1) * HANDOFF_STEPS * (8 + PAIR_REQUESTS)}}
     for S in [100, 100] + lg:
         for k, v in mono(S).items():
             want["prefill-a"][k] += v
@@ -3552,7 +3834,8 @@ def path_tp_disagg(torch, dev, tp: int, refs: dict, profile_nccl: bool = False) 
           f" {PAIR_REQUESTS} load-runner requests of shared_prefix completed on the client and "
           f"both roles' logs; p50 TTFT {statistics.median(o.ttft_s for o in outs) * 1e3:.1f} ms "
           f"(the client's proxy: the prefill leg); roles ready {t_ready:.1f} s after launch; "
-          f"SIGTERM drained both roles (exit 0) and {len(followers)} spawned processes; path "
+          f"the prefill role drained by POST /debug/drain (twice) and the decode role by "
+          f"SIGTERM (exit 0), and {len(followers)} spawned processes; path "
           f"wall time {time.perf_counter() - t_path:.1f} s")
     if profile_nccl and split:
         p = disagg_decode_profile(tp, cards["decode"], long_p)
@@ -4214,7 +4497,7 @@ def main(argv=None) -> int:
     del batch_engine
     torch.cuda.empty_cache()
     watch.begin()
-    by_path["disagg handoff"], pair_refs = path_disagg(torch, dev, model8)
+    by_path["disagg handoff"], handoff_refs = path_disagg(torch, dev, model8)
     watch.end("disagg handoff")
     torch.cuda.empty_cache()
     watch.begin()
@@ -4227,7 +4510,7 @@ def main(argv=None) -> int:
         {"bf16": bf16_streams, "int8": paged_streams, "dense": dense_tokens}, args.profile)
     del model, model8  # the flagships go before the MoE model is built
     torch.cuda.empty_cache()
-    by_path["tensor-parallel disagg pair"] = path_tp_disagg(torch, dev, 1, pair_refs)
+    by_path["tensor-parallel disagg pair"] = path_tp_disagg(torch, dev, 1, handoff_refs)
     torch.cuda.empty_cache()
     watch.begin()
     by_path["int8 MoE engines"], kernels["int8_matmul"]["moe_expert_rows"] = path_int8_moe(

@@ -26,7 +26,8 @@ Schedules (the `spec` grammar, also the `LWS_TPU_FAULTS` env grammar):
 A cooperative mode arms only at a point whose call site honors it
 (`COOPERATIVE_POINTS`); anywhere else `arm` refuses it. Arm through
 `LWS_TPU_FAULTS="point=spec,point=spec"` in the worker env (read at import
-and again by `arm_from_env` at worker start) or the injector API. Every
+and again by `arm_from_env` at worker start), the injector API, or `POST
+/debug/faults` on the worker telemetry server (`apply_control`). Every
 firing bumps `lws_fault_trips_total{point,mode}` and appends a
 `fault_injected` flight-recorder event.
 
@@ -283,13 +284,34 @@ class FaultInjector:
 
     # ---- views -----------------------------------------------------------
     def snapshot(self) -> dict:
-        """Armed specs + counters."""
+        """The GET /debug/faults response body: armed specs + counters."""
         with self._lock:
             return {
                 "armed": {p: s.spec for p, s in self._points.items()},
                 "hits": {p: s.hits for p, s in self._points.items()},
                 "trips": {p: s.trips for p, s in self._points.items()},
             }
+
+
+def apply_control(payload: dict) -> dict:
+    """The POST /debug/faults body handler of the worker telemetry server:
+    `{"arm": {point: spec, ...}}`, `{"disarm": [point, ...]}`, `{"clear":
+    true}` — any combination; clear applies first. Bad specs/shapes raise
+    ValueError (the caller answers 400)."""
+    if not isinstance(payload, dict):
+        raise ValueError("faults control body must be a JSON object")
+    unknown = set(payload) - {"arm", "disarm", "clear"}
+    if unknown:
+        raise ValueError(f"unknown faults control key(s): {', '.join(sorted(unknown))}")
+    if payload.get("clear"):
+        INJECTOR.disarm()
+    for point in payload.get("disarm") or []:
+        INJECTOR.disarm(str(point))
+    arm = payload.get("arm") or {}
+    if not isinstance(arm, dict):
+        raise ValueError("faults control 'arm' must be {point: spec}")
+    INJECTOR.arm_many({str(p): str(s) for p, s in arm.items()})
+    return INJECTOR.snapshot()
 
 
 # Process-default injector, armed from the pod env at import (the worker

@@ -19,18 +19,26 @@ The Watchdog evaluates rules over the heartbeat table:
     not advanced for `stall_after` seconds: a wedged decode ring.
     Slow-but-progressing sources never trip (progress advancing resets
     the clock).
+  * HotLoopRule   — a source whose `depth` carries a same-key streak past
+    `streak`: a controller requeue-looping on one object.
   * BacklogRule   — `depth` at or above `depth_threshold` for `sustain`
-    seconds; with pinned progress and sustain 0, a condition held by an
-    external evaluator (compile storms, HBM pressure).
+    seconds: KV bundles piling up faster than decode drains them; with
+    pinned progress and sustain 0, a condition held by an external
+    evaluator (an open breaker, a compile storm, HBM pressure).
+  * TripRule      — a counter that advanced within `window_s`: a burst of
+    deadline expirations.
 
 On an alert transitioning inactive -> firing the watchdog appends a ring
 event, bumps `lws_watchdog_alerts_total{watchdog}`, flips
 `lws_watchdog_active{watchdog}` to 1, and captures a diagnostics bundle
 (ring + recent spans + metrics snapshot + heartbeat table, and the
-profile and compile-ledger snapshots; the JAX package's dump also embeds
-its history, journey, rollout and decision planes, which the port does not
-have). `check_now()` is the deterministic entry tests use; `start()` runs
-the same check on a thread.
+profile, compile-ledger, history-ring and worst-journey snapshots, and
+the decision window, empty in a worker; the JAX package's dump also embeds
+its rollout ledger, a
+control-plane surface the port does not have) retrievable at
+`GET /debug/flightrecorder`. `check_now()` is the deterministic entry tests
+use; `start()` runs the same check on a thread (the worker telemetry
+server's, runtime/telemetry.py).
 
 The module-level RECORDER is the process default (one black box per
 process, like metrics.REGISTRY and trace.TRACER; the port's, not the JAX
@@ -47,6 +55,7 @@ from dataclasses import dataclass
 from typing import Callable, Optional
 
 from lws_tpu_torch.core import metrics, trace
+from lws_tpu_torch.utils.common import env_float as _env_float
 
 
 @dataclass
@@ -63,13 +72,15 @@ class FlightRecorder:
         self._ring: "deque[dict]" = deque(maxlen=ring)  # guarded-by: _lock
         self._beats: dict[str, Heartbeat] = {}  # guarded-by: _lock
         self._lock = threading.Lock()
-        # Event observers: called with every recorded event. The ring stays
+        # Event observers: called with every recorded event — the journey
+        # vault's resilience feed (obs/journey.py). The ring stays
         # the source of truth; observers only mirror.
         self._observers: list = []
 
     def add_observer(self, fn) -> None:
         """Register `fn(event)` to observe every recorded event (idempotent
-        per function)."""
+        per function) — how the journey vault attaches retries, breaker
+        transitions, deadline trips, and fault injections to requests."""
         if fn not in self._observers:
             self._observers.append(fn)
 
@@ -158,11 +169,16 @@ class FlightRecorder:
         """The diagnostics bundle: everything an operator needs to explain
         the window that just went wrong, in one JSON-serializable dict —
         including the process profile (a stall alert ships the collapsed
-        stacks of the window that stalled) and the compile-ledger window
-        (local imports: profile.py and obs/device.py are consumers of this
+        stacks of the window that stalled), the compile-ledger window, the
+        process history ring, the journey vault's worst retained journeys
+        (the requests the bad window actually hurt) and the decision
+        window, empty in a worker, which records no decision (local
+        imports: profile.py and the obs modules are consumers of this
         module's surfaces, not dependencies)."""
         from lws_tpu_torch.core import profile as profmod
         from lws_tpu_torch.obs import device as devicemod
+        from lws_tpu_torch.obs import history as historymod
+        from lws_tpu_torch.obs import journey as journeymod
 
         exposition = (
             metrics.render_exposition(metrics.REGISTRY, *registries)
@@ -176,6 +192,11 @@ class FlightRecorder:
             "spans": trace.TRACER.spans(span_limit),
             "metrics": exposition,
             "profile": profmod.PROFILER.snapshot(limit=128),
+            "history": historymod.HISTORY.snapshot(limit=64, max_points=256),
+            "journeys": journeymod.VAULT.worst(limit=8),
+            # JAX's dump carries the recent decision window here; no
+            # worker records a decision.
+            "decisions": [],
             # The compile-ledger window: a compile_storm (or any) alert
             # ships the offending executable's recompile provenance.
             "compiles": devicemod.LEDGER.snapshot(limit=64),
@@ -209,6 +230,48 @@ class StallRule:
 
 
 @dataclass(frozen=True)
+class HotLoopRule:
+    """depth carries a same-key streak counter; past `streak` it's a loop.
+    A source whose beats went quiet for `idle_after_s` stops firing: the
+    streak value latches in the table (nothing resets it once the loop's
+    queue drains), so staleness — not depth — is the clear signal."""
+
+    name: str
+    pattern: str
+    streak: float = 100.0
+    idle_after_s: float = 5.0
+
+    def firing(self, beats: dict[str, Heartbeat], now: float) -> list[dict]:
+        return [
+            {"source": src, "streak": hb.depth}
+            for src, hb in beats.items()
+            if fnmatch.fnmatch(src, self.pattern) and hb.depth >= self.streak
+            and now - hb.last_beat <= self.idle_after_s
+        ]
+
+
+@dataclass(frozen=True)
+class TripRule:
+    """A counter that ADVANCED within `window_s` = a recent trip burst.
+    The deadline feed (`deadline_trips:{site}`, core/resilience.py) beats
+    progress on every expiration: the rule fires while trips are fresh and
+    clears once the burst goes quiet — so the Watchdog's edge logic yields
+    exactly one alert (and one diagnostics dump) per burst."""
+
+    name: str
+    pattern: str
+    window_s: float = 5.0
+
+    def firing(self, beats: dict[str, Heartbeat], now: float) -> list[dict]:
+        return [
+            {"source": src, "trips": hb.progress}
+            for src, hb in beats.items()
+            if fnmatch.fnmatch(src, self.pattern) and hb.progress > 0
+            and now - hb.last_advance <= self.window_s
+        ]
+
+
+@dataclass(frozen=True)
 class BacklogRule:
     """Sustained queue depth at/over the threshold = a backlog."""
 
@@ -234,29 +297,59 @@ class BacklogRule:
         return out
 
 
-STALL_AFTER_S = 30.0
-
-
 def default_rules() -> list:
-    """The failure modes the watchdog ships with, for the feeds the port
-    has: a non-advancing decode dispatch ring (serving/pipeline.py), a
-    compile storm and HBM pressure (obs/device.py). The JAX package's
-    other rules watch feeds the port does not have yet (reconcile loops,
-    the KV wire's backlog, circuit breakers, deadlines, burn rates,
-    canaries). The ring's progress counter cannot distinguish one
-    legitimately long device dispatch from a wedge, so the stall window is
-    generous (30s). The JAX package reads it from LWS_TPU_WATCHDOG_STALL_S;
-    the port has no caller that starts a watchdog yet, so it stays fixed."""
+    """The JAX package's rule set, name for name: a non-advancing decode
+    dispatch ring (serving/pipeline.py), a reconcile hot loop, KV-handoff
+    backlog (serving/kv_transport.py), an open circuit breaker, a
+    deadline-expiration burst (core/resilience.py), and the device-runtime
+    rules (obs/device.py). A port worker beats no `reconcile:*`,
+    `burn_rate:*` or `canary:*` source (the control plane's feeds), so
+    those rules stay inert there, as in a JAX worker. The ring's progress
+    counter cannot distinguish one legitimately long device dispatch from
+    a wedge, so the default stall window is generous (30s — far past any
+    sane dispatch, short enough to catch a real wedge) and env-tunable per
+    deployment (LWS_TPU_WATCHDOG_STALL_S, and the other LWS_TPU_WATCHDOG_*
+    knobs below)."""
     return [
         StallRule("decode_ring_stall", "decode_ring:*",
-                  stall_after_s=STALL_AFTER_S),
-        # Device-runtime rules (obs/device.py feeds): the compile ledger
-        # holds `compile_storm:{executable}` at depth >= storm_n while one
-        # executable has recompiled N times inside the window, and the
-        # shared device-memory refresh holds `hbm_pressure:{device}` at its
-        # occupancy while past the LWS_TPU_HBM_PRESSURE threshold — both
-        # pinned-progress, so each episode fires exactly once and the dump
-        # embeds the compile ledger window that explains it.
+                  stall_after_s=_env_float("LWS_TPU_WATCHDOG_STALL_S", 30.0)),
+        HotLoopRule("reconcile_hot_loop", "reconcile:*",
+                    streak=_env_float("LWS_TPU_WATCHDOG_STREAK", 100.0)),
+        BacklogRule("kv_handoff_backlog", "kv_backlog:*",
+                    depth_threshold=_env_float("LWS_TPU_WATCHDOG_DEPTH", 8.0),
+                    sustain_s=_env_float("LWS_TPU_WATCHDOG_SUSTAIN_S", 5.0)),
+        # Resilience-plane rules (core/resilience.py feeds): an OPEN
+        # circuit breaker (depth 1 on `breaker:{endpoint}`, progress
+        # pinned so sustain runs) and a recent deadline-expiration burst
+        # each produce one edge-triggered alert with a diagnostics dump.
+        BacklogRule("circuit_open", "breaker:*",
+                    depth_threshold=1.0, sustain_s=0.0),
+        TripRule("deadline_tripped", "deadline_trips:*",
+                 window_s=_env_float("LWS_TPU_WATCHDOG_TRIP_WINDOW_S", 5.0)),
+        # History-plane rule (the JAX package's obs/recommend.py feed): while an SLO
+        # series' fast burn tier fires, the recommender holds a
+        # `burn_rate:{engine}[/{klass}]` heartbeat at depth 1 with pinned
+        # progress (the circuit_open convention) — one edge-triggered
+        # alert + diagnostics dump per burn episode, the dump's event ring
+        # carrying the offending error-series window.
+        BacklogRule("burn_rate", "burn_rate:*",
+                    depth_threshold=1.0, sustain_s=0.0),
+        # Rollout-plane rule (the JAX package's obs/rollout.py feed): while a
+        # revision's canary verdict is `rollback`, the analyzer holds a
+        # `canary:{lws}/{revision}` heartbeat at depth 1 — one
+        # edge-triggered alert + dump per regression episode, the firing
+        # edge's ring event embedding the offending revision's error
+        # series and the rollout-ledger window.
+        BacklogRule("canary_regression", "canary:*",
+                    depth_threshold=1.0, sustain_s=0.0),
+        # Device-runtime rules (obs/device.py feeds): the compile
+        # ledger holds `compile_storm:{executable}` at depth >= storm_n
+        # while one executable has recompiled N times inside the window,
+        # and the shared device-memory refresh holds
+        # `hbm_pressure:{device}` at its occupancy while past the
+        # LWS_TPU_HBM_PRESSURE threshold — both pinned-progress, so each
+        # episode fires exactly once and the dump embeds the compile
+        # ledger window that explains it.
         BacklogRule("compile_storm", "compile_storm:*",
                     depth_threshold=1.0, sustain_s=0.0),
         BacklogRule("hbm_pressure", "hbm_pressure:*",
@@ -369,3 +462,13 @@ def beat(name: str, progress: Optional[float] = None, depth: float = 0.0) -> Non
 
 def dump(reason: str = "manual", registries: tuple = ()) -> dict:
     return RECORDER.dump(reason, registries)
+
+
+def debug_snapshot(limit: int, watchdog: Optional[Watchdog] = None) -> dict:
+    """The GET /debug/flightrecorder response body (runtime/telemetry.py)."""
+    return {
+        "events": RECORDER.events(limit),
+        "heartbeats": RECORDER.heartbeats(),
+        "alerts": watchdog.active() if watchdog else {},
+        "last_dump": watchdog.last_dump if watchdog else None,
+    }

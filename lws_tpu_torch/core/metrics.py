@@ -1,10 +1,10 @@
 """Metrics registry with valid Prometheus text exposition: the port's copy of
 lws_tpu/core/metrics.py, trimmed to what the port's engines and telemetry
 copies call (the registry, `render_exposition`, `parse_exposition`, the
-process REGISTRY with `inc`/`set`/`observe`, exemplars, and the HELP text of
-the names the port emits). Left out: the fleet merge (`merge_expositions`,
-`StreamingMerger`) and the HTTP content negotiation, which serve the JAX
-package's control plane.
+process REGISTRY with `inc`/`set`/`observe`, exemplars, the HTTP content
+negotiation the worker's /metrics applies, and the HELP text of the names
+the port emits). Left out: the fleet merge (`merge_expositions`,
+`StreamingMerger`), which serves the JAX package's control plane.
 
 Counters, gauges, and histograms, rendered with `# HELP` / `# TYPE` lines so
 a real scraper parses the output. Label-set cardinality is capped per metric
@@ -245,6 +245,34 @@ def render_exposition(*registries: "MetricsRegistry") -> str:
     return "\n".join(lines) + "\n"
 
 
+OPENMETRICS_CONTENT_TYPE = "application/openmetrics-text; version=1.0.0; charset=utf-8"
+
+_EXEMPLAR_SUFFIX_RE = re.compile(r" # \{[^}]*\} \S+$", re.MULTILINE)
+
+
+def wants_openmetrics(accept: str | None) -> bool:
+    """Content negotiation for the /metrics surface: exemplars ride only
+    when the client asked for OpenMetrics (a classic Prometheus text parser
+    rejects a sample line with an exemplar suffix)."""
+    return bool(accept and "openmetrics" in accept)
+
+
+def strip_exemplars(text: str) -> str:
+    return _EXEMPLAR_SUFFIX_RE.sub("", text)
+
+
+def negotiate_exposition(text: str, accept: str | None) -> tuple[str, str]:
+    """(body, content_type) for a /metrics response: OpenMetrics clients get
+    exemplar suffixes and the mandatory `# EOF` terminator; classic clients
+    get the suffixes stripped (the 0.0.4 text format has no exemplar
+    syntax)."""
+    if wants_openmetrics(accept):
+        if not text.endswith("\n"):
+            text += "\n"
+        return text + "# EOF\n", OPENMETRICS_CONTENT_TYPE
+    return strip_exemplars(text), "text/plain"
+
+
 def _lk(labels: dict[str, str] | None) -> tuple:
     return tuple(sorted((labels or {}).items()))
 
@@ -437,6 +465,16 @@ describe("serving_kv_host_arena_entries",
 # --- fault injection (core/faults.py) --------------------------------------
 describe("lws_fault_trips_total", "Injected-fault firings per fault point and mode (chaos runs only; zero in production)")
 describe("lws_fault_points_armed", "Fault points currently armed in this process")
+# --- history ring (obs/history.py) -----------------------------------------
+describe("lws_history_samples_total",
+         "Exposition sampling passes folded into the process history ring")
+describe("lws_history_series_dropped_total",
+         "New series refused by the history ring's cardinality cap (retained series keep accruing points)")
+# --- request-journey forensics (obs/journey.py) -----------------------------
+describe("serving_journeys_retained_total",
+         "Request journeys kept by the tail-sampling vault, per retention outcome (breached/errored/deadline_expired/retried/fault kept 100%; slowest = the slow-K window; sampled = the healthy reservoir)")
+describe("serving_journeys_dropped_total",
+         "Journey records lost, per reason (not_sampled healthy drops, budget/aged/displaced evictions, open_evicted in-flight trace buffers, journey_span_cap/journey_event_cap truncations) — every loss is accounted")
 # --- device-runtime observability (obs/device.py) ---------------------------
 describe("serving_compiles_total",
          "Backend (XLA) compiles recorded by the compile ledger, per engine and kind — kind=first is the expected warm-up compile per executable, kind=recompile is a shape/bucket miss paying compile time on the serving path")

@@ -1,35 +1,38 @@
 """Continuous profiling + capacity accounting: the port's copy of
-lws_tpu/core/profile.py, trimmed to what the port calls: the wall-clock
-`StackSampler` whose snapshot every flight-recorder dump embeds, phase
-tags, and `record_device_memory`, which reads the CUDA caching
-allocator's statistics where the JAX package reads jax's. Left out: the
-folding and merge helpers and `start_from_env`, which serve the JAX
-package's `/debug/profile` surfaces and `lws-tpu profile`.
+lws_tpu/core/profile.py; `record_device_memory` reads the CUDA caching
+allocator's statistics where the JAX package reads jax's.
 
   * `StackSampler` — a low-overhead wall-clock sampling profiler: a daemon
-    thread walks `sys._current_frames()` at `hz` and folds every thread's
-    frame stack into a bounded collapsed-stack table. Each sample is
-    tagged with the sampled thread's live `core/trace.py` span stack (plus
-    any explicit `phase()` tags), rendered as synthetic `span:<name>` root
-    frames. `sample_once(frames=...)` is the deterministic entry.
+    thread walks `sys._current_frames()` at an env-tunable rate
+    (LWS_TPU_PROFILE_HZ, `start_from_env`) and folds every thread's frame
+    stack into a bounded collapsed-stack table (`frame;frame;frame count`,
+    `flamegraph.pl` input). Each sample is tagged with the sampled
+    thread's live `core/trace.py` span stack (plus any explicit `phase()`
+    tags), rendered as synthetic `span:<name>` root frames.
+    `sample_once(frames=...)` is the deterministic entry; `fold_by_span`,
+    `top_frames` and `merge_collapsed` fold snapshots.
   * capacity accounting — `record_device_memory()` refreshes per-device
     HBM gauges from the allocator (a process that never used the card
     reports nothing), and the serving engines feed
     `serving_kv_pool_blocks{state=free|live|parked}` plus the prefix-cache
     hit/miss/evict counters.
 
-The module-level PROFILER is the process default, like metrics.REGISTRY
-and trace.TRACER.
+Served at `GET /debug/profile` on the worker telemetry server
+(runtime/telemetry.py; `?format=collapsed` for raw flamegraph input) and
+snapshotted into every flight-recorder diagnostics dump. The module-level
+PROFILER is the process default, like metrics.REGISTRY and trace.TRACER.
 """
 
 from __future__ import annotations
 
+import os
 import sys
 import threading
 from typing import Optional
 
 from lws_tpu_torch.core import metrics, trace
 
+PROFILE_HZ_ENV = "LWS_TPU_PROFILE_HZ"
 # Default rate: ~67 samples/s costs tens of microseconds each (walk every
 # thread's ~30 frames) — well under the 2% budget — and the non-round rate
 # avoids phase-locking with 10ms/100ms periodic work.
@@ -197,7 +200,7 @@ class StackSampler:
 
     # ---- views -----------------------------------------------------------
     def snapshot(self, limit: Optional[int] = None) -> dict:
-        """Collapsed stacks (count-desc,
+        """The `/debug/profile` response body: collapsed stacks (count-desc,
         `limit` keeps the heaviest N) plus sampler meta. JSON-serializable."""
         with self._lock:
             items = sorted(self._stacks.items(), key=lambda kv: (-kv[1], kv[0]))
@@ -212,6 +215,12 @@ class StackSampler:
             "stacks": [[k, v] for k, v in items],
         }
 
+    def collapsed(self, limit: Optional[int] = None) -> str:
+        """Brendan-Gregg collapsed-stack text (`flamegraph.pl` input): one
+        `frame;frame;frame count` line per distinct stack."""
+        snap = self.snapshot(limit)
+        return "".join(f"{key} {count}\n" for key, count in snap["stacks"])
+
     def clear(self) -> None:
         with self._lock:
             self._stacks.clear()
@@ -220,7 +229,50 @@ class StackSampler:
 
 
 # ---------------------------------------------------------------------------
-# Capacity accounting: device-memory headroom.
+# Folding helpers: pure functions over a snapshot's [[stack, count], ...]
+# list.
+
+
+def fold_by_span(stacks: list) -> dict[str, int]:
+    """Self-time per semantic phase: each stack attributes to its INNERMOST
+    `span:` tag (the phase actually executing), `-` when untagged."""
+    out: dict[str, int] = {}
+    for key, count in stacks:
+        name = "-"
+        for part in key.split(";"):
+            if not part.startswith("span:"):
+                break
+            name = part[5:]
+        out[name] = out.get(name, 0) + count
+    return out
+
+
+def top_frames(stacks: list) -> dict[str, int]:
+    """Self-time per leaf frame — the classic profiler top-of-stack table."""
+    out: dict[str, int] = {}
+    for key, count in stacks:
+        leaf = key.rsplit(";", 1)[-1]
+        out[leaf] = out.get(leaf, 0) + count
+    return out
+
+
+def merge_collapsed(sources: list[tuple[dict, dict]]) -> str:
+    """Merge per-instance snapshots into ONE collapsed-stack text: every
+    stack gets its instance (and role, when labelled) as synthetic root
+    frames, so a fleet flamegraph splits by worker first."""
+    lines: list[str] = []
+    for labels, snap in sources:
+        prefix = [f"instance:{labels.get('instance', '-')}"]
+        if labels.get("role"):
+            prefix.append(f"role:{labels['role']}")
+        for key, count in snap.get("stacks", []):
+            lines.append(f"{';'.join(prefix)};{key} {count}")
+    return "".join(line + "\n" for line in lines)
+
+
+# ---------------------------------------------------------------------------
+# Capacity accounting: device-memory headroom, refreshed on every /metrics
+# render (state, not a feed).
 
 
 def record_device_memory() -> list:
@@ -258,6 +310,24 @@ def record_device_memory() -> list:
     return out
 
 
-# Process-default sampler (one profile surface per process, like
-# metrics.REGISTRY / trace.TRACER / flightrecorder.RECORDER).
+# Process-default sampler + env wiring (one profile surface per process,
+# like metrics.REGISTRY / trace.TRACER / flightrecorder.RECORDER).
 PROFILER = StackSampler()
+
+
+def start_from_env() -> Optional[StackSampler]:
+    """Start the process profiler when LWS_TPU_PROFILE_HZ declares a
+    positive rate; None when the env leaves profiling off (the default —
+    unlike tracing, sampling wakes a thread hz times a second)."""
+    raw = os.environ.get(PROFILE_HZ_ENV)
+    if not raw:
+        return None
+    try:
+        hz = float(raw)
+    except ValueError:
+        return None
+    if hz <= 0:
+        return None
+    PROFILER.hz = hz
+    PROFILER.start()
+    return PROFILER

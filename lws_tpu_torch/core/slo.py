@@ -1,7 +1,5 @@
 """Per-request SLO telemetry: the port's copy of lws_tpu/core/slo.py, the
 request-lifecycle recorder the serving engines thread their timings through.
-Left out: the journey sinks (the JAX package's journey vault feed), which
-wait for a port of lws_tpu/obs/journey.py.
 
 Serving a fleet is managed against latency DISTRIBUTIONS, not single-process
 averages (PAPERS.md, "Fine-Tuning and Serving Gemma on Cloud TPU"): the
@@ -157,9 +155,9 @@ class RequestTimeline:
                  request_id: str = "") -> None:
         self.engine = engine
         self.klass = klass
-        # The cross-process request id (disagg frame meta `id`): the
-        # compile ledger annotates compiles under it. Engines without one
-        # leave it empty.
+        # The cross-process request id (disagg frame meta `id`): the key
+        # the journey vault files this timeline's verdict under. Engines
+        # without one leave it empty — the journey falls back to trace id.
         self.request_id = request_id
         self._rec = recorder
         self._arrival = time.perf_counter() if arrival_t is None else arrival_t
@@ -283,6 +281,11 @@ class SLORecorder:
             else class_targets_from_env(self.targets)
         )
         self._lock = threading.Lock()
+        # Journey sinks: called with each finished timeline's summary
+        # (phases + verdict + targets) — the journey vault's completion
+        # feed (obs/journey.py install()). Per-instance, so tests' private
+        # recorders never leak into the process vault.
+        self.journey_sinks: list = []
     def request(self, engine: str, arrival_t: Optional[float] = None,
                 klass: str = "", request_id: str = "") -> RequestTimeline:
         return RequestTimeline(self, engine, arrival_t, klass=klass,
@@ -390,6 +393,31 @@ class SLORecorder:
                     "serving_goodput_tokens_total", labels,
                     float(tl._good_tokens),
                 )
+        # Journey completion feed: the vault joins this verdict with the
+        # request's buffered span subtree and resilience events, then
+        # decides tail-sampled retention. Captured HERE (finish runs inside
+        # the request's span on the disagg legs) so the trace ctx is live.
+        if self.journey_sinks:
+            summary = {
+                "engine": tl.engine,
+                "klass": tl.klass,
+                "revision": self.revision,
+                "request_id": tl.request_id,
+                "trace": trace.current_context(),
+                "queue_wait_s": tl._queue_wait_s,
+                "ttft_s": tl._ttft_s,
+                "worst_itl_s": tl._worst_itl_s,
+                "total_s": tl._cursor_s if tl._tokens_total else None,
+                "tokens": tl._tokens_total,
+                "good_tokens": tl._good_tokens,
+                "ok": ok,
+                "targets": dataclasses.asdict(targets),
+            }
+            for sink in self.journey_sinks:
+                try:
+                    sink(summary)
+                except Exception:  # noqa: BLE001 — a broken journey sink must never fail a request's SLO accounting
+                    pass
         return ok
 
 

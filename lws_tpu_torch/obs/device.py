@@ -30,9 +30,10 @@ The ledger holds a `compile_storm:{executable}` heartbeat at depth>=1 with
 pinned progress while one executable has recompiled >= N times inside the
 window (one edge-triggered Watchdog alert + diagnostics dump per episode),
 and `refresh_device_memory` holds `hbm_pressure:{device}` the same way
-past the occupancy threshold. Left out: the JAX package's annotation of
-request journeys with their compiles, which waits for a port of
-lws_tpu/obs/journey.py.
+past the occupancy threshold. A compile made while a request is in flight
+(under a `compile_site` that names its request id) annotates that
+request's journey (obs/journey.py, `annotations.compiles`), so the
+journey's verdict can blame compilation for a blown TTFT.
 
 Importing this module creates no CUDA context, and neither does a refresh
 in a process that never used the card.
@@ -112,10 +113,14 @@ class CompileLedger:
 
     def __init__(self, ring: int = 256, recorder=None,
                  storm_n: Optional[int] = None,
-                 storm_window_s: Optional[float] = None) -> None:
+                 storm_window_s: Optional[float] = None,
+                 max_request_annotations: int = 64) -> None:
         self._ring: "deque[dict]" = deque(maxlen=ring)  # guarded-by: _lock
         self._counts: dict[str, dict] = {}              # guarded-by: _lock
         self._recent: dict[str, deque] = {}             # guarded-by: _lock
+        self._per_request: "dict[str, list]" = {}       # guarded-by: _lock
+        self._request_order: "deque[str]" = deque()     # guarded-by: _lock
+        self._max_request_annotations = max_request_annotations
         self._lock = threading.Lock()
         self._recorder = recorder
         self._armed = False
@@ -192,12 +197,35 @@ class CompileLedger:
             while recent and now - recent[0] > self.storm_window_s:
                 recent.popleft()
             in_window = len(recent)
+            if rid:
+                entries = self._per_request.get(rid)
+                if entries is None:
+                    entries = self._per_request[rid] = []
+                    self._request_order.append(rid)
+                    while len(self._request_order) > self._max_request_annotations:
+                        self._per_request.pop(self._request_order.popleft(),
+                                              None)
+                if len(entries) < 32:
+                    entries.append({
+                        "executable": name, "kind": kind,
+                        "seconds": record["seconds"], "unix": record["unix"],
+                        "shape": shp,
+                    })
+                annotation = list(entries)
+            else:
+                annotation = None
         metrics.inc("serving_compiles_total", {"engine": eng, "kind": kind})
         metrics.observe("serving_compile_seconds", float(seconds),
                         {"engine": eng})
         self._beat(f"compile_storm:{name}",
                    float(in_window) if in_window >= self.storm_n else 0.0,
                    now)
+        if annotation is not None:
+            # The compile rode a request-carrying site: annotate the owning
+            # journey so its verdict can blame compilation for a blown TTFT.
+            from lws_tpu_torch.obs import journey as journeymod
+
+            journeymod.VAULT.annotate(rid, compiles=annotation)
         return record
 
     # ---- arming ------------------------------------------------------------
@@ -264,6 +292,8 @@ class CompileLedger:
             self._ring.clear()
             self._counts.clear()
             self._recent.clear()
+            self._per_request.clear()
+            self._request_order.clear()
             self._seq = 0
 
 
@@ -315,8 +345,8 @@ def clear_pools() -> None:
 
 def refresh_device_memory(stats: Optional[list] = None,
                           recorder=None, now: Optional[float] = None) -> int:
-    """The single shared device-memory refresh (the JAX package's scrape
-    seams call it per /metrics render):
+    """The single shared device-memory refresh (the worker telemetry
+    server calls it per /metrics render, runtime/telemetry.py):
 
       * per-device in-use/limit gauges (core/profile.py);
       * `serving_hbm_peak_bytes{device}` — the allocator high-water mark —

@@ -44,9 +44,15 @@ record is derived; SLO timelines on both legs carry the request's class
 from the frame meta; `serving_kv_handoffs_total` and
 `serving_kv_handoff_bytes_total` count the handoffs; the fault points
 `disagg.prefill.handoff` and `disagg.decode.process` arm from
-`LWS_TPU_FAULTS`. Not yet ported: the worker's telemetry server (metrics
-and debug endpoints over HTTP) and the journey annotations, which need the
-JAX package's journey module.
+`LWS_TPU_FAULTS`. With `LWS_TPU_METRICS_PORT` in the env, tp rank 0 of
+each role serves the worker telemetry server (runtime/telemetry.py:
+/metrics, the journeys at /debug/request/<id>, `POST /debug/faults` to arm
+faults live, `POST /debug/drain` to drain as SIGTERM does). Each request's
+journey (obs/journey.py) completes with its SLO timeline on each leg, or
+with its ending when the leg drops it (an expired deadline) or fails it
+(the decode poison guard); a
+streamed handoff's chunk timelines annotate it (`chunks_produced` on
+prefill, `chunks` on decode).
 """
 
 from __future__ import annotations
@@ -65,6 +71,7 @@ import torch
 from lws_tpu_torch._device import DeviceLike, resolve_device
 from lws_tpu_torch.core import faults, metrics, resilience, slo, trace
 from lws_tpu_torch.obs import device as devicemod
+from lws_tpu_torch.obs import journey as journeymod
 from lws_tpu_torch.serving import kv_host_arena
 from lws_tpu_torch.serving import kv_transport as kt
 from lws_tpu_torch.serving.engine import Engine
@@ -288,6 +295,11 @@ def _decode_bundle_inner(engine: Engine, payload, steps: int, gamma: int, ngram:
             pipe.push(steps, tokens, lambda h: out.__setitem__("toks", h))
             first = token.cpu().numpy()
             pipe.flush()  # blocks: decode_s is the real dispatch time
+    # Journey wire leg: a streamed handoff's per-chunk arrival timeline
+    # (collected by the stream receiver while the wire was still moving)
+    # attaches to this request's journey before the verdict folds.
+    if streamed and getattr(payload, "chunk_timeline", None) and request_id:
+        journeymod.VAULT.annotate(request_id, chunks=payload.chunk_timeline)
     # The decode leg's SLO timeline: the chunk's mean step gap is the ITL
     # sample; the class rode the bundle meta from the submitting client.
     timeline = slo.request("disagg", klass=klass, request_id=request_id)
@@ -326,6 +338,19 @@ def _force_tracing() -> None:
     subtree is the handoff's cost breakdown each result ships."""
     trace.TRACER.enabled = True
     trace.TRACER.sample_rate = 1.0
+
+
+def _start_telemetry():
+    """Serve this worker's /metrics and debug surface when the pod declares
+    a telemetry port (LWS_TPU_METRICS_PORT), the surface the control
+    plane's fleet scraper merges into /metrics/fleet. A declared port that
+    cannot be bound raises."""
+    from lws_tpu_torch.runtime.telemetry import start_from_env
+
+    server = start_from_env()
+    if server is not None:
+        print(f"[{os.environ.get('POD_NAME', '?')}] telemetry on :{server.port}", flush=True)
+    return server
 
 
 def _serve_prefix_tier(server: kt.KVServer) -> None:
@@ -402,6 +427,9 @@ def _prefill_streamed(engine: Engine, server: kt.KVServer, meta: dict, req_id: s
                     first = token.cpu().numpy()  # the fence: prefill_s is the dispatch time
                 s_gather.set(pos=int(cache.pos), bundle_bytes=stream.payload_bytes,
                              chunks=pstats["chunks"], gather_s=round(pstats["gather_s"], 4))
+            # Journey wire leg, produce side: when each chunk left prefill
+            # compute (the arrival twin lands on the decode journey).
+            journeymod.VAULT.annotate(req_id, chunks_produced=list(stream.chunk_timeline))
             timeline.first_token(wait + s_prefill.duration_s)
             timeline.finish()
     except Exception:
@@ -447,6 +475,8 @@ def _prefill_monolithic(engine: Engine, server: kt.KVServer, meta: dict, req_id:
         with trace.span("kv.gather", tp_gathered=engine.mesh is not None) as s_gather:
             bundle = kt.cache_to_bundle(cache, token, mesh=engine.mesh)
             s_gather.set(pos=int(cache.pos), bundle_bytes=len(bundle))
+        # finish() completes the journey: it runs after kv.gather closes, or
+        # the gather leg would never join the completed journey.
         timeline.finish()
     handoff = {
         "pos": int(cache.pos),
@@ -469,8 +499,10 @@ def _prefill_monolithic(engine: Engine, server: kt.KVServer, meta: dict, req_id:
 def run_prefill_tcp(once: bool, max_len: int, device: DeviceLike = None,
                     group: Optional[RoleGroup] = None) -> int:
     """Serve prompts in and KV bundles out on LWS_TPU_KV_PORT. With `once`,
-    exit after the first bundle has been pulled AND acked. SIGTERM drains:
-    stop admitting prompts, finish the handoff in flight, exit clean."""
+    exit after the first bundle has been pulled AND acked. SIGTERM (or POST
+    /debug/drain on the telemetry port) drains: stop admitting prompts,
+    finish the handoff in flight, exit clean."""
+    _start_telemetry()
     engine = build_engine(batch=1, max_len=max_len,
                           device=group.device if group is not None else device,
                           mesh=group.mesh if group is not None else None)
@@ -501,6 +533,10 @@ def handle_prompt(engine: Engine, server: kt.KVServer, meta: dict, payload, chun
     deadline = resilience.Deadline.from_wire(meta.get("deadline_s"))
     if deadline is not None and deadline.expired():
         resilience.expire("prefill.admit", request_id=req_id)
+        # The drop is the request's ending here: its journey completes
+        # deadline-expired, so the vault keeps the story.
+        journeymod.VAULT.complete(req_id, trace=meta.get("trace"), engine="disagg",
+                                  klass=str(meta.get("klass") or ""), outcome="deadline_expired")
         print(f"[prefill] DROPPED {req_id}: deadline expired in queue", flush=True)
         return
     prompt = kt.bytes_to_arrays(payload)["prompt"]
@@ -521,10 +557,11 @@ def run_decode_tcp(steps: int, once: bool, max_len: int, gamma: int = 0, ngram: 
     bundles over TCP, decode, serve results. The pull is acked only AFTER
     the result is posted (a crash mid-decode re-queues the bundle on
     prefill); a replayed id is acked without decoding again. With `once`,
-    exit after the first result has been delivered. SIGTERM drains between
-    pulls."""
+    exit after the first result has been delivered. SIGTERM (or POST
+    /debug/drain) drains between pulls."""
     from lws_tpu_torch.client import RemoteClient
 
+    _start_telemetry()
     engine = build_engine(batch=1, max_len=max_len,
                           device=group.device if group is not None else device,
                           mesh=group.mesh if group is not None else None)
@@ -603,14 +640,26 @@ def decode_processor(engine: Engine, server: kt.KVServer, steps: int, gamma: int
     """The decode role's `process(meta, payload)` for pull_bundle: the
     chaos hook, the replay dedup (a bounded seen-id guard: ack loss and
     redelivery replay bundles), the deadline, then the decode and its
-    result; a bundle this engine cannot process is consumed with a failed
-    result. Under a group, the other ranks are told to decode only once
-    every check only rank 0 can make has passed."""
+    result. A failure the chaos hook raises leaves the bundle unacked (it
+    is redelivered); a bundle this engine cannot process ends the request
+    with a failed result and an errored journey. Under a group, the other
+    ranks are told to decode only once every check only rank 0 can make
+    has passed."""
     seen = resilience.SeenIds(capacity=1024, site="decode")
 
+    def fail(meta, error: str, outcome: str) -> None:
+        """End the request here: its journey completes with `outcome`, the
+        client gets a failed result, and a redelivery of the id is acked."""
+        journeymod.VAULT.complete(meta["id"], trace=meta.get("trace"), engine="disagg",
+                                  klass=str(meta.get("klass") or ""), outcome=outcome,
+                                  error=error if outcome == "errored" else None)
+        server.post_result(meta["id"], {"id": meta["id"], "failed": error[:300]}, b"")
+        seen.record(meta["id"])
+
     def process(meta, payload):
-        # Decode dies mid-processing: the connection drops unacked, the
-        # bundle re-queues on prefill, and a successor redelivers.
+        # Decode fails mid-processing: the raise (or exit) leaves the
+        # bundle unacked, it re-queues on prefill, and the pull's retry (or
+        # a successor) redelivers it.
         faults.fire("disagg.decode.process")
         if seen.contains(meta["id"]):
             # A replayed delivery (the ack was lost): the result was posted.
@@ -620,9 +669,7 @@ def decode_processor(engine: Engine, server: kt.KVServer, steps: int, gamma: int
         deadline = resilience.Deadline.from_wire(meta.get("deadline_s"))
         if deadline is not None and deadline.expired():
             resilience.expire("decode.admit", request_id=meta["id"])
-            server.post_result(meta["id"], {"id": meta["id"],
-                                            "failed": "deadline exceeded before decode"}, b"")
-            seen.record(meta["id"])
+            fail(meta, "deadline exceeded before decode", "deadline_expired")
             return
         klass = str(meta.get("klass") or "")
         if group is not None and not isinstance(payload, kt.PoisonPayload):
@@ -645,8 +692,7 @@ def decode_processor(engine: Engine, server: kt.KVServer, steps: int, gamma: int
             # rows than max_len) is consumed with a failed result; an
             # un-acked crash would re-queue it forever.
             print(f"[decode] FAILED {meta['id']}: {e!r}", flush=True)
-            server.post_result(meta["id"], {"id": meta["id"], "failed": repr(e)[:300]}, b"")
-            seen.record(meta["id"])
+            fail(meta, repr(e), "errored")
             return
         handoff = {**meta.get("handoff", {}), **dstats}
         if "wire_s" in meta:  # this side's clock: the reply's first byte to its last

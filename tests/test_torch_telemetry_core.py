@@ -212,12 +212,15 @@ def test_watchdogs_fire_alike():
     assert _watchdog_run(flightrecorder) == _watchdog_run(jfr)
     port = [(r.name, r.pattern) for r in flightrecorder.default_rules()]
     jax_rules = [(r.name, r.pattern) for r in jfr.default_rules()]
-    assert port and set(port) <= set(jax_rules)
+    assert port and port == jax_rules
 
 
 def test_flight_recorder_dump_embeds_profile_and_compiles():
     dump = flightrecorder.FlightRecorder().dump(reason="t")
     assert {"profile", "compiles", "spans", "metrics", "events", "heartbeats"} <= set(dump)
+    # The JAX dump's planes, but for its control-plane rollout ledger.
+    jdump = jfr.FlightRecorder().dump(reason="t")
+    assert set(dump) == set(jdump) - {"rollout"}
     json.dumps(dump)
 
 
