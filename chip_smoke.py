@@ -131,7 +131,14 @@ engine paths, 15 trains.
      agree), TTFT p50/p99 and goodput per class; then
      build_local_target(kind, spec) with no device, for each engine kind,
      serves the schedule's first 6 requests on the card (bf16, head dim
-     128), after the path's launch counts are read;
+     128), after the path's launch counts are read; then the loadgen
+     command as a process, `python -m lws_tpu_torch loadgen shared_prefix
+     --seed 0 --target paged --json` with no --device: on the card, its
+     header naming the schedule's digest, every request completed, every
+     class in its report, the kernel launches its process prints to
+     stderr exact (flash per layer per prefix miss, paged decode per layer
+     per decode step, nothing else), TTFT p50/p99 and goodput per class
+     printed;
  14. (run after 13, before 11) the tensor-parallel group: one rank per
      visible card (--tp N: N of them), rank 0 in this process and the
      others spawned, each started by lws_tpu_torch.parallel from the env
@@ -159,7 +166,16 @@ engine paths, 15 trains.
      of the API server's records. The 1,000-token prompt streamed in chunks
      of 256, the 100-token prompt, 16 requests of the JAX package's
      shared_prefix scenario (seed 0) open-loop through loadgen.DisaggTarget,
-     then the prefill role restarted with LWS_TPU_KV_CHUNK=0 for the
+     then the loadgen command over the pair (`python -m lws_tpu_torch
+     loadgen shared_prefix --seed 0 --prefill --decode --server --json`, its
+     --server a stub /metrics/fleet that joins the roles' own /metrics,
+     each sample labelled with its instance): every request completes, the
+     prefill role's TTFT count and the decode role's ITL count move by
+     exactly that number, serving_kv_transfer_bytes_total moves on both
+     roles, the report's history block has a row for every (engine, class)
+     the decode role counts, and the fleet block (fold_fleet of the stub's
+     /metrics/fleet, which the text frame renders) a goodput; then the
+     prefill role restarted with LWS_TPU_KV_CHUNK=0 for the
      1,000-token prompt monolithic, then a fault armed live on the decode
      role and two 100-token requests, then the drains. Bundle bytes and
      tokens equal path 12's one-card handoffs (tokens may fork only at an
@@ -1239,6 +1255,7 @@ def path_loadgen(torch, dev, cfg, model, recorder) -> dict:
               f"attainment {c['attainment']:.1%} (targets ttft {targets[klass].ttft_s} s, itl "
               f"{targets[klass].itl_s} s, queue {targets[klass].queue_wait_s} s)")
     drive_local_targets(torch, loadgen, spec, schedule[:LOCAL_TARGET_REQUESTS])
+    command_local_target(loadgen, spec, schedule)
     print(f"loadgen: path wall time {time.perf_counter() - t_path:.1f} s")
     return launches
 
@@ -1265,6 +1282,68 @@ def drive_local_targets(torch, loadgen, spec, schedule) -> None:
         print(f"loadgen: build_local_target({kind!r}) on the card (d_model "
               f"{target.engine.cfg.d_model}, bf16): {len(schedule)} of {len(schedule)} "
               f"requests completed, {report['all']['tokens']} tokens, {flash} flash launches")
+
+
+def run_loadgen_command(args: list, timeout: float) -> tuple:
+    """`python -m lws_tpu_torch loadgen ARGS --json` as a process from the
+    repo root. Returns (its `#` header line, the report it prints after
+    it, its wall seconds, its stderr); a non-zero exit fails the phase."""
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=repo + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "lws_tpu_torch", "loadgen", *args, "--json"],
+                          cwd=repo, env=env, capture_output=True, text=True, timeout=timeout)
+    wall = time.perf_counter() - t0
+    check(proc.returncode == 0, f"loadgen command {args} exited {proc.returncode}:\n"
+                                f"{proc.stdout[-2000:]}{proc.stderr[-3000:]}")
+    header, _, body = proc.stdout.partition("\n")
+    check(header.startswith("# "), f"loadgen command {args}: header {header!r}")
+    return header, json.loads(body), wall, proc.stderr
+
+
+def command_local_target(loadgen, spec, schedule) -> None:
+    """The loadgen command on the card: `python -m lws_tpu_torch loadgen
+    shared_prefix --seed 0 --target paged` with no --device builds
+    build_local_target's paged engine on the card (bf16, d_model 256, head
+    dim 128, blocks of 16: the CPU-sized scenario's twin, not the
+    flagship) and serves the whole schedule. Its header names path 13's
+    schedule digest; every request completes; every class of the
+    scenario is in the report; the launches the process prints for its
+    engine are exact: flash per layer per admission that missed the
+    prefix cache (every prompt is 20-28 tokens: at most one shareable
+    block of 16, so a hit is one suffix admission), the bf16 paged decode
+    kernel per layer per decode step, no int8 kernel."""
+    header, report, wall, err = run_loadgen_command(
+        [LOADGEN_SCENARIO, "--seed", str(LOADGEN_SEED), "--target", "paged", "--max-wall",
+         str(LOADGEN_MAX_WALL_S)], timeout=300.0)
+    digest, n = loadgen.schedule_digest(schedule), len(schedule)
+    check(header.endswith(f"(seed {LOADGEN_SEED}, schedule {digest[:12]})"),
+          f"loadgen command: header {header!r}, path 13's digest {digest}")
+    done = report["all"]["completed"]
+    check(report["all"]["count"] == n and done == n,
+          f"loadgen command: {done} of {report['all']['count']} requests completed, schedule {n}")
+    check(set(report["classes"]) == set(loadgen.class_targets(spec)),
+          f"loadgen command: classes {sorted(report['classes'])}")
+    line = [ln for ln in err.splitlines() if ln.startswith("# paged engine ")]
+    check(len(line) == 1, f"loadgen command: no launch line on stderr:\n{err[-2000:]}")
+    head, _, counts = line[0].partition("; kernel launches ")
+    eng = json.loads(head[len("# paged engine "):])
+    L, steps, hits = eng["n_layers"], eng["decode_steps"], eng["hit_blocks"]
+    check(eng["attention_path"] == "kernel" and steps > 0,
+          f"loadgen command: engine {eng}")
+    check_launches("loadgen command", json.loads(counts), {
+        "flash_attention": L * (n - hits),
+        "paged_decode_attention": L * steps,
+    })
+    print(f"loadgen command (python -m lws_tpu_torch loadgen {LOADGEN_SCENARIO} --seed "
+          f"{LOADGEN_SEED} --target paged, no --device) on the card: schedule {digest[:12]}, "
+          f"{done} of {n} requests completed, {hits} prefix hits, {steps} decode steps, "
+          f"process wall {wall:.1f} s")
+    for klass, c in sorted(report["classes"].items()):
+        print(f"loadgen command: class {klass} on build_local_target's paged engine (bf16, "
+              f"d_model 256; the scenario's CPU-sized targets, TTFT 5 s, ITL 1 s): TTFT p50 "
+              f"{c['ttft_p50'] * 1e3:.1f} ms, p99 {c['ttft_p99'] * 1e3:.1f} ms; goodput "
+              f"{c['good_tokens']}/{c['tokens']} tokens = {c['goodput_fraction']:.1%}")
 
 
 def path_bf16_paged(torch, dev, cfg) -> tuple:
@@ -3394,6 +3473,143 @@ class Scraper:
         return out
 
 
+def join_expositions(texts: dict) -> str:
+    """{instance: a worker's /metrics text} -> one exposition, each sample
+    labelled with its `instance`, one HELP/TYPE block per family: the shape
+    of a fleet collector's /metrics/fleet."""
+    headers: dict = {}  # family -> its HELP/TYPE lines, in first-seen order
+    samples: dict = {}  # family -> its samples from every instance
+    for instance, text in texts.items():
+        family = None
+        for line in text.splitlines():
+            if line.startswith(("# HELP ", "# TYPE ")):
+                family = line.split()[2]
+                got = headers.setdefault(family, [])
+                if len(got) < 2 and line not in got:
+                    got.append(line)
+                samples.setdefault(family, [])
+            elif line and not line.startswith("#"):
+                cut = min(i for i in (line.find("{"), line.find(" ")) if i >= 0)
+                name, rest = line[:cut], line[cut:]
+                label = f'instance="{instance}"'
+                samples.setdefault(family, []).append(
+                    f"{name}{{{label},{rest[1:]}" if rest.startswith("{")
+                    else f"{name}{{{label}}}{rest}")
+    return "".join("\n".join(headers[f] + samples[f]) + "\n" for f in headers)
+
+
+class StubFleet:
+    """An API server's /metrics/fleet over path 16's roles, which `loadgen
+    --server` samples: every GET joins each role's own /metrics, labelled
+    with its instance (`<role>-0`). The JAX control plane, whose ApiServer
+    serves the real one, does not run on the card."""
+
+    def __init__(self, roles: dict) -> None:
+        import http.server
+
+        def fleet() -> str:
+            texts = {}
+            for role, r in roles.items():
+                code, text = r.http("/metrics")
+                check(code == 200, f"the {role} role's /metrics answered {code}")
+                texts[f"{role}-0"] = text
+            return join_expositions(texts)
+
+        self.text = fleet
+
+        class Handler(http.server.BaseHTTPRequestHandler):
+            def do_GET(self):  # noqa: N802 — the http.server hook
+                if self.path != "/metrics/fleet":
+                    self.send_response(404)
+                    self.send_header("Content-Length", "0")
+                    self.end_headers()
+                    return
+                data = fleet().encode()
+                self.send_response(200)
+                self.send_header("Content-Type", "text/plain; version=0.0.4")
+                self.send_header("Content-Length", str(len(data)))
+                self.end_headers()
+                self.wfile.write(data)
+
+            def log_message(self, *a):
+                pass
+
+        self._server = http.server.ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+        self.addr = f"127.0.0.1:{self._server.server_address[1]}"
+        threading.Thread(target=self._server.serve_forever, daemon=True).start()
+
+    def close(self) -> None:
+        self._server.shutdown()
+        self._server.server_close()
+
+
+def command_over_pair(roles: dict, loadgen) -> list:
+    """The loadgen command against the pair at full width: `python -m
+    lws_tpu_torch loadgen shared_prefix --seed 0 --prefill <ep> --decode
+    <ep> --server <StubFleet> --json` as a process. Checked: every request
+    completes; the prefill role's TTFT count and the decode role's ITL
+    count move by exactly that number; serving_kv_transfer_bytes_total
+    moves on both roles; the report's history block has a row for every
+    (engine, class) the decode role counts; the fleet block the text frame
+    renders (fold_fleet of the stub's /metrics/fleet, read once the
+    command ends; --json prints the JAX package's keys, without it) has a
+    goodput. Returns the command's prompt lengths."""
+    spec = loadgen.load_scenario(LOADGEN_SCENARIO)
+    schedule = loadgen.build_schedule(spec, LOADGEN_SEED)
+    n = len(schedule)
+    before = {role: r.metrics() for role, r in roles.items()}
+    fleet = StubFleet(roles)
+    try:
+        header, report, wall, _ = run_loadgen_command(
+            [LOADGEN_SCENARIO, "--seed", str(LOADGEN_SEED),
+             "--prefill", "%s:%d" % roles["prefill"].ep, "--decode", "%s:%d" % roles["decode"].ep,
+             "--server", fleet.addr, "--max-wall", "600"], timeout=900.0)
+        from lws_tpu_torch.core import metrics as metricsmod
+
+        fleet_block = loadgen.fold_fleet(metricsmod.parse_exposition(fleet.text()))
+    finally:
+        fleet.close()
+    after = {role: r.metrics() for role, r in roles.items()}
+    digest = loadgen.schedule_digest(schedule)
+    check(header.endswith(f"schedule {digest[:12]})"), f"pair loadgen command: header {header!r}")
+    done = report["all"]["completed"]
+    check(report["all"]["count"] == n and done == n,
+          f"pair loadgen command: {done} of {report['all']['count']} requests completed")
+
+    def moved(who: str, family: str, sample: str, **match) -> float:
+        return (metric_sum(after[who], family, sample, **match)
+                - metric_sum(before[who], family, sample, **match))
+
+    ttft = moved("prefill", "serving_ttft_seconds", "serving_ttft_seconds_count", engine="disagg")
+    itl = moved("decode", "serving_itl_seconds", "serving_itl_seconds_count", engine="disagg")
+    check(ttft == n and itl == n, f"pair loadgen command: the prefill role's TTFT count moved "
+                                  f"{ttft}, the decode role's ITL count {itl}, for {n} requests")
+    wire = {role: moved(role, "serving_kv_transfer_bytes_total",
+                        "serving_kv_transfer_bytes_total", role=role) for role in roles}
+    check(all(v > 0 for v in wire.values()), f"pair loadgen command: transfer bytes moved {wire}")
+    counted = {labels.get("engine", "-") + ("/" + labels["klass"] if labels.get("klass") else "")
+               for name, labels, _, _ in after["decode"].get(
+                   "serving_tokens_total", {}).get("samples", [])
+               if name == "serving_tokens_total"}
+    rows = set((report.get("history") or {}).get("classes", {}))
+    check(counted and counted <= rows, f"pair loadgen command: history rows {sorted(rows)}, the "
+                                       f"decode role counts {sorted(counted)}")
+    check("fleet" not in report, f"pair loadgen command: --json keys {sorted(report)}")
+    goodput = fleet_block.get("goodput")
+    check(goodput is not None, f"pair loadgen command: fleet block {fleet_block}")
+    classes = "; ".join(
+        f"class {k}: TTFT p50 {c['ttft_p50'] * 1e3:.1f} ms, p99 {c['ttft_p99'] * 1e3:.1f} ms "
+        f"(the client's proxy: the prefill leg), goodput {c['goodput_fraction']:.1%}"
+        for k, c in sorted(report["classes"].items()))
+    print(f"pair loadgen command (python -m lws_tpu_torch loadgen {LOADGEN_SCENARIO} --seed "
+          f"{LOADGEN_SEED} --prefill --decode --server): {done} of {n} requests completed; TTFT "
+          f"count +{ttft:.0f} (prefill), ITL count +{itl:.0f} (decode); transfer bytes moved "
+          f"{ {k: int(v) for k, v in wire.items()} }; history rows {sorted(rows)} "
+          f"({len((report.get('history') or {}).get('recommendation', []))} recommendation "
+          f"steps); fleet GOODPUT {goodput:.1%}; {classes}; this run added {wall:.1f} s")
+    return [len(r.prompt) for r in schedule]
+
+
 def check_journey(r: Role, rid: str, spans: set, chunks: int = 0, outcome: str = "") -> dict:
     """`rid`'s journey on role `r` is complete, holds `spans`, and (for a
     streamed handoff) one chunk-timeline entry per chunk: `chunks_produced`
@@ -3641,7 +3857,9 @@ def path_tp_disagg(torch, dev, tp: int, refs: dict, profile_nccl: bool = False) 
     tp. They pair over loopback TCP through a stand-in API server. Traffic:
     the 1,000-token prompt streamed (LWS_TPU_KV_CHUNK=CHUNK), the 100-token
     prompt, the JAX package's shared_prefix scenario (seed 0, its first
-    PAIR_REQUESTS requests) open-loop through loadgen.DisaggTarget; then the
+    PAIR_REQUESTS requests, ids lr-N) open-loop through loadgen.DisaggTarget,
+    then the whole scenario through the loadgen command (command_over_pair,
+    ids lg-N); then the
     prefill role restarts with LWS_TPU_KV_CHUNK=0 and a budget of
     PAIR_POISON_MAX_LEN rows, and the 1,000-token prompt hands off
     monolithic; then the 100-token prompt under a live decode fault (its
@@ -3652,8 +3870,9 @@ def path_tp_disagg(torch, dev, tp: int, refs: dict, profile_nccl: bool = False) 
     prompt first goes through once unmeasured (a fresh process's warm-up). Checked: each
     bundle's bytes equal path 12's one-card handoff's for the prompt, and
     its tokens too (or fork only at an argmax near-tie); the handoff record
-    says tp_gathered and carries its reshard; every load-runner request
-    completes on the client and is handed off on both roles (their logs);
+    says tp_gathered and carries its reshard; every load-runner and
+    command request completes on the client and is handed off on both
+    roles (their logs);
     each role's kernel launches, printed by its rank 0 at exit, equal the
     handoffs' formulas; both roles exit 0 and leave no process behind.
     Returns the two roles' launches."""
@@ -3703,16 +3922,24 @@ def path_tp_disagg(torch, dev, tp: int, refs: dict, profile_nccl: bool = False) 
             results["long-s"] = pair_request(roles, "long-s", long_p)
             telemetry["long-s"] = (before, {role: r.metrics() for role, r in roles.items()})
             results["short"] = pair_request(roles, "short", short_p)
-            target = loadgen.DisaggTarget(roles["prefill"].ep, roles["decode"].ep, id_prefix="lg")
+            target = loadgen.DisaggTarget(roles["prefill"].ep, roles["decode"].ep, id_prefix="lr")
             scraper = Scraper(roles)
             try:
                 run = loadgen.run_schedule(schedule, target, max_wall_s=600.0)
             finally:
                 telemetry["scrapes"] = scraper.stop()
-            # The streamed journeys, and the first prefill process's own
-            # ledgers, before it drains.
+            # The streamed journeys on both roles. A role keeps its 16
+            # slowest healthy journeys, and a slower one displaces the
+            # fastest of them: the command's 17 requests below, queued one
+            # leg at a time on the decode role, would displace long-s's.
             check_journey(roles["prefill"], "long-s", {"serve.prefill", "kv.gather"},
                           chunks=-(-1000 // CHUNK))
+            check_journey(roles["decode"], "long-s",
+                          {"kv.deserialize", "kv.reshard", "serve.decode_dispatch"},
+                          chunks=-(-1000 // CHUNK))
+            # The loadgen command over the same pair (its requests' ids: lg-N),
+            # then the first prefill process's own ledgers, before it drains.
+            command_prompts = command_over_pair(roles, loadgen)
             telemetry["compiles-prefill-a"] = check_compile_journeys(roles["prefill"], t_requests)
             check_card_gauges(torch, roles["prefill"], cards["prefill"])
             telemetry["prefill-a"] = roles["prefill"].metrics()
@@ -3746,9 +3973,7 @@ def path_tp_disagg(torch, dev, tp: int, refs: dict, profile_nccl: bool = False) 
                   f"tp disagg pair poison: failed {poison_meta['failed']!r}")
             check_journey(dec, "poison", set(), outcome="errored")
             results["after-poison"] = pair_request(roles, "after-poison", short_p)
-            for rid, chunks in (("long-s", -(-1000 // CHUNK)), ("long-m", 0)):
-                check_journey(dec, rid, {"kv.deserialize", "kv.reshard", "serve.decode_dispatch"},
-                              chunks=chunks)
+            check_journey(dec, "long-m", {"kv.deserialize", "kv.reshard", "serve.decode_dispatch"})
             check_journey(roles["prefill"], "long-m", {"serve.prefill", "kv.gather"})
             code, text = dec.http("/debug/profile?format=collapsed")
             check(code == 200 and text.strip(), f"the decode role's collapsed profile: {code}")
@@ -3779,10 +4004,13 @@ def path_tp_disagg(torch, dev, tp: int, refs: dict, profile_nccl: bool = False) 
     check(len(outs) == PAIR_REQUESTS and all(o.completed and not o.failed for o in outs),
           f"tp disagg pair: {sum(o.completed and not o.failed for o in outs)} of "
           f"{PAIR_REQUESTS} load-runner requests completed")
+    n_cmd = len(command_prompts)
     for role, log in (("prefill", logs["prefill-a.log"]), ("decode", logs["decode-a.log"])):
-        n = sum(1 for ln in log.splitlines() if ln.startswith(f"[{role}] HANDOFF lg-"))
-        check(n == PAIR_REQUESTS, f"tp disagg pair: the {role} role handed off {n} of "
-                                  f"{PAIR_REQUESTS} load-runner requests")
+        for prefix, want_n, what in (("lr-", PAIR_REQUESTS, "load-runner"),
+                                     ("lg-", n_cmd, "loadgen-command")):
+            n = sum(1 for ln in log.splitlines() if ln.startswith(f"[{role}] HANDOFF {prefix}"))
+            check(n == want_n, f"tp disagg pair: the {role} role handed off {n} of {want_n} "
+                               f"{what} requests")
     check_pair_telemetry(refs, telemetry, logs, tp)
     # Bundles and tokens against path 12's one-card handoffs.
     model_box: dict = {}
@@ -3820,8 +4048,8 @@ def path_tp_disagg(torch, dev, tp: int, refs: dict, profile_nccl: bool = False) 
     want = {"prefill-a": {"flash_attention": 0, "int8_matmul": 2 * streamed_1000},
             "prefill-b": {k: 2 * (v + mono(100)[k]) + mono(PAIR_POISON_LEN)[k]
                           for k, v in mono(1000).items()},
-            "decode": {"int8_matmul": (7 * L + 1) * HANDOFF_STEPS * (8 + PAIR_REQUESTS)}}
-    for S in [100, 100] + lg:
+            "decode": {"int8_matmul": (7 * L + 1) * HANDOFF_STEPS * (8 + PAIR_REQUESTS + n_cmd)}}
+    for S in [100, 100] + lg + command_prompts:
         for k, v in mono(S).items():
             want["prefill-a"][k] += v
     total = {name: 0 for name in kernel_counters()}
@@ -3831,8 +4059,8 @@ def path_tp_disagg(torch, dev, tp: int, refs: dict, profile_nccl: bool = False) 
             total[k] += v
     print(f"tp disagg pair tp={tp} ({'prefill on cards ' + cards['prefill'] + ', decode on '
                                        + cards['decode'] if split else 'both roles on card 0'}):"
-          f" {PAIR_REQUESTS} load-runner requests of shared_prefix completed on the client and "
-          f"both roles' logs; p50 TTFT {statistics.median(o.ttft_s for o in outs) * 1e3:.1f} ms "
+          f" {PAIR_REQUESTS} load-runner requests of shared_prefix and the loadgen command's "
+          f"{n_cmd} completed on the client and both roles' logs; p50 TTFT {statistics.median(o.ttft_s for o in outs) * 1e3:.1f} ms "
           f"(the client's proxy: the prefill leg); roles ready {t_ready:.1f} s after launch; "
           f"the prefill role drained by POST /debug/drain (twice) and the decode role by "
           f"SIGTERM (exit 0), and {len(followers)} spawned processes; path "

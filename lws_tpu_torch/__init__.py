@@ -15,6 +15,9 @@ the ops compute their plain PyTorch versions.
 A group of processes serves one model tensor-parallel: parallel/ starts
 torch.distributed from the control plane's env contract and forms the mesh
 the engines take (`mesh=`); runtime/worker.py is the group's worker.
+`python -m lws_tpu_torch loadgen` (cli.py) runs a traffic scenario against
+the port's engines or a live disaggregated pair and prints the goodput
+report.
 """
 
 from lws_tpu_torch._device import resolve_device

@@ -1,8 +1,7 @@
-"""Scenario specs: the port's copy of lws_tpu/loadgen/scenario.py, whole but
-for `revision_bump` (a live-server stanza the port has no driver for). A
-named, committable description of one traffic experiment — arrival process + workload mix + per-class SLO targets — and
-the deterministic compiler from (spec, seed) to a fully-materialized
-request schedule.
+"""Scenario specs: the port's copy of lws_tpu/loadgen/scenario.py, whole. A
+named, committable description of one traffic experiment — arrival
+process + workload mix + per-class SLO targets — and the deterministic
+compiler from (spec, seed) to a fully-materialized request schedule.
 
 The schedule is byte-reproducible: `build_schedule(spec, seed)` draws from
 one `random.Random(seed)` stream in a fixed order (prefix pool, all arrival
@@ -200,6 +199,29 @@ def install_class_targets(spec: dict, recorder=None) -> dict[str, SLOTargets]:
     mapping = class_targets(spec)
     (recorder if recorder is not None else slo.RECORDER).set_class_targets(mapping)
     return mapping
+
+
+def revision_bump(spec: dict) -> Optional[dict]:
+    """The optional `revision_bump` stanza, validated: None when absent,
+    else `{"at_s": float, "lws": "ns/name" | "", "env": {"name", "value"}}`.
+    The stanza never touches the schedule (build_schedule ignores it —
+    committed digests stay stable); it drives the LIVE side of a run: the
+    CLI flips the target deployment's worker-template env at `at_s`
+    scenario-seconds, forcing a new template revision under load."""
+    raw = spec.get("revision_bump")
+    if raw is None:
+        return None
+    if not isinstance(raw, dict):
+        raise ValueError("revision_bump must be a JSON object")
+    env = raw.get("env") or {}
+    if not isinstance(env, dict):
+        raise ValueError("revision_bump.env must be a JSON object")
+    return {
+        "at_s": float(raw.get("at_s", 0.0)),
+        "lws": str(raw.get("lws", "")),
+        "env": {"name": str(env.get("name") or "LWS_TPU_CANARY_STAGE"),
+                "value": str(env.get("value") or "canary")},
+    }
 
 
 def build_schedule(spec: dict, seed: int) -> list[ScheduledRequest]:

@@ -307,9 +307,9 @@ def _decode_bundle_inner(engine: Engine, payload, steps: int, gamma: int, ngram:
     timeline.finish()
     stats = {
         "bundle_bytes": bundle_bytes,
-        "deserialize_s": round(s_deser.duration_s, 4),
-        "reshard_s": round(s_reshard.duration_s, 4),
-        "decode_s": round(s_decode.duration_s, 4),
+        "deserialize_s": _handoff_s(s_deser),
+        "reshard_s": _handoff_s(s_reshard),
+        "decode_s": _handoff_s(s_decode),
         **({"streamed": True, "chunks": payload.chunks} if streamed else {}),
         **spec_stats,
     }
@@ -327,6 +327,14 @@ def _prefill_compute(engine: Engine, prompt, chunk_tokens: int, emit=None):
         return engine.prefill_chunked_stream(tokens, chunk_tokens, emit=emit)
     token, cache = engine.prefill(tokens)
     return token, cache, None
+
+
+def _handoff_s(span) -> float:
+    """A span's seconds as the handoff record carries them: the shipped
+    span's duration (to_dict's 6 places) to 4 places, so the record reads
+    off the spans it ships with exactly (rounding the raw duration straight
+    to 4 places can differ from that in the last place)."""
+    return round(span.to_dict()["duration_s"], 4)
 
 
 def _own_pod(client, namespace: str, pod_name: str) -> dict:
@@ -438,7 +446,7 @@ def _prefill_streamed(engine: Engine, server: kt.KVServer, meta: dict, req_id: s
     handoff = {
         "pos": int(cache.pos),
         "bundle_bytes": stream.payload_bytes,
-        "prefill_s": round(s_prefill.duration_s, 4),
+        "prefill_s": _handoff_s(s_prefill),
         "gather_s": round(pstats["gather_s"], 4),
         "tp_gathered": engine.mesh is not None,
         "streamed": True,
@@ -481,8 +489,8 @@ def _prefill_monolithic(engine: Engine, server: kt.KVServer, meta: dict, req_id:
     handoff = {
         "pos": int(cache.pos),
         "bundle_bytes": len(bundle),
-        "prefill_s": round(s_prefill.duration_s, 4),
-        "gather_s": round(s_gather.duration_s, 4),
+        "prefill_s": _handoff_s(s_prefill),
+        "gather_s": _handoff_s(s_gather),
         "tp_gathered": engine.mesh is not None,
     }
     metrics.inc("serving_kv_handoffs_total")
