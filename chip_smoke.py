@@ -12,13 +12,16 @@ kernels to their plain PyTorch versions.
                                        # single-card references it computes first
     python3 chip_smoke.py --disagg-only --tp 2  # path 16 alone: each role on 2 of 4
                                        # cards, against one-card handoffs of its own
+    python3 chip_smoke.py --deploy-only  # path 17 alone: the port's control plane
+                                       # deploys the full-width pair, against
+                                       # one-card handoffs of its own
     python3 chip_smoke.py --train-only # path 15 alone on one card
     python3 chip_smoke.py --train-only --mesh 2,1,1,2 --mesh 1,2,1,2:4 ...
                                        # path 15's config on several cards, one
                                        # layout per --mesh DP,PP,CP,TP[:GPipe M]
 
 Phases (each raises on failure; the script then exits non-zero and prints
-no result line): 1-4 build and hold the kernels, 5-14 and 16 drive the
+no result line): 1-4 build and hold the kernels, 5-14, 16 and 17 drive the
 engine paths, 15 trains.
   1. the card (nvidia-smi name and power limit, CUDA version) and the build of
      every CUDA source in lws_tpu_torch/csrc/ for sm_90a, one nvcc per source,
@@ -202,6 +205,27 @@ engine paths, 15 trains.
      handoff, gather, wire, deserialize and reshard ms, tok/s per role and
      the path's seconds; on four cards NCCL's share of the decode role's
      steps.
+ 17. (run after 16, before 11) the deployed pair: `python -m lws_tpu_torch
+     serve --config ... -f ...` as a process of its own (the port's
+     ControlPlane, LocalBackend and ApiServer; backend local, no scheduler)
+     deploys a DisaggregatedSet whose roles are LWSes of size 1 running the
+     port's workers at path 16's width (LWS_TPU_MODEL=flagship, prefill
+     streaming in chunks of 256). The serve process holds no CUDA context
+     (its open device nodes, and nvidia-smi's compute apps); both roles are
+     found only through its API server (the `-prv` Services selecting ready
+     pods); the 1,000-token prompt (streamed) and the 100-token prompt
+     equal path 16's one-card references in bundle bytes and tokens (a fork
+     only at an argmax near-tie). The decode pod's process is SIGKILLed:
+     the pod goes Failed with one container restart (the API server's
+     /watch), the group is recreated with a new pod uid, and a 100-token
+     request submitted during the outage completes once the new pod is up
+     and equals its reference. `get Pod`, `get DisaggregatedSet` and `logs`
+     run as processes and show exactly the DS's objects and the new
+     incarnation's output; `delete DisaggregatedSet` ends every worker
+     within 60 s; the launches the prefill role and the replacement decode
+     role print at exit equal the handoff formulas; no spawned process
+     outlives the path; serve exits 0 on SIGINT. It prints deploy-to-ready,
+     kill-to-result and the path's seconds.
  15. (last) training at benchmarks/train_bench.py's on-accelerator config
      (vocab 32000, d_model 1536, 12 layers, 12 heads, 6 KV heads, d_ff 4096,
      remat; f32 parameters, bf16 compute; AdamW at lr 3e-4; a fixed batch of
@@ -4076,6 +4100,407 @@ def path_tp_disagg(torch, dev, tp: int, refs: dict, profile_nccl: bool = False) 
 
 
 # ---------------------------------------------------------------------------
+# Path 17: the deployed pair. The port's control plane (`python -m
+# lws_tpu_torch serve`, backend local) deploys a DisaggregatedSet of the
+# port's workers; the path finds them through its API server, serves the
+# pair, kills the decode process and holds the group-atomic restart.
+
+DEPLOY_NAME = "deployed"  # the DisaggregatedSet's name
+DEPLOY_READY_S = 600.0  # serve's start and both roles': imports, the card, the full flagship
+DEPLOY_EXIT_S = 60.0  # every worker's exit after the DS is deleted
+PID_ANNOTATION = "local.lws.tpu/pid"  # lws_tpu_torch/runtime/local.py:PID_ANNOTATION_KEY
+
+
+def deploy_manifests(api_url: str, kv_ports: dict) -> tuple[str, dict]:
+    """The Configuration (backend local, no scheduler) and the
+    DisaggregatedSet, in the shape of examples/disaggregated-live-demo.yaml
+    with the port's workers: each role an LWS of size 1, 1 replica, the
+    default RecreateGroupOnPodRestart."""
+    config = ("apiVersion: config.lws.tpu/v1alpha1\nkind: Configuration\n"
+              "backend: local\nenableScheduler: false\n")
+
+    def role(name: str) -> dict:
+        env = [{"name": "LWS_TPU_MODEL", "value": PAIR_MODEL},
+               {"name": "LWS_TPU_KV_PORT", "value": str(kv_ports[name])},
+               {"name": "LWS_TPU_API", "value": api_url}]
+        if name == "prefill":
+            env.append({"name": "LWS_TPU_KV_CHUNK", "value": str(CHUNK)})
+        command = [sys.executable, "-m", "lws_tpu_torch.serving.disagg_worker", name,
+                   "--steps", str(HANDOFF_STEPS), "--max-len", str(MAX_LEN),
+                   "--device", PAIR_DEVICE]
+        return {"name": name, "replicas": 1, "template": {"spec": {"leaderWorkerTemplate": {
+            "size": 1, "workerTemplate": {"spec": {"containers": [
+                {"name": name, "command": command, "env": env}]}}}}}}
+
+    ds = {"apiVersion": "lws.tpu/v1", "kind": "DisaggregatedSet",
+          "metadata": {"name": DEPLOY_NAME},
+          "spec": {"roles": [role("prefill"), role("decode")]}}
+    return config, ds
+
+
+class ServeProcess:
+    """`python -m lws_tpu_torch serve --config ... -f ... --port P` as a
+    process of its own, its output in a log; the commands of the same CLI
+    as processes against it."""
+
+    def __init__(self, work_dir: str, port: int, config: str, manifests: list) -> None:
+        self.repo = os.path.dirname(os.path.abspath(__file__))
+        self.port = port
+        cfg, mf = os.path.join(work_dir, "config.yaml"), os.path.join(work_dir, "deploy.yaml")
+        with open(cfg, "w") as f:
+            f.write(config)
+        with open(mf, "w") as f:
+            # JSON documents, one per line: each is a YAML document too.
+            f.write("\n---\n".join(json.dumps(m) for m in manifests) + "\n")
+        self.env = dict(os.environ, PYTHONPATH=self.repo + os.pathsep
+                        + os.environ.get("PYTHONPATH", ""))
+        self.log_path = os.path.join(work_dir, "serve.log")
+        self._log = open(self.log_path, "w")
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "lws_tpu_torch", "serve", "--config", cfg, "-f", mf,
+             "--port", str(port)],
+            env=self.env, cwd=self.repo, stdout=self._log, stderr=subprocess.STDOUT)
+
+    def log(self) -> str:
+        with open(self.log_path) as f:
+            return f.read()
+
+    def alive(self) -> None:
+        check(self.proc.poll() is None,
+              f"the serve process exited {self.proc.returncode}:\n{self.log()[-3000:]}")
+
+    def pod_log_dir(self) -> str:
+        line = next((ln for ln in self.log().splitlines() if ln.startswith("pod logs under ")),
+                    None)
+        check(line is not None, f"serve printed no log dir:\n{self.log()[-3000:]}")
+        return line[len("pod logs under "):].strip()
+
+    def cli(self, *argv: str) -> subprocess.CompletedProcess:
+        return subprocess.run(
+            [sys.executable, "-m", "lws_tpu_torch", *argv, "--server", f"127.0.0.1:{self.port}"],
+            env=self.env, cwd=self.repo, capture_output=True, text=True, timeout=120)
+
+    def stop(self) -> int:
+        """SIGINT, as a user stops it; its exit code."""
+        import signal
+
+        if self.proc.poll() is None:
+            self.proc.send_signal(signal.SIGINT)
+            try:
+                self.proc.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                self.proc.kill()
+                self.proc.wait()
+        self._log.close()
+        return self.proc.returncode
+
+
+def holds_the_card(pid: int) -> bool:
+    """A process with a CUDA context has the card's device nodes open."""
+    try:
+        fds = os.listdir(f"/proc/{pid}/fd")
+    except OSError:
+        return False
+    for fd in fds:
+        try:
+            if os.readlink(f"/proc/{pid}/fd/{fd}").startswith("/dev/nvidia"):
+                return True
+        except OSError:
+            continue
+    return False
+
+
+def nvidia_smi_pids() -> list[int]:
+    out = subprocess.run(["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60)
+    check(out.returncode == 0, f"nvidia-smi --query-compute-apps: {out.stderr}")
+    return [int(x) for x in out.stdout.split() if x.strip().isdigit()]
+
+
+def deployed_pods(client, role: Optional[str] = None) -> list[dict]:
+    from lws_tpu_torch.serving import kv_transport as kt
+
+    try:
+        pods = client.list("Pod")
+    except OSError:
+        return []
+    return [p for p in pods
+            if p["metadata"]["labels"].get(kt.DS_NAME_LABEL_KEY) == DEPLOY_NAME
+            and (role is None or p["metadata"]["labels"].get(kt.DS_ROLE_LABEL_KEY) == role)]
+
+
+def deployed_request(eps: dict, rid: str, prompt, serve: ServeProcess, deadline: float,
+                     submit: bool = True) -> tuple:
+    """One prompt through the deployed pair: submitted to prefill (with
+    retries while its port comes up), its result polled from decode (with
+    retries while decode is away). Returns (the result's meta, its tokens)."""
+    from lws_tpu_torch.serving import kv_transport as kt
+
+    while submit:
+        serve.alive()
+        try:
+            kt.submit_prompt(eps["prefill"], rid, kt.arrays_to_bytes(prompt=prompt))
+            break
+        except OSError:
+            check(time.monotonic() < deadline, f"deployed pair {rid}: prefill never took it")
+            time.sleep(0.2)
+    while time.monotonic() < deadline:
+        serve.alive()
+        try:
+            got = kt.pull_result(eps["decode"], rid)
+        except OSError:
+            got = None
+        if got is not None:
+            meta, payload = got
+            check("failed" not in meta, f"deployed pair {rid}: failed {meta.get('failed')!r}")
+            return meta, kt.bytes_to_arrays(payload)["tokens"]
+        time.sleep(0.05)
+    check(False, f"deployed pair {rid}: no result by the deadline\n{serve.log()[-3000:]}")
+
+
+def launch_line(log: str, role: str) -> dict:
+    lines = [ln for ln in log.splitlines() if ln.startswith(f"[{role}] kernel launches ")]
+    check(len(lines) == 1, f"deployed pair: the {role} worker printed {len(lines)} launch lines")
+    return json.loads(lines[0].split(" kernel launches ", 1)[1])
+
+
+def path_deployed_pair(torch, dev, refs: dict) -> dict:
+    """17. The deployed pair: `python -m lws_tpu_torch serve` (the port's
+    ControlPlane, LocalBackend and ApiServer in a process that never touches
+    the card) deploys a DisaggregatedSet of the port's full-width workers
+    (LWS_TPU_MODEL=flagship: int8 weights, bf16 K/V; prefill streams in
+    chunks of CHUNK). Both roles are found only through the port's API
+    server (their `-prv` Services selecting ready pods, read with
+    lws_tpu_torch.client.RemoteClient). The 1,000-token prompt (streamed)
+    and the 100-token prompt go through the pair; their bundle bytes and
+    tokens equal path 16's one-card references (tokens may fork only at an
+    argmax near-tie). Then the decode pod's process is SIGKILLed: the pod
+    goes Failed with one container restart (read from the API server's
+    /watch), the controller recreates the group (a new pod uid), and a
+    100-token request submitted during the outage completes once the new
+    pod is up (its bundle waited unacked on prefill) and equals its
+    reference. `get Pod`, `get DisaggregatedSet` and `logs` run as
+    processes of the same CLI; `delete DisaggregatedSet` ends every worker
+    within DEPLOY_EXIT_S; the launches the prefill role and the replacement
+    decode role print at exit equal the handoff formulas; no spawned process
+    outlives the path; serve stops on SIGINT. Prints deploy-to-ready,
+    kill-to-result and the path's seconds. Returns the two roles' launches."""
+    import signal
+    import tempfile
+
+    from lws_tpu_torch.client import RemoteClient
+    from lws_tpu_torch.models.flagship import flagship_config
+    from lws_tpu_torch.parallel import launch
+    from lws_tpu_torch.serving import kv_transport as kt
+
+    t_path = time.perf_counter()
+    L = flagship_config("full" if PAIR_MODEL == "flagship" else "smoke").n_layers
+    ports: dict = {}
+    while len(set(ports.values())) < 3:  # a released port may come back
+        ports = {name: launch.free_port() for name in ("api", "prefill", "decode")}
+    api_url = f"http://127.0.0.1:{ports['api']}"
+    config, ds = deploy_manifests(api_url, ports)
+    client = RemoteClient(api_url)
+    long_p, short_p = refs[(1000, 0)]["prompt"], refs[(100, 0)]["prompt"]
+    workers: set = set()
+    with tempfile.TemporaryDirectory() as work_dir:
+        serve = ServeProcess(work_dir, ports["api"], config, [ds])
+        try:
+            deadline = time.monotonic() + DEPLOY_READY_S
+            eps: dict = {}
+            while len(eps) < 2:
+                serve.alive()
+                check(time.monotonic() < deadline, f"deployed pair: -prv endpoints {eps} by the "
+                                                   f"deadline\n{serve.log()[-3000:]}")
+                for role in ("prefill", "decode"):
+                    try:
+                        ep = kt.discover_role_endpoint(client, "default", DEPLOY_NAME, role)
+                    except OSError:
+                        ep = None
+                    if ep is not None:
+                        eps[role] = ep
+                time.sleep(0.2)
+            t_published = time.perf_counter() - t_path
+            check(eps == {r: ("127.0.0.1", ports[r]) for r in ("prefill", "decode")},
+                  f"deployed pair: discovered {eps}")
+            pods = {r: deployed_pods(client, r) for r in ("prefill", "decode")}
+            check(all(len(v) == 1 for v in pods.values()), f"deployed pair: pods {pods}")
+            pods = {r: v[0] for r, v in pods.items()}
+            pids = {r: int(p["metadata"]["annotations"][PID_ANNOTATION]) for r, p in pods.items()}
+            workers |= set(pids.values())
+            import socket
+
+            for role in ("prefill", "decode"):
+                while True:
+                    serve.alive()
+                    check(pid_alive(pids[role]), f"deployed pair: the {role} worker died")
+                    try:
+                        with socket.create_connection(eps[role], timeout=1.0):
+                            break
+                    except OSError:
+                        check(time.monotonic() < deadline, f"deployed pair: the {role} worker "
+                                                           "never listened")
+                        time.sleep(0.5)
+            t_ready = time.perf_counter() - t_path
+            # Only the workers hold the card; the serve process never does.
+            check(not holds_the_card(serve.proc.pid),
+                  "deployed pair: the serve process has the card's device nodes open")
+            smi = nvidia_smi_pids()
+            check(serve.proc.pid not in smi, f"deployed pair: nvidia-smi lists serve ({smi})")
+            known = set(pids.values()) | {os.getpid()}
+            if set(smi) & known:
+                check(set(smi) <= known, f"deployed pair: nvidia-smi lists {smi}, workers "
+                                         f"{sorted(pids.values())} and this script {os.getpid()}")
+                smi_note = f"nvidia-smi lists {sorted(smi)}: the two workers and this script"
+            else:
+                # Its pids are another namespace's: count the contexts instead,
+                # one for each worker and one for this script; serve would be
+                # one more.
+                check(len(smi) == len(known), f"deployed pair: nvidia-smi lists {len(smi)} "
+                                              f"compute apps, expected {len(known)} (the two "
+                                              "workers and this script)")
+                smi_note = (f"nvidia-smi lists {len(smi)} compute apps (pids {smi} of another "
+                            "namespace): the two workers and this script")
+            for role in ("prefill", "decode"):
+                check(holds_the_card(pids[role]), f"deployed pair: the {role} worker holds no "
+                                                  "device node")
+            results = {"long-s": deployed_request(eps, "long-s", long_p, serve, deadline),
+                       "short": deployed_request(eps, "short", short_p, serve, deadline)}
+
+            # Group-atomic restart: SIGKILL the decode pod's process.
+            code, text = http_call(ports["api"], "/watch?since=-1")
+            check(code == 200, f"deployed pair: /watch bookmark {code} {text}")
+            since = json.loads(text)["next"]
+            old = pods["decode"]
+            t_kill = time.perf_counter()
+            os.kill(pids["decode"], signal.SIGKILL)
+            check(wait_until(lambda: not pid_alive(pids["decode"]), timeout=30.0),
+                  "deployed pair: the killed decode process lives on")
+            deadline = time.monotonic() + DEPLOY_READY_S
+            # Submitted while decode is down: the bundle waits on prefill.
+            kt.submit_prompt(eps["prefill"], "outage", kt.arrays_to_bytes(prompt=short_p))
+            failed = None
+            while failed is None:
+                serve.alive()
+                check(time.monotonic() < deadline, "deployed pair: the killed pod never went "
+                                                   "Failed on /watch")
+                code, text = http_call(ports["api"], f"/watch?since={since}&timeout=1")
+                check(code == 200, f"deployed pair: /watch {code} {text[:300]}")
+                batch = json.loads(text)
+                check("expired" not in batch, "deployed pair: the /watch bookmark expired")
+                since = batch["next"]
+                failed = next((e["object"] for e in batch["events"]
+                               if e["object"]["kind"] == "Pod"
+                               and e["object"]["metadata"]["uid"] == old["metadata"]["uid"]
+                               and (e["object"].get("status") or {}).get("phase") == "Failed"),
+                              None)
+            check(failed["status"]["container_restarts"] == 1,
+                  f"deployed pair: the killed pod's status {failed['status']}")
+            new = None
+            while new is None:
+                serve.alive()
+                check(time.monotonic() < deadline, "deployed pair: the decode group was never "
+                                                   "recreated")
+                got = deployed_pods(client, "decode")
+                if (len(got) == 1 and got[0]["metadata"]["uid"] != old["metadata"]["uid"]
+                        and (got[0].get("status") or {}).get("ready")
+                        and PID_ANNOTATION in got[0]["metadata"]["annotations"]):
+                    new = got[0]
+                else:
+                    time.sleep(0.2)
+            check(new["metadata"]["name"] == old["metadata"]["name"],
+                  f"deployed pair: the recreated pod is {new['metadata']['name']}")
+            pids["decode-b"] = int(new["metadata"]["annotations"][PID_ANNOTATION])
+            workers.add(pids["decode-b"])
+            results["outage"] = deployed_request(eps, "outage", short_p, serve, deadline,
+                                                 submit=False)
+            t_recover = time.perf_counter() - t_kill
+
+            # The CLI's commands as processes against the same server.
+            listed = serve.cli("get", "Pod")
+            check(listed.returncode == 0, f"get Pod exited {listed.returncode}: {listed.stderr}")
+            names = sorted(ln.split("\t")[0] for ln in listed.stdout.splitlines())
+            want_names = sorted(f"default/{p['metadata']['name']}"
+                                for p in (pods["prefill"], new))
+            check(names == want_names, f"get Pod listed {names}, the DS's pods {want_names}")
+            got_ds = serve.cli("get", "DisaggregatedSet")
+            check(got_ds.returncode == 0 and [ln.split("\t")[0] for ln in
+                                               got_ds.stdout.splitlines()]
+                  == [f"default/{DEPLOY_NAME}"], f"get DisaggregatedSet: {got_ds.stdout!r}")
+            logs = serve.cli("logs", new["metadata"]["name"])
+            check(logs.returncode == 0 and "[decode] finished outage" in logs.stdout
+                  and "finished long-s" not in logs.stdout,
+                  f"logs of the new decode pod: {logs.stdout[-2000:]!r}")
+
+            gone = serve.cli("delete", "DisaggregatedSet", "default", DEPLOY_NAME)
+            check(gone.returncode == 0 and json.loads(gone.stdout) == {
+                "deleted": f"DisaggregatedSet/default/{DEPLOY_NAME}"},
+                f"delete DisaggregatedSet: {gone.returncode} {gone.stdout} {gone.stderr}")
+            t_delete = time.perf_counter()
+            live = [pids["prefill"], pids["decode-b"]]
+            check(wait_until(lambda: not any(pid_alive(p) for p in live), timeout=DEPLOY_EXIT_S),
+                  f"deployed pair: workers {[p for p in live if pid_alive(p)]} outlived the "
+                  f"delete by {DEPLOY_EXIT_S:.0f} s")
+            t_exit = time.perf_counter() - t_delete
+            check(not deployed_pods(client), "deployed pair: pods left after the delete")
+            log_dir = serve.pod_log_dir()
+
+            def pod_log(pod: dict) -> str:
+                m = pod["metadata"]
+                with open(os.path.join(log_dir, f"{m['namespace']}_{m['name']}_{m['uid']}.log"),
+                          errors="replace") as f:
+                    return f.read()
+
+            launches = {"prefill": launch_line(pod_log(pods["prefill"]), "prefill"),
+                        "decode-b": launch_line(pod_log(new), "decode")}
+            leftover = proc_children(serve.proc.pid)
+            check(not leftover, f"deployed pair: serve's children {leftover} outlived the path")
+        finally:
+            rc = serve.stop()
+            stray = [p for p in workers if pid_alive(p)]
+            for p in stray:
+                os.kill(p, signal.SIGKILL)
+        check(not stray, f"deployed pair: processes {stray} outlived the path")
+        check(rc == 0, f"deployed pair: serve exited {rc} on SIGINT:\n{serve.log()[-3000:]}")
+    # Bundles and tokens against path 16's references.
+    model_box: dict = {}
+    verdicts = {}
+    for rid, (S, chunk) in (("long-s", (1000, CHUNK)), ("short", (100, 0)),
+                            ("outage", (100, 0))):
+        meta, toks = results[rid]
+        ref, h = refs[(S, chunk)], meta["handoff"]
+        check(h["bundle_bytes"] == ref["stats"]["bundle_bytes"],
+              f"deployed pair {rid}: bundle {h['bundle_bytes']} B, one card "
+              f"{ref['stats']['bundle_bytes']} B")
+        check(bool(h.get("streamed")) == bool(chunk) and h["pos"] == S,
+              f"deployed pair {rid}: handoff record {h}")
+        verdicts[rid] = check_pair_stream(torch, dev, toks, ref, f"deployed pair {rid}",
+                                          model_box)
+    # The launches each role printed at exit: prefill handled the streamed
+    # 1,000-token prompt and two 100-token prompts; the replacement decode
+    # role decoded the outage request alone.
+    mono = lambda S: {"flash_attention": L, "int8_matmul": 7 * L * (S <= 256) + 1}  # noqa: E731
+    want = {"prefill": {"flash_attention": 2 * mono(100)["flash_attention"],
+                        "int8_matmul": 7 * L * -(-1000 // CHUNK) + 1
+                        + 2 * mono(100)["int8_matmul"]},
+            "decode-b": {"int8_matmul": (7 * L + 1) * HANDOFF_STEPS}}
+    total = {name: 0 for name in kernel_counters()}
+    for role, got in launches.items():
+        check_launches(f"deployed pair {role}", got, want[role])
+        for k, v in got.items():
+            total[k] += v
+    print(f"deployed pair: serve (pid {serve.proc.pid}) held no CUDA context ({smi_note}); "
+          f"-prv endpoints published {t_published:.1f} s and both roles listening "
+          f"{t_ready:.1f} s after `serve` started (deploy-to-ready); tokens vs one card: "
+          f"{verdicts}; SIGKILL of the decode process -> pod Failed (container_restarts 1) -> "
+          f"group recreated (uid {old['metadata']['uid']} -> {new['metadata']['uid']}) -> the "
+          f"outage request's result {t_recover:.1f} s after the kill (kill-to-result); workers "
+          f"gone {t_exit:.1f} s after `delete`; path wall time "
+          f"{time.perf_counter() - t_path:.1f} s")
+    return total
+
+
+# ---------------------------------------------------------------------------
 # Path 15: training (loss and backward, AdamW, checkpoints; the ring and
 # GPipe in their one-rank forms here, on several cards with --train-only).
 
@@ -4591,6 +5016,9 @@ def main(argv=None) -> int:
                     help="build, then path 16 alone at --tp (default 1) against one-card "
                          "handoffs of its own; with 2 x tp cards the roles take separate "
                          "cards and NCCL's share of the decode role's steps is printed")
+    ap.add_argument("--deploy-only", action="store_true",
+                    help="build, then path 17 alone (the port's control plane deploying the "
+                         "full-width pair) against one-card handoffs of its own")
     ap.add_argument("--train-only", action="store_true",
                     help="path 15 alone (no build, no kernels line); with --mesh, its config "
                          "on several cards")
@@ -4648,6 +5076,14 @@ def main(argv=None) -> int:
     if args.disagg_only:
         path_tp_disagg(torch, dev, args.tp or 1, pair_refs(torch, dev), profile_nccl=True)
         print(f"chip_smoke: path 16 passed in {time.perf_counter() - t_start:.1f} s")
+        print(f"card: {card}")
+        print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                                 "kind": torch.cuda.get_device_name(0),
+                                                 "count": torch.cuda.device_count()}}))
+        return 0
+    if args.deploy_only:
+        path_deployed_pair(torch, dev, pair_refs(torch, dev))
+        print(f"chip_smoke: path 17 passed in {time.perf_counter() - t_start:.1f} s")
         print(f"card: {card}")
         print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                                  "kind": torch.cuda.get_device_name(0),
@@ -4739,6 +5175,8 @@ def main(argv=None) -> int:
     del model, model8  # the flagships go before the MoE model is built
     torch.cuda.empty_cache()
     by_path["tensor-parallel disagg pair"] = path_tp_disagg(torch, dev, 1, handoff_refs)
+    torch.cuda.empty_cache()
+    by_path["deployed pair"] = path_deployed_pair(torch, dev, handoff_refs)
     torch.cuda.empty_cache()
     watch.begin()
     by_path["int8 MoE engines"], kernels["int8_matmul"]["moe_expert_rows"] = path_int8_moe(

@@ -18,6 +18,13 @@ the engines take (`mesh=`); runtime/worker.py is the group's worker.
 `python -m lws_tpu_torch loadgen` (cli.py) runs a traffic scenario against
 the port's engines or a live disaggregated pair and prints the goodput
 report.
+
+The control plane that deploys these workers is ported under the JAX
+package's paths (api/, core/store.py, webhooks/, sched/, controllers/,
+runtime/{harness,local,server}.py, manifest.py, config.py):
+`python -m lws_tpu_torch serve` runs it, with its API server, in a process
+that never touches the card, and `apply|get|delete|scale|logs|events` talk
+to it.
 """
 
 from lws_tpu_torch._device import resolve_device

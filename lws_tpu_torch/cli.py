@@ -1,20 +1,38 @@
-"""The port's command line: the `loadgen` command of lws_tpu/cli.py over the
-port's engines.
+"""The port's command line: the control plane's commands and the `loadgen`
+command of lws_tpu/cli.py, over the port's control plane and engines.
 
+  python -m lws_tpu_torch serve  --config cfg.yaml [-f manifests.yaml ...] [--port N]
+                                 [--state-file FILE]
+  python -m lws_tpu_torch apply  -f manifests.yaml [--server HOST:PORT]
+  python -m lws_tpu_torch get    KIND [NAME] [--server HOST:PORT] [-o yaml]
+  python -m lws_tpu_torch delete KIND NAMESPACE NAME [--server HOST:PORT]
+  python -m lws_tpu_torch scale  NAME REPLICAS [--server HOST:PORT]
+  python -m lws_tpu_torch logs   POD [-n NAMESPACE] [--server HOST:PORT]
+  python -m lws_tpu_torch events [NAME] [-n NAMESPACE] [--server HOST:PORT]
   python -m lws_tpu_torch loadgen --list
   python -m lws_tpu_torch loadgen SCENARIO [--seed N] [--target dense|batch|paged]
                                   [--device cpu] [--server HOST:PORT] [--json]
   python -m lws_tpu_torch loadgen SCENARIO --prefill HOST:PORT --decode HOST:PORT
 
 The flags, the output and the exit codes are the JAX package's
-(`lws-tpu loadgen`), with the global `--cacert`, `--insecure`, `--token`,
-`--client-token-file` and `$LWS_TPU_TOKEN` for an https or auth-enabled
-`--server`. Two additions: `--device` places the in-process target (default:
-the card; with no card and no `--device cpu` the command raises rather than
-run on the CPU), and an in-process target on the card writes one line to
-stderr with its kernel launches (`engine_launch_line`). The control plane's commands
-(`serve`, `top`, `monitor`, `rollout`, ...) touch no device and stay with
-the JAX package, whose API server the port's workers run under.
+(`lws-tpu serve|apply|get|delete|scale|logs|events|loadgen`), with the
+global `--cacert`, `--insecure`, `--token`, `--client-token-file` and
+`$LWS_TPU_TOKEN` for an https or auth-enabled `--server`. `serve` runs the
+control plane and its API server in a process that never touches the card:
+the pods it runs (`backend: local`) are the processes that do.
+
+`serve`'s `--state-dir`, `--standby`, `--no-fsync`, `--tls-dir` and
+`--token-file` wait for ROADMAP Queue 1 (c) (durability and HA) and fail
+with an error naming it; `serve` does not start the continuous profiler,
+whose `/debug/profile` route waits for item (a). The other commands of the
+JAX package (`top`, `monitor`, `explain`, `rollout`, `why`, `profile`,
+`devices`, `faults`: item (b); `cordon`, `drain`, `install`, `plan-steps`:
+item (d)) are not ported yet.
+
+Two additions to `loadgen`: `--device` places the in-process target
+(default: the card; with no card and no `--device cpu` the command raises
+rather than run on the CPU), and an in-process target on the card writes
+one line to stderr with its kernel launches (`engine_launch_line`).
 """
 
 from __future__ import annotations
@@ -23,6 +41,7 @@ import argparse
 import json
 import os
 import sys
+import time
 import urllib.error
 import urllib.request
 
@@ -60,6 +79,175 @@ def _http(server: str, method: str, path: str, body: bytes | None = None):
         raise SystemExit(f"error: {e.code}: {detail}") from None
     except urllib.error.URLError as e:
         raise SystemExit(f"error: cannot reach server {server}: {e.reason}") from None
+
+
+# serve's flags that wait for a later slice, with the ROADMAP item each
+# names when given.
+_DEFERRED_SERVE_FLAGS = {
+    "state_dir": "--state-dir",
+    "standby": "--standby",
+    "no_fsync": "--no-fsync",
+    "tls_dir": "--tls-dir",
+    "token_file": "--token-file",
+}
+
+
+def cmd_serve(args) -> int:
+    from lws_tpu_torch.config import Configuration, load_configuration
+    from lws_tpu_torch.core.serialize import load_store, save_store
+    from lws_tpu_torch.manifest import load_manifests
+    from lws_tpu_torch.runtime import ControlPlane
+    from lws_tpu_torch.runtime.server import ApiServer
+
+    for attr, flag in _DEFERRED_SERVE_FLAGS.items():
+        if getattr(args, attr):
+            raise SystemExit(
+                f"error: {flag} is not ported yet: the write-ahead log, "
+                "leader election, TLS and token auth wait for ROADMAP "
+                "Queue 1 (c), durability and HA"
+            )
+    cfg = load_configuration(args.config) if args.config else Configuration()
+    cp = ControlPlane(
+        scheduler_provider=cfg.gang_scheduling_management.scheduler_provider,
+        enable_scheduler=cfg.enable_scheduler,
+        auto_ready=(cfg.backend == "fake"),
+    )
+    if args.state_file and os.path.exists(args.state_file):
+        try:
+            n = load_store(cp.store, args.state_file)
+        except (ValueError, KeyError, TypeError) as e:
+            # Refusing to start beats silently discarding cluster state.
+            raise SystemExit(
+                f"error: state file {args.state_file} is corrupt ({e}); "
+                "move it aside to start fresh"
+            ) from None
+        print(f"restored {n} objects from {args.state_file}")
+        cp.resync()
+    if cfg.backend == "local":
+        import tempfile
+        import threading
+
+        from lws_tpu_torch.runtime.local import LocalBackend
+
+        log_dir = tempfile.mkdtemp(prefix="lws-tpu-logs-")
+        backend = LocalBackend(cp.store, log_dir=log_dir)
+        cp.manager.register(backend, {"Pod": lambda o: [o.key()]})
+        cp.log_provider = backend.pod_logs
+        print(f"pod logs under {log_dir}")
+
+        def _poll_exits():
+            # Process exits are not store events; poll them into pod status.
+            while True:
+                time.sleep(2.0)
+                try:
+                    backend.poll_all()
+                except Exception:  # noqa: BLE001 — the exit-poll loop must outlive one bad poll
+                    pass
+
+        threading.Thread(target=_poll_exits, daemon=True).start()
+
+    for path in args.filename or []:
+        for obj in load_manifests(path):
+            # Apply semantics: a restart with the same -f manifests over a
+            # restored state file must not crash on already-existing objects.
+            if cp.store.try_get(obj.kind, obj.meta.namespace, obj.meta.name) is None:
+                cp.store.create(obj)
+                print(f"created {obj.kind}/{obj.meta.name}")
+            else:
+                print(f"exists {obj.kind}/{obj.meta.name} (restored)")
+
+    server = ApiServer(cp, port=args.port)
+    dirty = {"flag": True}  # always persist once after boot
+    if args.state_file:
+        # Register BEFORE the manager threads start: the first burst of
+        # post-restore reconcile writes must mark the state dirty too.
+        cp.store.watch(lambda _ev: dirty.__setitem__("flag", True))
+    server.start()
+    cp.start()
+    from lws_tpu_torch.version import user_agent
+
+    print(f"{user_agent()} serving on http://127.0.0.1:{server.port} "
+          f"(backend={cfg.backend}, scheduler={cfg.enable_scheduler})", flush=True)
+    try:
+        while True:
+            time.sleep(5 if args.state_file else 3600)
+            if args.state_file and dirty["flag"]:
+                dirty["flag"] = False
+                save_store(cp.store, args.state_file)
+    except KeyboardInterrupt:
+        cp.stop()
+        server.stop()
+        if args.state_file:
+            save_store(cp.store, args.state_file)
+    return 0
+
+
+def cmd_apply(args) -> int:
+    with open(args.filename) as f:
+        body = f.read().encode()
+    out = _http(args.server, "POST", "/apply", body)
+    print(json.dumps(out))
+    return 0
+
+
+def cmd_get(args) -> int:
+    if args.name:
+        out = _http(args.server, "GET", f"/apis/{args.kind}/{args.namespace}/{args.name}")
+        if args.output == "yaml":
+            import yaml
+
+            print(yaml.safe_dump(out, sort_keys=False))
+        else:
+            print(json.dumps(out, indent=1))
+        return 0
+    objs = _http(args.server, "GET", f"/apis/{args.kind}")
+    for o in objs:
+        status = o.get("status") or {}
+        if "ready_replicas" in status:
+            detail = f"ready={status['ready_replicas']}"
+        elif "phase" in status:
+            detail = f"phase={status['phase']}\tready={status.get('ready')}"
+        else:
+            detail = ""
+        print(f"{o['metadata']['namespace']}/{o['metadata']['name']}\t{detail}")
+    return 0
+
+
+def cmd_delete(args) -> int:
+    print(json.dumps(_http(args.server, "DELETE", f"/apis/{args.kind}/{args.namespace}/{args.name}")))
+    return 0
+
+
+def cmd_logs(args) -> int:
+    url = f"{_server_base(args.server)}/logs/{args.namespace}/{args.name}"
+    req = urllib.request.Request(url, headers=_auth_headers())
+    try:
+        with urllib.request.urlopen(req, timeout=30, context=_url_context(url)) as resp:
+            sys.stdout.write(resp.read().decode(errors="replace"))
+        return 0
+    except urllib.error.HTTPError as e:
+        print(f"error: {e.code}: {e.read().decode()}", file=sys.stderr)
+        return 1
+    except urllib.error.URLError as e:
+        raise SystemExit(f"error: cannot reach server {args.server}: {e.reason}") from None
+
+
+def cmd_events(args) -> int:
+    from urllib.parse import urlencode
+
+    q = {k: v for k, v in (("namespace", args.namespace), ("name", args.name)) if v}
+    path = "/events" + (f"?{urlencode(q)}" if q else "")
+    now = time.time()
+    for ev in _http(args.server, "GET", path):
+        age = max(0, int(now - ev["timestamp"]))
+        print(f"{age}s\t{ev['type']}\t{ev['reason']}\t{ev['object']}\t{ev['message']}")
+    return 0
+
+
+def cmd_scale(args) -> int:
+    body = json.dumps({"replicas": args.replicas}).encode()
+    print(json.dumps(_http(args.server, "POST", f"/scale/{args.namespace}/{args.name}", body)))
+    return 0
 
 
 def _parse_endpoint(value: str) -> tuple[str, int]:
@@ -248,6 +436,59 @@ def main(argv=None) -> int:
                    help="read the Bearer token from this file (first token "
                         "of an install-rendered tokens.csv works)")
     sub = p.add_subparsers(dest="cmd", required=True)
+
+    sp = sub.add_parser("serve", help="run the control plane + API server")
+    sp.add_argument("--config", default=None)
+    sp.add_argument("-f", "--filename", action="append")
+    sp.add_argument("--port", type=int, default=9443)
+    sp.add_argument("--state-file", default=None,
+                    help="persist the object store here; restored on restart")
+    deferred = "not ported yet (ROADMAP Queue 1 (c)): fails if given"
+    sp.add_argument("--state-dir", default=None, help=deferred)
+    sp.add_argument("--standby", action="store_true", help=deferred)
+    sp.add_argument("--no-fsync", action="store_true", help=deferred)
+    sp.add_argument("--tls-dir", default=None, help=deferred)
+    sp.add_argument("--token-file", default=None, help=deferred)
+    sp.set_defaults(fn=cmd_serve)
+
+    ap = sub.add_parser("apply")
+    ap.add_argument("-f", "--filename", required=True)
+    ap.add_argument("--server", default="127.0.0.1:9443")
+    ap.set_defaults(fn=cmd_apply)
+
+    gp = sub.add_parser("get")
+    gp.add_argument("kind")
+    gp.add_argument("name", nargs="?")
+    gp.add_argument("--namespace", "-n", default="default")
+    gp.add_argument("--server", default="127.0.0.1:9443")
+    gp.add_argument("-o", "--output", default="json")
+    gp.set_defaults(fn=cmd_get)
+
+    dp = sub.add_parser("delete")
+    dp.add_argument("kind")
+    dp.add_argument("namespace")
+    dp.add_argument("name")
+    dp.add_argument("--server", default="127.0.0.1:9443")
+    dp.set_defaults(fn=cmd_delete)
+
+    lp = sub.add_parser("logs", help="captured stdout/stderr of a pod's process")
+    lp.add_argument("name")
+    lp.add_argument("--namespace", "-n", default="default")
+    lp.add_argument("--server", default="127.0.0.1:9443")
+    lp.set_defaults(fn=cmd_logs)
+
+    scp = sub.add_parser("scale")
+    scp.add_argument("name")
+    scp.add_argument("replicas", type=int)
+    scp.add_argument("--namespace", "-n", default="default")
+    scp.add_argument("--server", default="127.0.0.1:9443")
+    scp.set_defaults(fn=cmd_scale)
+
+    ep = sub.add_parser("events", help="controller decision trace (k8s Events)")
+    ep.add_argument("name", nargs="?")
+    ep.add_argument("--namespace", "-n", default=None)
+    ep.add_argument("--server", default="127.0.0.1:9443")
+    ep.set_defaults(fn=cmd_events)
 
     lg = sub.add_parser("loadgen", help="run a traffic scenario (seeded "
                         "open-loop arrivals + workload mix) against an "

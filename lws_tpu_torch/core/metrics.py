@@ -4,7 +4,8 @@ copies call (the registry, `render_exposition`, `parse_exposition`, the
 process REGISTRY with `inc`/`set`/`observe`, exemplars, the HTTP content
 negotiation the worker's /metrics applies, and the HELP text of the names
 the port emits). Left out: the fleet merge (`merge_expositions`,
-`StreamingMerger`), which serves the JAX package's control plane.
+`StreamingMerger`), which serves the fleet collector's /metrics/fleet and
+waits for it (ROADMAP Queue 1 (a)).
 
 Counters, gauges, and histograms, rendered with `# HELP` / `# TYPE` lines so
 a real scraper parses the output. Label-set cardinality is capped per metric
@@ -394,6 +395,10 @@ def set(name: str, value: float, labels: dict[str, str] | None = None) -> None: 
 # Literal name (== DROPPED_METRIC).
 describe("lws_metric_label_sets_dropped_total",
          "Samples dropped by the per-metric label-set cardinality cap")
+describe("lws_reconcile_total", "Reconciles per controller")
+describe("lws_reconcile_errors_total", "Reconcile exceptions per controller (conflicts excluded)")
+describe("lws_reconcile_duration_seconds", "Reconcile latency per controller and result")
+describe("lws_rollout_progress", "Fraction of groups on the target revision, per LWS rollout")
 describe("serving_requests_total", "Requests admitted per engine")
 describe("serving_admission_duration_seconds", "Admission (prefill-to-slot) latency per engine")
 describe("serving_decode_dispatch_duration_seconds", "Decode dispatch latency per engine")

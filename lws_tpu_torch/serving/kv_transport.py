@@ -62,6 +62,14 @@ import numpy as np
 import torch
 
 from lws_tpu_torch._device import DeviceLike, resolve_device
+# The DisaggregatedSet's label keys, which endpoint discovery matches
+# services by.
+from lws_tpu_torch.api.disagg import (  # noqa: F401
+    DS_NAME_LABEL_KEY,
+    DS_REVISION_LABEL_KEY,
+    DS_ROLE_LABEL_KEY,
+    DS_SLICE_LABEL_KEY,
+)
 from lws_tpu_torch.core import faults, flightrecorder, metrics, resilience
 from lws_tpu_torch.models.llama import KVCache
 from lws_tpu_torch.obs import device as devicemod
@@ -80,13 +88,6 @@ Payload = Union[bytes, bytearray, memoryview, Sequence]
 # it. The tag survives views, reshapes and slices (not arithmetic).
 BF16 = np.dtype(np.uint16, metadata={"wire": "bfloat16"})
 
-# The DisaggregatedSet's label keys (lws_tpu/api/disagg.py:20-28), which
-# endpoint discovery matches services by.
-_DS_DOMAIN = "disaggregatedset.lws.tpu"
-DS_NAME_LABEL_KEY = f"{_DS_DOMAIN}/name"
-DS_ROLE_LABEL_KEY = f"{_DS_DOMAIN}/role"
-DS_REVISION_LABEL_KEY = f"{_DS_DOMAIN}/revision"
-DS_SLICE_LABEL_KEY = f"{_DS_DOMAIN}/slice"
 
 
 def tune_socket(sock: socket.socket) -> None:
