@@ -167,18 +167,9 @@ engine paths, 15 trains.
      each, both on card 0; --disagg-only --tp 2 on four cards: prefill on
      cards 0-1, decode on 2-3), paired over loopback TCP through a stand-in
      of the API server's records. The 1,000-token prompt streamed in chunks
-     of 256, the 100-token prompt, 16 requests of the JAX package's
-     shared_prefix scenario (seed 0) open-loop through loadgen.DisaggTarget,
-     then the loadgen command over the pair (`python -m lws_tpu_torch
-     loadgen shared_prefix --seed 0 --prefill --decode --server --json`, its
-     --server a stub /metrics/fleet that joins the roles' own /metrics,
-     each sample labelled with its instance): every request completes, the
-     prefill role's TTFT count and the decode role's ITL count move by
-     exactly that number, serving_kv_transfer_bytes_total moves on both
-     roles, the report's history block has a row for every (engine, class)
-     the decode role counts, and the fleet block (fold_fleet of the stub's
-     /metrics/fleet, which the text frame renders) a goodput; then the
-     prefill role restarted with LWS_TPU_KV_CHUNK=0 for the
+     of 256, the 100-token prompt, 8 requests of the JAX package's
+     shared_prefix scenario (seed 0) open-loop through loadgen.DisaggTarget;
+     then the prefill role restarted with LWS_TPU_KV_CHUNK=0 for the
      1,000-token prompt monolithic, then a fault armed live on the decode
      role and two 100-token requests, then the drains. Bundle bytes and
      tokens equal path 12's one-card handoffs (tokens may fork only at an
@@ -210,22 +201,44 @@ engine paths, 15 trains.
      ControlPlane, LocalBackend and ApiServer; backend local, no scheduler)
      deploys a DisaggregatedSet whose roles are LWSes of size 1 running the
      port's workers at path 16's width (LWS_TPU_MODEL=flagship, prefill
-     streaming in chunks of 256). The serve process holds no CUDA context
-     (its open device nodes, and nvidia-smi's compute apps); both roles are
-     found only through its API server (the `-prv` Services selecting ready
-     pods); the 1,000-token prompt (streamed) and the 100-token prompt
-     equal path 16's one-card references in bundle bytes and tokens (a fork
-     only at an argmax near-tie). The decode pod's process is SIGKILLed:
-     the pod goes Failed with one container restart (the API server's
-     /watch), the group is recreated with a new pod uid, and a 100-token
-     request submitted during the outage completes once the new pod is up
-     and equals its reference. `get Pod`, `get DisaggregatedSet` and `logs`
-     run as processes and show exactly the DS's objects and the new
-     incarnation's output; `delete DisaggregatedSet` ends every worker
-     within 60 s; the launches the prefill role and the replacement decode
-     role print at exit equal the handoff formulas; no spawned process
-     outlives the path; serve exits 0 on SIGINT. It prints deploy-to-ready,
-     kill-to-result and the path's seconds.
+     streaming in chunks of 256), each template declaring its KV and
+     telemetry ports. The serve process holds no CUDA context (its open
+     device nodes, and nvidia-smi's compute apps); both roles are found only
+     through its API server (the `-prv` Services selecting ready pods). The
+     100-token prompt; then the decode pod's process is SIGKILLed: the pod
+     goes Failed with one container restart (the API server's /watch), the
+     group is recreated with a new pod uid, and a 100-token request
+     submitted during the outage completes once the new pod is up; then the
+     1,000-token prompt (streamed). The fleet plane: the API server's
+     /metrics/fleet at a quiet moment carries both roles' pods (instance,
+     role and revision labels) and the control plane, each role's transfer
+     bytes and request counters equal to its own /metrics; the read
+     commands as processes (`top` a row per role, `devices` both workers'
+     compile ledgers, `profile --fleet` both instances with the decode role
+     sampled, `explain long-s` one connected tree of both workers' legs,
+     `monitor`, `rollout`, and `why` on a record the fleet ingest's
+     decision step wrote for a pair role); the loadgen command against the
+     pair with --server the API server (`python -m lws_tpu_torch loadgen
+     shared_prefix --seed 0 --prefill --decode --server --json`; every
+     request completes, the prefill role's TTFT count and the decode role's
+     ITL count move by exactly that number, serving_kv_transfer_bytes_total
+     moves on both roles, the report's history block has a row for every
+     (engine, class) the decode role counts, the fleet block a goodput), a
+     scraper timing /metrics/fleet once a second under its load; `faults
+     --server <the decode worker's telemetry port>` arms a decode failure
+     live and the 100-token request after it is redelivered; an Autoscaler
+     over a port-free LWS driven by POST /report-metric 1 -> 2 -> 1 (its
+     replicas, events and processes checked at each step) and deleted.
+     Every request equals path 16's one-card references in bundle bytes and
+     tokens (a fork only at an argmax near-tie). `get Pod`, `get
+     DisaggregatedSet` and `logs` run as processes and show exactly the DS's
+     objects and the new incarnation's output; `delete DisaggregatedSet`
+     ends every worker within 60 s; the launches the prefill role and the
+     replacement decode role print at exit equal the handoff formulas, the
+     loadgen command's requests included; no spawned process outlives the
+     path; serve exits 0 on SIGINT. It prints deploy-to-ready,
+     kill-to-result, /metrics/fleet's scrape latency and the path's
+     seconds.
  15. (last) training at benchmarks/train_bench.py's on-accelerator config
      (vocab 32000, d_model 1536, 12 layers, 12 heads, 6 KV heads, d_ff 4096,
      remat; f32 parameters, bf16 compute; AdamW at lr 3e-4; a fixed batch of
@@ -3255,7 +3268,7 @@ def path_tp_group(torch, dev, world: int, models: dict, prompts, dense_prompt, r
 # ---------------------------------------------------------------------------
 # Path 16: the tensor-parallel disaggregated pair, as real worker processes.
 
-PAIR_REQUESTS = 16  # the load runner's requests over the pair
+PAIR_REQUESTS = 8  # the load runner's requests over the pair (path 17 runs the loadgen command's 17)
 PAIR_MODEL, PAIR_DEVICE = "flagship", "cuda"  # the workers' LWS_TPU_MODEL and --device
 PAIR_READY_S = 600.0  # a role's start: imports, the card, the full flagship, the group
 PAIR_PROFILE_HZ = 67.0  # the decode role's continuous profiler (LWS_TPU_PROFILE_HZ)
@@ -3458,12 +3471,14 @@ def metric_sum(fams: dict, family: str, sample: str, **match) -> float:
 
 
 class Scraper:
-    """A fleet collector's stand-in: reads every role's /metrics once a
-    second on a thread, timing each scrape."""
+    """A scraper on a thread: once a second it GETs every source (`{name:
+    (port, path)}`), timing each answer. With `tokens_of`, that source's
+    `serving_tokens_total` is read too, for its tok/s over the window."""
 
-    def __init__(self, roles: dict) -> None:
-        self.roles, self.latency = roles, {r: [] for r in roles}
-        self.tokens: list = []  # (t, the decode role's serving_tokens_total)
+    def __init__(self, sources: dict, tokens_of: Optional[str] = None) -> None:
+        self.sources, self.tokens_of = sources, tokens_of
+        self.latency: dict = {name: [] for name in sources}
+        self.tokens: list = []  # (t, the tokens_of source's serving_tokens_total)
         self._stop = threading.Event()
         self._thread = threading.Thread(target=self._loop, daemon=True)
         self._thread.start()
@@ -3472,11 +3487,11 @@ class Scraper:
         from lws_tpu_torch.core import metrics as metricsmod
 
         while True:
-            for role, r in self.roles.items():
+            for name, (port, path) in self.sources.items():
                 t0 = time.perf_counter()
-                code, text = r.http("/metrics")
-                self.latency[role].append((time.perf_counter() - t0, code))
-                if role == "decode" and code == 200:
+                code, text = http_call(port, path)
+                self.latency[name].append((time.perf_counter() - t0, code))
+                if name == self.tokens_of and code == 200:
                     fams = metricsmod.parse_exposition(text)
                     self.tokens.append((time.perf_counter(), metric_sum(
                         fams, "serving_tokens_total", "serving_tokens_total", engine="disagg")))
@@ -3484,121 +3499,69 @@ class Scraper:
                 return
 
     def stop(self) -> dict:
+        """{name: (scrapes, median ms, max ms)}, and the tok/s of
+        `tokens_of` under "tok_s"; every scrape must have answered 200."""
         self._stop.set()
         self._thread.join(60)
         out = {}
-        for role, lat in self.latency.items():
+        for name, lat in self.latency.items():
             check(lat and all(code == 200 for _, code in lat),
-                  f"scrapes of the {role} role: {[c for _, c in lat]}")
+                  f"scrapes of {name}: {[c for _, c in lat]}")
             ms = [t * 1e3 for t, _ in lat]
-            out[role] = (len(ms), statistics.median(ms), max(ms))
-        (t0, n0), (t1, n1) = self.tokens[0], self.tokens[-1]
-        out["decode_tok_s"] = (n1 - n0) / (t1 - t0) if t1 > t0 else float("nan")
+            out[name] = (len(ms), statistics.median(ms), max(ms))
+        if self.tokens_of:
+            (t0, n0), (t1, n1) = self.tokens[0], self.tokens[-1]
+            out["tok_s"] = (n1 - n0) / (t1 - t0) if t1 > t0 else float("nan")
         return out
 
 
-def join_expositions(texts: dict) -> str:
-    """{instance: a worker's /metrics text} -> one exposition, each sample
-    labelled with its `instance`, one HELP/TYPE block per family: the shape
-    of a fleet collector's /metrics/fleet."""
-    headers: dict = {}  # family -> its HELP/TYPE lines, in first-seen order
-    samples: dict = {}  # family -> its samples from every instance
-    for instance, text in texts.items():
-        family = None
-        for line in text.splitlines():
-            if line.startswith(("# HELP ", "# TYPE ")):
-                family = line.split()[2]
-                got = headers.setdefault(family, [])
-                if len(got) < 2 and line not in got:
-                    got.append(line)
-                samples.setdefault(family, [])
-            elif line and not line.startswith("#"):
-                cut = min(i for i in (line.find("{"), line.find(" ")) if i >= 0)
-                name, rest = line[:cut], line[cut:]
-                label = f'instance="{instance}"'
-                samples.setdefault(family, []).append(
-                    f"{name}{{{label},{rest[1:]}" if rest.startswith("{")
-                    else f"{name}{{{label}}}{rest}")
-    return "".join("\n".join(headers[f] + samples[f]) + "\n" for f in headers)
+def worker_metrics(port: int, who: str) -> dict:
+    """A worker's own /metrics on its telemetry port, parsed."""
+    from lws_tpu_torch.core import metrics as metricsmod
+
+    code, text = http_call(port, "/metrics")
+    check(code == 200, f"the {who} worker's /metrics answered {code}")
+    return metricsmod.parse_exposition(text)
 
 
-class StubFleet:
-    """An API server's /metrics/fleet over path 16's roles, which `loadgen
-    --server` samples: every GET joins each role's own /metrics, labelled
-    with its instance (`<role>-0`). The JAX control plane, whose ApiServer
-    serves the real one, does not run on the card."""
-
-    def __init__(self, roles: dict) -> None:
-        import http.server
-
-        def fleet() -> str:
-            texts = {}
-            for role, r in roles.items():
-                code, text = r.http("/metrics")
-                check(code == 200, f"the {role} role's /metrics answered {code}")
-                texts[f"{role}-0"] = text
-            return join_expositions(texts)
-
-        self.text = fleet
-
-        class Handler(http.server.BaseHTTPRequestHandler):
-            def do_GET(self):  # noqa: N802 — the http.server hook
-                if self.path != "/metrics/fleet":
-                    self.send_response(404)
-                    self.send_header("Content-Length", "0")
-                    self.end_headers()
-                    return
-                data = fleet().encode()
-                self.send_response(200)
-                self.send_header("Content-Type", "text/plain; version=0.0.4")
-                self.send_header("Content-Length", str(len(data)))
-                self.end_headers()
-                self.wfile.write(data)
-
-            def log_message(self, *a):
-                pass
-
-        self._server = http.server.ThreadingHTTPServer(("127.0.0.1", 0), Handler)
-        self.addr = f"127.0.0.1:{self._server.server_address[1]}"
-        threading.Thread(target=self._server.serve_forever, daemon=True).start()
-
-    def close(self) -> None:
-        self._server.shutdown()
-        self._server.server_close()
-
-
-def command_over_pair(roles: dict, loadgen) -> list:
-    """The loadgen command against the pair at full width: `python -m
-    lws_tpu_torch loadgen shared_prefix --seed 0 --prefill <ep> --decode
-    <ep> --server <StubFleet> --json` as a process. Checked: every request
-    completes; the prefill role's TTFT count and the decode role's ITL
-    count move by exactly that number; serving_kv_transfer_bytes_total
-    moves on both roles; the report's history block has a row for every
+def command_over_deployed(eps: dict, api_port: int, metrics_ports: dict, loadgen) -> tuple:
+    """The loadgen command against the deployed pair at full width: `python
+    -m lws_tpu_torch loadgen shared_prefix --seed 0 --prefill <ep> --decode
+    <ep> --server <the port's API server> --json` as a process, while a
+    scraper reads the API server's /metrics/fleet once a second. Checked:
+    every request completes; the prefill role's TTFT count and the decode
+    role's ITL count move by exactly that number;
+    serving_kv_transfer_bytes_total moves on both roles; the report's
+    history block (sampled from /metrics/fleet) has a row for every
     (engine, class) the decode role counts; the fleet block the text frame
-    renders (fold_fleet of the stub's /metrics/fleet, read once the
-    command ends; --json prints the JAX package's keys, without it) has a
-    goodput. Returns the command's prompt lengths."""
+    renders (fold_fleet of /metrics/fleet, read once the command ends;
+    --json prints the JAX package's keys, without it) has a goodput.
+    Returns (the command's prompt lengths, the /metrics/fleet scrapes:
+    (count, median ms, max ms))."""
+    from lws_tpu_torch.core import metrics as metricsmod
+
     spec = loadgen.load_scenario(LOADGEN_SCENARIO)
     schedule = loadgen.build_schedule(spec, LOADGEN_SEED)
     n = len(schedule)
-    before = {role: r.metrics() for role, r in roles.items()}
-    fleet = StubFleet(roles)
+    before = {role: worker_metrics(port, role) for role, port in metrics_ports.items()}
+    scraper = Scraper({"fleet": (api_port, "/metrics/fleet")})
     try:
         header, report, wall, _ = run_loadgen_command(
             [LOADGEN_SCENARIO, "--seed", str(LOADGEN_SEED),
-             "--prefill", "%s:%d" % roles["prefill"].ep, "--decode", "%s:%d" % roles["decode"].ep,
-             "--server", fleet.addr, "--max-wall", "600"], timeout=900.0)
-        from lws_tpu_torch.core import metrics as metricsmod
-
-        fleet_block = loadgen.fold_fleet(metricsmod.parse_exposition(fleet.text()))
+             "--prefill", "%s:%d" % eps["prefill"], "--decode", "%s:%d" % eps["decode"],
+             "--server", f"127.0.0.1:{api_port}", "--max-wall", "600"], timeout=900.0)
     finally:
-        fleet.close()
-    after = {role: r.metrics() for role, r in roles.items()}
+        scrapes = scraper.stop()["fleet"]
+    code, text = http_call(api_port, "/metrics/fleet")
+    check(code == 200, f"deployed loadgen command: /metrics/fleet answered {code}")
+    fleet_block = loadgen.fold_fleet(metricsmod.parse_exposition(text))
+    after = {role: worker_metrics(port, role) for role, port in metrics_ports.items()}
     digest = loadgen.schedule_digest(schedule)
-    check(header.endswith(f"schedule {digest[:12]})"), f"pair loadgen command: header {header!r}")
+    check(header.endswith(f"schedule {digest[:12]})"),
+          f"deployed loadgen command: header {header!r}")
     done = report["all"]["completed"]
     check(report["all"]["count"] == n and done == n,
-          f"pair loadgen command: {done} of {report['all']['count']} requests completed")
+          f"deployed loadgen command: {done} of {report['all']['count']} requests completed")
 
     def moved(who: str, family: str, sample: str, **match) -> float:
         return (metric_sum(after[who], family, sample, **match)
@@ -3606,32 +3569,36 @@ def command_over_pair(roles: dict, loadgen) -> list:
 
     ttft = moved("prefill", "serving_ttft_seconds", "serving_ttft_seconds_count", engine="disagg")
     itl = moved("decode", "serving_itl_seconds", "serving_itl_seconds_count", engine="disagg")
-    check(ttft == n and itl == n, f"pair loadgen command: the prefill role's TTFT count moved "
-                                  f"{ttft}, the decode role's ITL count {itl}, for {n} requests")
+    check(ttft == n and itl == n, f"deployed loadgen command: the prefill role's TTFT count "
+                                  f"moved {ttft}, the decode role's ITL count {itl}, for {n} "
+                                  "requests")
     wire = {role: moved(role, "serving_kv_transfer_bytes_total",
-                        "serving_kv_transfer_bytes_total", role=role) for role in roles}
-    check(all(v > 0 for v in wire.values()), f"pair loadgen command: transfer bytes moved {wire}")
+                        "serving_kv_transfer_bytes_total", role=role) for role in metrics_ports}
+    check(all(v > 0 for v in wire.values()),
+          f"deployed loadgen command: transfer bytes moved {wire}")
     counted = {labels.get("engine", "-") + ("/" + labels["klass"] if labels.get("klass") else "")
                for name, labels, _, _ in after["decode"].get(
                    "serving_tokens_total", {}).get("samples", [])
                if name == "serving_tokens_total"}
     rows = set((report.get("history") or {}).get("classes", {}))
-    check(counted and counted <= rows, f"pair loadgen command: history rows {sorted(rows)}, the "
-                                       f"decode role counts {sorted(counted)}")
-    check("fleet" not in report, f"pair loadgen command: --json keys {sorted(report)}")
+    check(counted and counted <= rows, f"deployed loadgen command: history rows {sorted(rows)}, "
+                                       f"the decode role counts {sorted(counted)}")
+    check("fleet" not in report, f"deployed loadgen command: --json keys {sorted(report)}")
     goodput = fleet_block.get("goodput")
-    check(goodput is not None, f"pair loadgen command: fleet block {fleet_block}")
+    check(goodput is not None, f"deployed loadgen command: fleet block {fleet_block}")
     classes = "; ".join(
         f"class {k}: TTFT p50 {c['ttft_p50'] * 1e3:.1f} ms, p99 {c['ttft_p99'] * 1e3:.1f} ms "
         f"(the client's proxy: the prefill leg), goodput {c['goodput_fraction']:.1%}"
         for k, c in sorted(report["classes"].items()))
-    print(f"pair loadgen command (python -m lws_tpu_torch loadgen {LOADGEN_SCENARIO} --seed "
-          f"{LOADGEN_SEED} --prefill --decode --server): {done} of {n} requests completed; TTFT "
-          f"count +{ttft:.0f} (prefill), ITL count +{itl:.0f} (decode); transfer bytes moved "
-          f"{ {k: int(v) for k, v in wire.items()} }; history rows {sorted(rows)} "
-          f"({len((report.get('history') or {}).get('recommendation', []))} recommendation "
-          f"steps); fleet GOODPUT {goodput:.1%}; {classes}; this run added {wall:.1f} s")
-    return [len(r.prompt) for r in schedule]
+    print(f"deployed loadgen command (python -m lws_tpu_torch loadgen {LOADGEN_SCENARIO} --seed "
+          f"{LOADGEN_SEED} --prefill --decode --server <the API server>): {done} of {n} requests "
+          f"completed; TTFT count +{ttft:.0f} (prefill), ITL count +{itl:.0f} (decode); "
+          f"transfer bytes moved { {k: int(v) for k, v in wire.items()} }; history rows "
+          f"{sorted(rows)} ({len((report.get('history') or {}).get('recommendation', []))} "
+          f"recommendation steps); fleet GOODPUT {goodput:.1%}; {classes}; /metrics/fleet "
+          f"under the command's load: {scrapes[0]} scrapes, median {scrapes[1]:.2f} ms, max "
+          f"{scrapes[2]:.2f} ms; the command took {wall:.1f} s")
+    return [len(r.prompt) for r in schedule], scrapes
 
 
 def check_journey(r: Role, rid: str, spans: set, chunks: int = 0, outcome: str = "") -> dict:
@@ -3862,7 +3829,7 @@ def check_pair_telemetry(refs: dict, telemetry: dict, logs: dict, tp: int) -> No
           f"runner: prefill {sc['prefill'][0]} scrapes, median {sc['prefill'][1]:.2f} ms, max "
           f"{sc['prefill'][2]:.2f} ms; decode {sc['decode'][0]} scrapes, median "
           f"{sc['decode'][1]:.2f} ms, max {sc['decode'][2]:.2f} ms; decode role "
-          f"{sc['decode_tok_s']:.1f} tok/s in that window (its serving_tokens_total); TTFT count "
+          f"{sc['tok_s']:.1f} tok/s in that window (its serving_tokens_total); TTFT count "
           f"{ttft:.0f} = prefill handoffs, ITL count {itl:.0f} = decode handoffs; transfer bytes "
           f"moved {moved} = the 1,000-token bundles; {compiles}; journeys of long-s (4 chunks) "
           f"and long-m complete on both roles; the armed disagg.decode.process fault (1 trip) "
@@ -3881,10 +3848,8 @@ def path_tp_disagg(torch, dev, tp: int, refs: dict, profile_nccl: bool = False) 
     tp. They pair over loopback TCP through a stand-in API server. Traffic:
     the 1,000-token prompt streamed (LWS_TPU_KV_CHUNK=CHUNK), the 100-token
     prompt, the JAX package's shared_prefix scenario (seed 0, its first
-    PAIR_REQUESTS requests, ids lr-N) open-loop through loadgen.DisaggTarget,
-    then the whole scenario through the loadgen command (command_over_pair,
-    ids lg-N); then the
-    prefill role restarts with LWS_TPU_KV_CHUNK=0 and a budget of
+    PAIR_REQUESTS requests, ids lr-N) open-loop through loadgen.DisaggTarget;
+    then the prefill role restarts with LWS_TPU_KV_CHUNK=0 and a budget of
     PAIR_POISON_MAX_LEN rows, and the 1,000-token prompt hands off
     monolithic; then the 100-token prompt under a live decode fault (its
     bundle redelivered), a poison prompt of PAIR_POISON_LEN tokens (past the
@@ -3894,9 +3859,8 @@ def path_tp_disagg(torch, dev, tp: int, refs: dict, profile_nccl: bool = False) 
     prompt first goes through once unmeasured (a fresh process's warm-up). Checked: each
     bundle's bytes equal path 12's one-card handoff's for the prompt, and
     its tokens too (or fork only at an argmax near-tie); the handoff record
-    says tp_gathered and carries its reshard; every load-runner and
-    command request completes on the client and is handed off on both
-    roles (their logs);
+    says tp_gathered and carries its reshard; every load-runner request
+    completes on the client and is handed off on both roles (their logs);
     each role's kernel launches, printed by its rank 0 at exit, equal the
     handoffs' formulas; both roles exit 0 and leave no process behind.
     Returns the two roles' launches."""
@@ -3947,23 +3911,20 @@ def path_tp_disagg(torch, dev, tp: int, refs: dict, profile_nccl: bool = False) 
             telemetry["long-s"] = (before, {role: r.metrics() for role, r in roles.items()})
             results["short"] = pair_request(roles, "short", short_p)
             target = loadgen.DisaggTarget(roles["prefill"].ep, roles["decode"].ep, id_prefix="lr")
-            scraper = Scraper(roles)
+            scraper = Scraper({role: (r.metrics_port, "/metrics") for role, r in roles.items()},
+                              tokens_of="decode")
             try:
                 run = loadgen.run_schedule(schedule, target, max_wall_s=600.0)
             finally:
                 telemetry["scrapes"] = scraper.stop()
-            # The streamed journeys on both roles. A role keeps its 16
-            # slowest healthy journeys, and a slower one displaces the
-            # fastest of them: the command's 17 requests below, queued one
-            # leg at a time on the decode role, would displace long-s's.
+            # The streamed journeys on both roles, before later traffic can
+            # displace them: a role keeps its 16 slowest healthy journeys.
             check_journey(roles["prefill"], "long-s", {"serve.prefill", "kv.gather"},
                           chunks=-(-1000 // CHUNK))
             check_journey(roles["decode"], "long-s",
                           {"kv.deserialize", "kv.reshard", "serve.decode_dispatch"},
                           chunks=-(-1000 // CHUNK))
-            # The loadgen command over the same pair (its requests' ids: lg-N),
-            # then the first prefill process's own ledgers, before it drains.
-            command_prompts = command_over_pair(roles, loadgen)
+            # The first prefill process's own ledgers, before it drains.
             telemetry["compiles-prefill-a"] = check_compile_journeys(roles["prefill"], t_requests)
             check_card_gauges(torch, roles["prefill"], cards["prefill"])
             telemetry["prefill-a"] = roles["prefill"].metrics()
@@ -4028,13 +3989,10 @@ def path_tp_disagg(torch, dev, tp: int, refs: dict, profile_nccl: bool = False) 
     check(len(outs) == PAIR_REQUESTS and all(o.completed and not o.failed for o in outs),
           f"tp disagg pair: {sum(o.completed and not o.failed for o in outs)} of "
           f"{PAIR_REQUESTS} load-runner requests completed")
-    n_cmd = len(command_prompts)
     for role, log in (("prefill", logs["prefill-a.log"]), ("decode", logs["decode-a.log"])):
-        for prefix, want_n, what in (("lr-", PAIR_REQUESTS, "load-runner"),
-                                     ("lg-", n_cmd, "loadgen-command")):
-            n = sum(1 for ln in log.splitlines() if ln.startswith(f"[{role}] HANDOFF {prefix}"))
-            check(n == want_n, f"tp disagg pair: the {role} role handed off {n} of {want_n} "
-                               f"{what} requests")
+        n = sum(1 for ln in log.splitlines() if ln.startswith(f"[{role}] HANDOFF lr-"))
+        check(n == PAIR_REQUESTS, f"tp disagg pair: the {role} role handed off {n} of "
+                                  f"{PAIR_REQUESTS} load-runner requests")
     check_pair_telemetry(refs, telemetry, logs, tp)
     # Bundles and tokens against path 12's one-card handoffs.
     model_box: dict = {}
@@ -4072,8 +4030,8 @@ def path_tp_disagg(torch, dev, tp: int, refs: dict, profile_nccl: bool = False) 
     want = {"prefill-a": {"flash_attention": 0, "int8_matmul": 2 * streamed_1000},
             "prefill-b": {k: 2 * (v + mono(100)[k]) + mono(PAIR_POISON_LEN)[k]
                           for k, v in mono(1000).items()},
-            "decode": {"int8_matmul": (7 * L + 1) * HANDOFF_STEPS * (8 + PAIR_REQUESTS + n_cmd)}}
-    for S in [100, 100] + lg + command_prompts:
+            "decode": {"int8_matmul": (7 * L + 1) * HANDOFF_STEPS * (8 + PAIR_REQUESTS)}}
+    for S in [100, 100] + lg:
         for k, v in mono(S).items():
             want["prefill-a"][k] += v
     total = {name: 0 for name in kernel_counters()}
@@ -4083,8 +4041,8 @@ def path_tp_disagg(torch, dev, tp: int, refs: dict, profile_nccl: bool = False) 
             total[k] += v
     print(f"tp disagg pair tp={tp} ({'prefill on cards ' + cards['prefill'] + ', decode on '
                                        + cards['decode'] if split else 'both roles on card 0'}):"
-          f" {PAIR_REQUESTS} load-runner requests of shared_prefix and the loadgen command's "
-          f"{n_cmd} completed on the client and both roles' logs; p50 TTFT {statistics.median(o.ttft_s for o in outs) * 1e3:.1f} ms "
+          f" {PAIR_REQUESTS} load-runner requests of shared_prefix completed on the client and "
+          f"both roles' logs; p50 TTFT {statistics.median(o.ttft_s for o in outs) * 1e3:.1f} ms "
           f"(the client's proxy: the prefill leg); roles ready {t_ready:.1f} s after launch; "
           f"the prefill role drained by POST /debug/drain (twice) and the decode role by "
           f"SIGTERM (exit 0), and {len(followers)} spawned processes; path "
@@ -4111,20 +4069,27 @@ DEPLOY_EXIT_S = 60.0  # every worker's exit after the DS is deleted
 PID_ANNOTATION = "local.lws.tpu/pid"  # lws_tpu_torch/runtime/local.py:PID_ANNOTATION_KEY
 
 
-def deploy_manifests(api_url: str, kv_ports: dict) -> tuple[str, dict]:
+def deploy_manifests(api_url: str, ports: dict) -> tuple[str, dict]:
     """The Configuration (backend local, no scheduler) and the
     DisaggregatedSet, in the shape of examples/disaggregated-live-demo.yaml
     with the port's workers: each role an LWS of size 1, 1 replica, the
-    default RecreateGroupOnPodRestart."""
+    default RecreateGroupOnPodRestart, its KV port and its telemetry port
+    (LWS_TPU_METRICS_PORT, which the fleet collector reads off the pod
+    spec) in the template. Every journey is kept (LWS_TPU_JOURNEY_SAMPLE=1)
+    and the decode role is profiled (LWS_TPU_PROFILE_HZ)."""
     config = ("apiVersion: config.lws.tpu/v1alpha1\nkind: Configuration\n"
               "backend: local\nenableScheduler: false\n")
 
     def role(name: str) -> dict:
         env = [{"name": "LWS_TPU_MODEL", "value": PAIR_MODEL},
-               {"name": "LWS_TPU_KV_PORT", "value": str(kv_ports[name])},
+               {"name": "LWS_TPU_KV_PORT", "value": str(ports[name])},
+               {"name": "LWS_TPU_METRICS_PORT", "value": str(ports[f"{name}-metrics"])},
+               {"name": "LWS_TPU_JOURNEY_SAMPLE", "value": "1"},
                {"name": "LWS_TPU_API", "value": api_url}]
         if name == "prefill":
             env.append({"name": "LWS_TPU_KV_CHUNK", "value": str(CHUNK)})
+        else:
+            env.append({"name": "LWS_TPU_PROFILE_HZ", "value": str(PAIR_PROFILE_HZ)})
         command = [sys.executable, "-m", "lws_tpu_torch.serving.disagg_worker", name,
                    "--steps", str(HANDOFF_STEPS), "--max-len", str(MAX_LEN),
                    "--device", PAIR_DEVICE]
@@ -4152,8 +4117,12 @@ class ServeProcess:
         with open(mf, "w") as f:
             # JSON documents, one per line: each is a YAML document too.
             f.write("\n---\n".join(json.dumps(m) for m in manifests) + "\n")
-        self.env = dict(os.environ, PYTHONPATH=self.repo + os.pathsep
-                        + os.environ.get("PYTHONPATH", ""))
+        # The decision plane records every verdict but moves nothing: a
+        # role declaring its KV and telemetry ports in its template cannot
+        # run two replicas on one host, so the pair's roles are not scaled
+        # on the card (the autoscaler is driven on a port-free LWS).
+        self.env = dict(os.environ, LWS_TPU_ACTUATION_DISABLE="scale,rollout",
+                        PYTHONPATH=self.repo + os.pathsep + os.environ.get("PYTHONPATH", ""))
         self.log_path = os.path.join(work_dir, "serve.log")
         self._log = open(self.log_path, "w")
         self.proc = subprocess.Popen(
@@ -4175,9 +4144,12 @@ class ServeProcess:
         check(line is not None, f"serve printed no log dir:\n{self.log()[-3000:]}")
         return line[len("pod logs under "):].strip()
 
-    def cli(self, *argv: str) -> subprocess.CompletedProcess:
+    def cli(self, *argv: str, server: Optional[str] = None) -> subprocess.CompletedProcess:
+        """A command of the same CLI as a process, against this API server
+        (or `server`)."""
         return subprocess.run(
-            [sys.executable, "-m", "lws_tpu_torch", *argv, "--server", f"127.0.0.1:{self.port}"],
+            [sys.executable, "-m", "lws_tpu_torch", *argv, "--server",
+             server or f"127.0.0.1:{self.port}"],
             env=self.env, cwd=self.repo, capture_output=True, text=True, timeout=120)
 
     def stop(self) -> int:
@@ -4264,30 +4236,250 @@ def launch_line(log: str, role: str) -> dict:
     return json.loads(lines[0].split(" kernel launches ", 1)[1])
 
 
+AUTOSCALE_LWS = "sleeper"  # the port-free LWS the autoscaler scales on the card
+AUTOSCALE_STEPS = 40  # metric reports allowed for one scale move
+
+
+def check_fleet_view(api_port: int, pods: dict, metrics_ports: dict) -> dict:
+    """The API server's /metrics/fleet at a quiet moment: it parses, and it
+    carries both roles' pods (instance, role and revision labels) and the
+    control plane; each role's transfer bytes and request counters summed
+    over its instance equal what the worker's own /metrics says. Returns
+    the compared sums."""
+    from lws_tpu_torch.core import metrics as metricsmod
+    from lws_tpu_torch.serving import kv_transport as kt
+
+    code, text = http_call(api_port, "/metrics/fleet")
+    check(code == 200, f"deployed pair: /metrics/fleet answered {code}")
+    fams = metricsmod.parse_exposition(text)
+    instances = {labels.get("instance") for fam in fams.values()
+                 for _, labels, _, _ in fam["samples"]}
+    want = {p["metadata"]["name"] for p in pods.values()} | {"control-plane"}
+    check(want <= instances, f"deployed pair: /metrics/fleet instances {sorted(instances)}, "
+                             f"want {sorted(want)}")
+    compared = {}
+    counters = {"prefill": ("serving_kv_transfer_bytes_total", "serving_kv_handoffs_total",
+                            "serving_ttft_seconds_count"),
+                "decode": ("serving_kv_transfer_bytes_total", "serving_itl_seconds_count",
+                           "serving_tokens_total")}
+    for role, pod in pods.items():
+        name = pod["metadata"]["name"]
+        revision = pod["metadata"]["labels"][kt.DS_REVISION_LABEL_KEY]
+        mine = [labels for fam in fams.values() for _, labels, _, _ in fam["samples"]
+                if labels.get("instance") == name]
+        check(mine and all(lb.get("role") == role and lb.get("revision") == revision
+                           for lb in mine),
+              f"deployed pair: /metrics/fleet series of {name} lack role={role} "
+              f"revision={revision}")
+        own = worker_metrics(metrics_ports[role], role)
+        for sample in counters[role]:
+            family = sample[:-len("_count")] if sample.endswith("_count") else sample
+            fleet_sum = metric_sum(fams, family, sample, instance=name)
+            own_sum = metric_sum(own, family, sample)
+            check(own_sum > 0 and fleet_sum == own_sum,
+                  f"deployed pair: {sample} of {name}: /metrics/fleet {fleet_sum}, its own "
+                  f"/metrics {own_sum}")
+            compared[f"{role}/{sample}"] = own_sum
+    return compared
+
+
+def read_commands(serve, api_port: int, pods: dict, metrics_ports: dict, rid: str) -> dict:
+    """The read commands as processes against the API server: `top` has a
+    row per role; `devices` folds both workers' compile ledgers; `profile
+    --fleet` shows both instances, the decode role sampled; `explain <rid>`
+    renders one connected tree joining the prefill legs (serve.prefill,
+    kv.gather) and the decode legs (kv.deserialize, serve.decode_dispatch)
+    of two processes; `monitor` and `rollout` answer; `why <id>` renders a
+    record that the fleet ingest's decision step wrote for a pair role.
+    Returns facts for the path's line."""
+    names = {role: p["metadata"]["name"] for role, p in pods.items()}
+
+    def run(*argv: str) -> str:
+        out = serve.cli(*argv)
+        check(out.returncode == 0 and out.stdout.strip(),
+              f"`{' '.join(argv)}` exited {out.returncode}: {out.stdout[-1500:]} "
+              f"{out.stderr[-1500:]}")
+        return out.stdout
+
+    facts: dict = {}
+    top = run("top")
+    check(all(any(ln.startswith(n) for ln in top.splitlines()) for n in names.values()),
+          f"top: no row for each of {sorted(names.values())}:\n{top}")
+    fold = json.loads(run("devices", "--json"))
+    folded = {(e.get("labels") or {}).get("instance") for e in fold["instances"]}
+    check(set(names.values()) <= folded, f"devices: instances {sorted(folded)}")
+    facts["compile_records"] = {
+        (e.get("labels") or {}).get("instance"): len((e.get("compile") or {}).get("records", []))
+        for e in fold["instances"]}
+    check(f"instances={len(fold['instances'])}" in run("devices").splitlines()[0],
+          "devices: header")
+    code, text = http_call(api_port, "/debug/profile/fleet")
+    check(code == 200, f"/debug/profile/fleet answered {code}")
+    profiles = {e["labels"].get("instance"): e["profile"] for e in json.loads(text)["instances"]}
+    check(set(names.values()) <= set(profiles), f"profile --fleet: instances {sorted(profiles)}")
+    dec = profiles[names["decode"]]
+    check(dec.get("enabled") and dec.get("samples", 0) > 0,
+          f"profile --fleet: the decode role was not sampled ({dec.get('samples')} samples)")
+    prof = run("profile", "--fleet")
+    check(f"instances={len(profiles)}" in prof.splitlines()[0]
+          and any(ln.startswith(names["decode"]) for ln in prof.splitlines()),
+          f"profile --fleet:\n{prof[:2000]}")
+    facts["decode_samples"] = dec["samples"]
+    code, text = http_call(api_port, f"/debug/request/{rid}")
+    check(code == 200, f"/debug/request/{rid} answered {code} {text[:300]}")
+    joined = json.loads(text)
+    by_instance: dict = {}
+    for sp in joined["spans"]:
+        by_instance.setdefault(sp["instance"], set()).add(sp["name"])
+    check({"serve.prefill", "kv.gather"} <= by_instance.get(names["prefill"], set())
+          and {"kv.deserialize", "serve.decode_dispatch"} <= by_instance.get(
+              names["decode"], set()) and joined["connected"],
+          f"explain {rid}: connected {joined['connected']}, spans by instance {by_instance}; "
+          f"the workers' own legs: " + str({role: sorted(
+              {sp["name"] for sp in json.loads(http_call(port, f"/debug/request/{rid}")[1])
+               .get("spans", [])}) for role, port in metrics_ports.items()}))
+    explained = run("explain", rid)
+    check(explained.splitlines()[0].endswith("connected")
+          and all(n in explained for n in ("serve.prefill", "kv.gather", "kv.deserialize",
+                                           "serve.decode_dispatch")), f"explain {rid}:\n"
+          f"{explained[:3000]}")
+    facts["explain_spans"] = {k: len(v) for k, v in by_instance.items()}
+    run("monitor")
+    facts["rollout"] = len(json.loads(run("rollout", "--json"))["timeline"])
+    check(facts["rollout"] > 0, "rollout: the ledger recorded no transition of the deployment")
+    code, text = http_call(api_port, "/debug/decisions")
+    check(code == 200, f"/debug/decisions answered {code}")
+    decided = [r for r in json.loads(text)
+               if r.get("plane") == "scale" and r.get("subject") in names]
+    check(decided, f"why: no scale decision for a pair role among {text[:1500]}")
+    record = decided[-1]
+    why = run("why", record["id"])
+    check(record["id"] in why, f"why {record['id']}:\n{why[:2000]}")
+    facts["decision"] = (record["id"], record["subject"], record["verdict"],
+                         (record.get("actuation") or {}).get("outcome"))
+    return facts
+
+
+def autoscale_loop(serve, client, work_dir: str) -> dict:
+    """The Autoscaler over a port-free LWS in the same `serve`: a leader's
+    reported `inflight` of 4.0 (target 2.0) scales it 1 -> 2; reports of
+    1.0 scale it back to 1 after its stabilization (two fresh below-target
+    observations). At each step the LWS's replicas, the Scaled events and
+    the live processes of its pods are checked; then the Autoscaler and the
+    LWS are deleted and every process of theirs ends. Returns the seconds
+    of each move."""
+    from lws_tpu_torch.api import contract
+
+    lws = {"apiVersion": "lws.tpu/v1", "kind": "LeaderWorkerSet",
+           "metadata": {"name": AUTOSCALE_LWS},
+           "spec": {"replicas": 1, "leaderWorkerTemplate": {"size": 1, "workerTemplate": {
+               "spec": {"containers": [{"name": "w", "command": [
+                   sys.executable, "-c", "import time; time.sleep(3600)"]}]}}}}}
+    asc = {"apiVersion": "lws.tpu/v1", "kind": "Autoscaler",
+           "metadata": {"name": f"{AUTOSCALE_LWS}-scale"},
+           "spec": {"target": AUTOSCALE_LWS, "minReplicas": 1, "maxReplicas": 2,
+                    "metric": "inflight", "targetValue": 2.0, "scaleDownStabilization": 2}}
+    path = os.path.join(work_dir, "autoscale.yaml")
+    with open(path, "w") as f:
+        f.write("\n---\n".join(json.dumps(m) for m in (lws, asc)) + "\n")
+    out = serve.cli("apply", "-f", path)
+    check(out.returncode == 0 and json.loads(out.stdout) == {"applied": [
+        f"LeaderWorkerSet/{AUTOSCALE_LWS}", f"Autoscaler/{AUTOSCALE_LWS}-scale"]},
+        f"apply the autoscaler: {out.returncode} {out.stdout} {out.stderr}")
+
+    def leaders() -> list:
+        pods = [p for p in client.list("Pod")
+                if p["metadata"]["labels"].get(contract.SET_NAME_LABEL_KEY) == AUTOSCALE_LWS]
+        return sorted((p for p in pods if (p.get("status") or {}).get("ready")
+                       and PID_ANNOTATION in p["metadata"]["annotations"]),
+                      key=lambda p: p["metadata"]["name"])
+
+    def settle(n: int, what: str) -> list:
+        deadline = time.monotonic() + 60.0
+        while True:
+            serve.alive()
+            got = client.get("LeaderWorkerSet", "default", AUTOSCALE_LWS)["spec"]["replicas"]
+            ready = leaders()
+            pids = [int(p["metadata"]["annotations"][PID_ANNOTATION]) for p in ready]
+            if got == n and len(ready) == n and all(pid_alive(p) for p in pids):
+                return pids
+            check(time.monotonic() < deadline, f"autoscaler {what}: replicas {got}, ready "
+                                               f"pods {[p['metadata']['name'] for p in ready]}")
+            time.sleep(0.2)
+
+    def scaled_events() -> list:
+        code, text = http_call(serve.port, f"/events?name={AUTOSCALE_LWS}-scale")
+        check(code == 200, f"autoscaler events: {code}")
+        return [e["message"] for e in json.loads(text) if e["reason"] == "Scaled"]
+
+    def drive(value: float, n: int, what: str) -> float:
+        t0 = time.perf_counter()
+        for step in range(AUTOSCALE_STEPS):
+            serve.alive()
+            if client.get("LeaderWorkerSet", "default", AUTOSCALE_LWS)["spec"]["replicas"] == n:
+                return time.perf_counter() - t0
+            pods = leaders()
+            client.report_metric("default", pods[step % len(pods)]["metadata"]["name"],
+                                 {"inflight": value})
+            time.sleep(0.5)
+        check(False, f"autoscaler {what}: no move after {AUTOSCALE_STEPS} reports")
+
+    pids1 = settle(1, "start")
+    t_up = drive(4.0, 2, "1 -> 2")
+    pids2 = settle(2, "1 -> 2")
+    check(set(pids1) < set(pids2), f"autoscaler 1 -> 2: pids {pids1} -> {pids2}")
+    check(scaled_events() == [f"scaled {AUTOSCALE_LWS} from 1 to 2 replicas"],
+          f"autoscaler 1 -> 2: events {scaled_events()}")
+    t_down = drive(1.0, 1, "2 -> 1")
+    pids3 = settle(1, "2 -> 1")
+    check(wait_until(lambda: sum(pid_alive(p) for p in pids2) == 1, timeout=30.0),
+          f"autoscaler 2 -> 1: live processes {[p for p in pids2 if pid_alive(p)]}")
+    check(scaled_events() == [f"scaled {AUTOSCALE_LWS} from 1 to 2 replicas",
+                              f"scaled {AUTOSCALE_LWS} from 2 to 1 replicas"],
+          f"autoscaler 2 -> 1: events {scaled_events()}")
+    for kind, name in (("Autoscaler", f"{AUTOSCALE_LWS}-scale"),
+                       ("LeaderWorkerSet", AUTOSCALE_LWS)):
+        out = serve.cli("delete", kind, "default", name)
+        check(out.returncode == 0, f"delete {kind} {name}: {out.stdout} {out.stderr}")
+    check(wait_until(lambda: not any(pid_alive(p) for p in pids2 + pids3), timeout=30.0),
+          "autoscaler: processes of the deleted LWS live on")
+    return {"up_s": t_up, "down_s": t_down}
+
+
 def path_deployed_pair(torch, dev, refs: dict) -> dict:
-    """17. The deployed pair: `python -m lws_tpu_torch serve` (the port's
-    ControlPlane, LocalBackend and ApiServer in a process that never touches
-    the card) deploys a DisaggregatedSet of the port's full-width workers
-    (LWS_TPU_MODEL=flagship: int8 weights, bf16 K/V; prefill streams in
-    chunks of CHUNK). Both roles are found only through the port's API
-    server (their `-prv` Services selecting ready pods, read with
-    lws_tpu_torch.client.RemoteClient). The 1,000-token prompt (streamed)
-    and the 100-token prompt go through the pair; their bundle bytes and
-    tokens equal path 16's one-card references (tokens may fork only at an
-    argmax near-tie). Then the decode pod's process is SIGKILLed: the pod
-    goes Failed with one container restart (read from the API server's
-    /watch), the controller recreates the group (a new pod uid), and a
-    100-token request submitted during the outage completes once the new
-    pod is up (its bundle waited unacked on prefill) and equals its
-    reference. `get Pod`, `get DisaggregatedSet` and `logs` run as
-    processes of the same CLI; `delete DisaggregatedSet` ends every worker
-    within DEPLOY_EXIT_S; the launches the prefill role and the replacement
-    decode role print at exit equal the handoff formulas; no spawned process
-    outlives the path; serve stops on SIGINT. Prints deploy-to-ready,
-    kill-to-result and the path's seconds. Returns the two roles' launches."""
+    """17. The deployed pair and its fleet plane: `python -m lws_tpu_torch
+    serve` (the port's ControlPlane, LocalBackend, fleet collector and
+    ApiServer in a process that never touches the card) deploys a
+    DisaggregatedSet of the port's full-width workers (LWS_TPU_MODEL=
+    flagship: int8 weights, bf16 K/V; prefill streams in chunks of CHUNK),
+    each role's template declaring its KV and telemetry ports. Both roles
+    are found only through the port's API server (their `-prv` Services
+    selecting ready pods, read with lws_tpu_torch.client.RemoteClient).
+    The 100-token prompt goes through the pair. Then the decode pod's
+    process is SIGKILLed: the pod goes Failed with one container restart
+    (read from the API server's /watch), the controller recreates the group
+    (a new pod uid), and a 100-token request submitted during the outage
+    completes once the new pod is up (its bundle waited unacked on
+    prefill). Then the 1,000-token prompt (streamed); the API server's
+    /metrics/fleet at that quiet moment (check_fleet_view); the loadgen
+    command against the pair with `--server` the API server, /metrics/fleet
+    scraped under its load (command_over_deployed); the read commands as
+    processes (read_commands); `faults --server <the decode worker's
+    telemetry port>` arms a decode failure live, and the 100-token prompt
+    after it is redelivered; the Autoscaler over a port-free LWS
+    (autoscale_loop). Every request's bundle bytes and tokens equal path
+    16's one-card references (tokens may fork only at an argmax near-tie).
+    `get Pod`, `get DisaggregatedSet` and `logs` run as processes of the
+    same CLI; `delete DisaggregatedSet` ends every worker within
+    DEPLOY_EXIT_S; the launches the prefill role and the replacement decode
+    role print at exit equal the handoff formulas, the loadgen command's
+    requests included; no spawned process outlives the path; serve stops
+    on SIGINT. Prints deploy-to-ready, kill-to-result and the path's
+    seconds. Returns the two roles' launches."""
     import signal
     import tempfile
 
+    from lws_tpu_torch import loadgen
     from lws_tpu_torch.client import RemoteClient
     from lws_tpu_torch.models.flagship import flagship_config
     from lws_tpu_torch.parallel import launch
@@ -4295,9 +4487,11 @@ def path_deployed_pair(torch, dev, refs: dict) -> dict:
 
     t_path = time.perf_counter()
     L = flagship_config("full" if PAIR_MODEL == "flagship" else "smoke").n_layers
+    names = ("api", "prefill", "decode", "prefill-metrics", "decode-metrics")
     ports: dict = {}
-    while len(set(ports.values())) < 3:  # a released port may come back
-        ports = {name: launch.free_port() for name in ("api", "prefill", "decode")}
+    while len(set(ports.values())) < len(names):  # a released port may come back
+        ports = {name: launch.free_port() for name in names}
+    metrics_ports = {r: ports[f"{r}-metrics"] for r in ("prefill", "decode")}
     api_url = f"http://127.0.0.1:{ports['api']}"
     config, ds = deploy_manifests(api_url, ports)
     client = RemoteClient(api_url)
@@ -4342,6 +4536,9 @@ def path_deployed_pair(torch, dev, refs: dict) -> dict:
                                                            "never listened")
                         time.sleep(0.5)
             t_ready = time.perf_counter() - t_path
+            for role in ("prefill", "decode"):
+                check(http_call(metrics_ports[role], "/healthz") == (200, "ok"),
+                      f"deployed pair: the {role} worker's telemetry /healthz")
             # Only the workers hold the card; the serve process never does.
             check(not holds_the_card(serve.proc.pid),
                   "deployed pair: the serve process has the card's device nodes open")
@@ -4364,8 +4561,7 @@ def path_deployed_pair(torch, dev, refs: dict) -> dict:
             for role in ("prefill", "decode"):
                 check(holds_the_card(pids[role]), f"deployed pair: the {role} worker holds no "
                                                   "device node")
-            results = {"long-s": deployed_request(eps, "long-s", long_p, serve, deadline),
-                       "short": deployed_request(eps, "short", short_p, serve, deadline)}
+            results = {"short": deployed_request(eps, "short", short_p, serve, deadline)}
 
             # Group-atomic restart: SIGKILL the decode pod's process.
             code, text = http_call(ports["api"], "/watch?since=-1")
@@ -4410,26 +4606,50 @@ def path_deployed_pair(torch, dev, refs: dict) -> dict:
                     time.sleep(0.2)
             check(new["metadata"]["name"] == old["metadata"]["name"],
                   f"deployed pair: the recreated pod is {new['metadata']['name']}")
+            pods["decode"] = new
             pids["decode-b"] = int(new["metadata"]["annotations"][PID_ANNOTATION])
             workers.add(pids["decode-b"])
             results["outage"] = deployed_request(eps, "outage", short_p, serve, deadline,
                                                  submit=False)
             t_recover = time.perf_counter() - t_kill
+            results["long-s"] = deployed_request(eps, "long-s", long_p, serve, deadline)
+
+            # The fleet plane: the fleet view at a quiet moment, the loadgen
+            # command under /metrics/fleet scrapes, the read commands.
+            # (The read commands come before the command's requests, which
+            # could displace long-s's journey: a role keeps its 16 slowest.)
+            fleet_sums = check_fleet_view(ports["api"], pods, metrics_ports)
+            facts = read_commands(serve, ports["api"], pods, metrics_ports, "long-s")
+            command_prompts, fleet_scrapes = command_over_deployed(
+                eps, ports["api"], metrics_ports, loadgen)
+            # A decode failure armed live through the faults command: the
+            # raise leaves the bundle unacked and its redelivery is served.
+            armed = serve.cli("faults", "disagg.decode.process=fail_n_times:1",
+                              server=f"127.0.0.1:{metrics_ports['decode']}")
+            check(armed.returncode == 0 and json.loads(armed.stdout)["armed"] == {
+                "disagg.decode.process": "fail_n_times:1"},
+                f"faults --server <decode>: {armed.returncode} {armed.stdout} {armed.stderr}")
+            results["fault"] = deployed_request(eps, "fault", short_p, serve, deadline)
+            code, text = http_call(metrics_ports["decode"], "/debug/faults")
+            check(code == 200 and json.loads(text)["trips"] == {"disagg.decode.process": 1},
+                  f"deployed pair: the decode role's /debug/faults after the fault: {code} {text}")
+            autoscale = autoscale_loop(serve, client, work_dir)
 
             # The CLI's commands as processes against the same server.
             listed = serve.cli("get", "Pod")
             check(listed.returncode == 0, f"get Pod exited {listed.returncode}: {listed.stderr}")
-            names = sorted(ln.split("\t")[0] for ln in listed.stdout.splitlines())
-            want_names = sorted(f"default/{p['metadata']['name']}"
-                                for p in (pods["prefill"], new))
-            check(names == want_names, f"get Pod listed {names}, the DS's pods {want_names}")
+            pod_names = sorted(ln.split("\t")[0] for ln in listed.stdout.splitlines())
+            want_names = sorted(f"default/{p['metadata']['name']}" for p in pods.values())
+            check(pod_names == want_names, f"get Pod listed {pod_names}, the DS's pods "
+                                           f"{want_names}")
             got_ds = serve.cli("get", "DisaggregatedSet")
             check(got_ds.returncode == 0 and [ln.split("\t")[0] for ln in
                                                got_ds.stdout.splitlines()]
                   == [f"default/{DEPLOY_NAME}"], f"get DisaggregatedSet: {got_ds.stdout!r}")
             logs = serve.cli("logs", new["metadata"]["name"])
             check(logs.returncode == 0 and "[decode] finished outage" in logs.stdout
-                  and "finished long-s" not in logs.stdout,
+                  and "[decode] finished long-s" in logs.stdout
+                  and "finished short" not in logs.stdout,
                   f"logs of the new decode pod: {logs.stdout[-2000:]!r}")
 
             gone = serve.cli("delete", "DisaggregatedSet", "default", DEPLOY_NAME)
@@ -4465,8 +4685,8 @@ def path_deployed_pair(torch, dev, refs: dict) -> dict:
     # Bundles and tokens against path 16's references.
     model_box: dict = {}
     verdicts = {}
-    for rid, (S, chunk) in (("long-s", (1000, CHUNK)), ("short", (100, 0)),
-                            ("outage", (100, 0))):
+    for rid, (S, chunk) in (("short", (100, 0)), ("outage", (100, 0)),
+                            ("long-s", (1000, CHUNK)), ("fault", (100, 0))):
         meta, toks = results[rid]
         ref, h = refs[(S, chunk)], meta["handoff"]
         check(h["bundle_bytes"] == ref["stats"]["bundle_bytes"],
@@ -4477,13 +4697,15 @@ def path_deployed_pair(torch, dev, refs: dict) -> dict:
         verdicts[rid] = check_pair_stream(torch, dev, toks, ref, f"deployed pair {rid}",
                                           model_box)
     # The launches each role printed at exit: prefill handled the streamed
-    # 1,000-token prompt and two 100-token prompts; the replacement decode
-    # role decoded the outage request alone.
+    # 1,000-token prompt, three 100-token prompts and the loadgen command's
+    # prompts; the replacement decode role decoded all but `short`.
     mono = lambda S: {"flash_attention": L, "int8_matmul": 7 * L * (S <= 256) + 1}  # noqa: E731
-    want = {"prefill": {"flash_attention": 2 * mono(100)["flash_attention"],
-                        "int8_matmul": 7 * L * -(-1000 // CHUNK) + 1
-                        + 2 * mono(100)["int8_matmul"]},
-            "decode-b": {"int8_matmul": (7 * L + 1) * HANDOFF_STEPS}}
+    want = {"prefill": {"flash_attention": 0, "int8_matmul": 7 * L * -(-1000 // CHUNK) + 1},
+            "decode-b": {"int8_matmul": (7 * L + 1) * HANDOFF_STEPS
+                         * (3 + len(command_prompts))}}
+    for S in [100, 100, 100] + command_prompts:
+        for k, v in mono(S).items():
+            want["prefill"][k] += v
     total = {name: 0 for name in kernel_counters()}
     for role, got in launches.items():
         check_launches(f"deployed pair {role}", got, want[role])
@@ -4494,9 +4716,17 @@ def path_deployed_pair(torch, dev, refs: dict) -> dict:
           f"{t_ready:.1f} s after `serve` started (deploy-to-ready); tokens vs one card: "
           f"{verdicts}; SIGKILL of the decode process -> pod Failed (container_restarts 1) -> "
           f"group recreated (uid {old['metadata']['uid']} -> {new['metadata']['uid']}) -> the "
-          f"outage request's result {t_recover:.1f} s after the kill (kill-to-result); workers "
-          f"gone {t_exit:.1f} s after `delete`; path wall time "
-          f"{time.perf_counter() - t_path:.1f} s")
+          f"outage request's result {t_recover:.1f} s after the kill (kill-to-result); "
+          f"/metrics/fleet at rest equals each worker's own /metrics {fleet_sums}; under the "
+          f"loadgen command {fleet_scrapes[0]} /metrics/fleet scrapes, median "
+          f"{fleet_scrapes[1]:.2f} ms, max {fleet_scrapes[2]:.2f} ms; read commands: top, "
+          f"monitor, rollout ({facts['rollout']} timeline entries), devices (compile records "
+          f"{facts['compile_records']}), profile --fleet (decode {facts['decode_samples']} "
+          f"samples), explain long-s (one connected tree, spans by instance "
+          f"{facts['explain_spans']}), why {facts['decision']}; faults armed on the decode "
+          f"worker, its request redelivered; autoscaler {AUTOSCALE_LWS} 1 -> 2 in "
+          f"{autoscale['up_s']:.1f} s, 2 -> 1 in {autoscale['down_s']:.1f} s; workers gone "
+          f"{t_exit:.1f} s after `delete`; path wall time {time.perf_counter() - t_path:.1f} s")
     return total
 
 

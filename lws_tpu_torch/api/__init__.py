@@ -4,8 +4,7 @@ Equivalent surface to the reference's `api/leaderworkerset/v1`,
 `api/disaggregatedset/v1` and the core k8s kinds the reference borrows
 (Pod, StatefulSet->GroupSet, Service, Node, ControllerRevision).
 
-The port's copy of lws_tpu/api/__init__.py. Left out:
-`api/autoscaler.py`, which waits for ROADMAP Queue 1 (b).
+The port's copy of lws_tpu/api/__init__.py.
 """
 
 from lws_tpu_torch.api import contract  # noqa: F401

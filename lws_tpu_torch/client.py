@@ -1,6 +1,7 @@
 """A minimal HTTP client of the control plane's API server: the port's copy
 of the part of lws_tpu/client.py:RemoteClient that endpoint discovery and
-the disaggregated workers call (`get` and `list`)."""
+the disaggregated workers call (`get` and `list`), and the workload-side
+metric push the autoscaler reads (`report_metric`)."""
 
 from __future__ import annotations
 
@@ -70,3 +71,9 @@ class RemoteClient:
 
     def get(self, kind: str, namespace: str, name: str) -> dict:
         return self._request("GET", f"/apis/{kind}/{namespace}/{name}")
+
+    def report_metric(self, namespace: str, pod: str, metrics: dict) -> dict:
+        """Annotate a pod with workload metrics ({name: number}) for the
+        autoscaler (`POST /report-metric/{ns}/{pod}`)."""
+        return self._request("POST", f"/report-metric/{namespace}/{pod}",
+                             json.dumps(metrics).encode())

@@ -6,6 +6,5 @@
 - pod_controller: ≈ pkg/controllers/pod_controller.go.
 - disagg/: DisaggregatedSet planner/executor/managers.
 
-The port's copy of lws_tpu/controllers/__init__.py. Left out:
-`autoscaler_controller.py`, which waits for ROADMAP Queue 1 (b).
+The port's copy of lws_tpu/controllers/__init__.py.
 """

@@ -33,9 +33,7 @@ event, bumps `lws_watchdog_alerts_total{watchdog}`, flips
 `lws_watchdog_active{watchdog}` to 1, and captures a diagnostics bundle
 (ring + recent spans + metrics snapshot + heartbeat table, and the
 profile, compile-ledger, history-ring and worst-journey snapshots, and
-the decision window, empty in a worker; the JAX package's dump also embeds
-its rollout ledger, a
-control-plane surface the port does not have) retrievable at
+the rollout ledger and the decision window) retrievable at
 `GET /debug/flightrecorder`. `check_now()` is the deterministic entry tests
 use; `start()` runs the same check on a thread (the worker telemetry
 server's, runtime/telemetry.py).
@@ -171,14 +169,16 @@ class FlightRecorder:
         including the process profile (a stall alert ships the collapsed
         stacks of the window that stalled), the compile-ledger window, the
         process history ring, the journey vault's worst retained journeys
-        (the requests the bad window actually hurt) and the decision
-        window, empty in a worker, which records no decision (local
-        imports: profile.py and the obs modules are consumers of this
-        module's surfaces, not dependencies)."""
+        (the requests the bad window actually hurt), the rollout ledger
+        and the decision window (local imports: profile.py and the obs
+        modules are consumers of this module's surfaces, not
+        dependencies)."""
         from lws_tpu_torch.core import profile as profmod
+        from lws_tpu_torch.obs import decisions as decisionsmod
         from lws_tpu_torch.obs import device as devicemod
         from lws_tpu_torch.obs import history as historymod
         from lws_tpu_torch.obs import journey as journeymod
+        from lws_tpu_torch.obs import rollout as rolloutmod
 
         exposition = (
             metrics.render_exposition(metrics.REGISTRY, *registries)
@@ -194,9 +194,10 @@ class FlightRecorder:
             "profile": profmod.PROFILER.snapshot(limit=128),
             "history": historymod.HISTORY.snapshot(limit=64, max_points=256),
             "journeys": journeymod.VAULT.worst(limit=8),
-            # JAX's dump carries the recent decision window here; no
-            # worker records a decision.
-            "decisions": [],
+            "rollout": rolloutmod.LEDGER.snapshot(limit=64),
+            # The recent decision window: an alert's dump carries the
+            # actuation provenance of the episode that fired it.
+            "decisions": decisionsmod.DECISIONS.snapshot(limit=32),
             # The compile-ledger window: a compile_storm (or any) alert
             # ships the offending executable's recompile provenance.
             "compiles": devicemod.LEDGER.snapshot(limit=64),

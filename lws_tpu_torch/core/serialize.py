@@ -6,8 +6,7 @@ survives process restarts and resumes rollouts mid-flight).
 Uses a generic dataclass<->plain codec driven by type hints; enums, nested
 dataclasses, Optionals, lists, dicts, and int-or-percent unions round-trip.
 
-The port's copy of lws_tpu/core/serialize.py; its registry of kinds leaves
-out the Autoscaler, which waits for ROADMAP Queue 1 (b).
+The port's copy of lws_tpu/core/serialize.py.
 """
 
 from __future__ import annotations
@@ -22,6 +21,7 @@ from lws_tpu_torch.api.meta import to_plain
 
 
 def _registry() -> dict[str, type]:
+    from lws_tpu_torch.api.autoscaler import Autoscaler
     from lws_tpu_torch.api.lease import Lease
     from lws_tpu_torch.api.disagg import DisaggregatedSet
     from lws_tpu_torch.api.groupset import GroupSet
@@ -37,7 +37,7 @@ def _registry() -> dict[str, type]:
         cls.kind: cls
         for cls in (
             LeaderWorkerSet, DisaggregatedSet, Pod, GroupSet, Service, Node,
-            PodGroup, PersistentVolumeClaim, ControllerRevision,
+            PodGroup, PersistentVolumeClaim, ControllerRevision, Autoscaler,
             Lease,
         )
     }

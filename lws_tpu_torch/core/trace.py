@@ -1,9 +1,10 @@
 """Tracing spine: the port's copy of lws_tpu/core/trace.py, trimmed to what
 the port calls (`Tracer`, `span`, `current_context`, `current_span`,
-`spans`, `set_enabled`, finish listeners, and the per-thread span stacks
-the profiler tags samples with). Left out: the JSONL export, the
-decorator form, `record` of a peer's spans, and the tree helpers, which
-serve the JAX package's control plane and disaggregated workers.
+`spans`, `set_enabled`, finish listeners, the per-thread span stacks
+the profiler tags samples with, and `connected_tree`, which the fleet
+collector's journey join reports). Left out: the JSONL export, the
+decorator form, `record` of a peer's spans, and `walk`, which serve the
+JAX package's control plane and disaggregated workers.
 
   * context-manager API over a thread-local span stack, so nesting and
     parent/child links come for free;
@@ -313,6 +314,20 @@ class Tracer:
 
     def clear(self) -> None:
         self._ring.clear()
+
+
+def connected_tree(spans: list[dict]) -> bool:
+    """True iff the records form ONE trace whose parent links all resolve:
+    exactly one trace_id, exactly one root (parent_id None or pointing
+    outside the set counts as a root), and every other span's parent_id is
+    another span's span_id. The e2e acceptance check."""
+    if not spans:
+        return False
+    if len({s["trace_id"] for s in spans}) != 1:
+        return False
+    ids = {s["span_id"] for s in spans}
+    roots = [s for s in spans if s.get("parent_id") not in ids]
+    return len(roots) == 1
 
 
 # Process-default tracer + conveniences.

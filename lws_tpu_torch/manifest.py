@@ -5,9 +5,7 @@ ref config/samples/leaderworkerset_tpu.yaml, docs/examples/vllm/TPU/lws.yaml).
 `from_manifest(dict) -> TypedObject` and `to_manifest(obj) -> dict` cover
 LeaderWorkerSet, DisaggregatedSet, and Node.
 
-The port's copy of lws_tpu/manifest.py. Left out: the Autoscaler kind, which
-waits for ROADMAP Queue 1 (b); `from_manifest` refuses it with an error that
-names the item, so it is never stored and then left unreconciled.
+The port's copy of lws_tpu/manifest.py.
 """
 
 from __future__ import annotations
@@ -49,11 +47,6 @@ from lws_tpu_torch.api.types import (
 )
 
 API_GROUP = "lws.tpu/v1"
-
-AUTOSCALER_DEFERRED = (
-    "kind Autoscaler is not ported yet: the autoscaler waits for "
-    "ROADMAP Queue 1 (b)"
-)
 
 
 def _meta(raw: dict, default_namespace: str = "default") -> ObjectMeta:
@@ -269,9 +262,7 @@ def _from_native_manifest(raw: dict):
 
 def from_manifest(raw: dict):
     kind = raw.get("kind")
-    if kind == "Autoscaler":
-        raise NotImplementedError(AUTOSCALER_DEFERRED)
-    if kind in ("LeaderWorkerSet", "DisaggregatedSet", "Node") and _is_native_manifest(raw):
+    if kind in ("LeaderWorkerSet", "DisaggregatedSet", "Node", "Autoscaler") and _is_native_manifest(raw):
         return _from_native_manifest(raw)
     if kind == "LeaderWorkerSet":
         return LeaderWorkerSet(meta=_meta(raw), spec=_lws_spec(raw.get("spec", {})))
@@ -302,6 +293,21 @@ def from_manifest(raw: dict):
         return Node(
             meta=_meta(raw, default_namespace=CLUSTER_NAMESPACE),
             spec=NodeSpec(capacity={k: int(v) for k, v in spec.get("capacity", {}).items()}),
+        )
+    if kind == "Autoscaler":
+        from lws_tpu_torch.api.autoscaler import Autoscaler, AutoscalerSpec
+
+        spec = raw.get("spec", {})
+        return Autoscaler(
+            meta=_meta(raw),
+            spec=AutoscalerSpec(
+                target=spec.get("target", ""),
+                min_replicas=int(spec.get("minReplicas", 1)),
+                max_replicas=int(spec.get("maxReplicas", 10)),
+                metric=spec.get("metric", "inflight"),
+                target_value=float(spec.get("targetValue", 1.0)),
+                scale_down_stabilization=int(spec.get("scaleDownStabilization", 3)),
+            ),
         )
     raise ValueError(f"unsupported manifest kind {kind!r}")
 

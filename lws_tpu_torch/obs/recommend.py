@@ -1,12 +1,12 @@
-"""Autoscaling recommender: the port's copy of lws_tpu/obs/recommend.py,
-its evaluation half (the constants, `Recommendation`, `ScaleRecommender`).
+"""Autoscaling recommender: ROADMAP item 4's decision plane.
 
-Consumes the history plane — prefill desired-replicas from TTFT/queue-wait
-burn, decode from ITL burn and KV-occupancy trend — and publishes
-DECISIONS, not actions:
+Consumes the history plane exactly as the roadmap prescribes — prefill
+desired-replicas from TTFT/queue-wait burn, decode from ITL burn and
+KV-occupancy trend — and publishes DECISIONS, not actions:
 
   * `serving_scale_recommendation{role}` — the desired replica count per
-    DS role, a gauge on the normal metrics surface;
+    DS role, a gauge on the normal metrics surface (rides /metrics/fleet,
+    rendered by `lws-tpu monitor`);
   * `serving_slo_burn_rate{engine,klass,window}` — the short-window burn of
     each tier per SLO series, the raw paging signal;
   * edge-triggered `burn_rate` Watchdog alerts: while a series' fast tier
@@ -16,10 +16,21 @@ DECISIONS, not actions:
     event recorded on the firing edge embeds the offending error-series
     window, so the dump carries the evidence, not just the verdict.
 
-The port runs it where `lws-tpu loadgen --server` does: `loadgen.fold_history`
-replays a throwaway recommender over the ring a run sampled. Left out:
-`role_replicas_from_store`, `default_recommender` and `AnnotationAdapter`,
-which read or write the control plane's store (the JAX package's side).
+The `AnnotationAdapter` is the actuation seam: it writes the
+recommendation into the existing `METRIC_ANNOTATION_PREFIX` pod-annotation
+contract (`metrics.lws.tpu/<metric>` on ready leader pods — normalized so
+the HPA math reproduces the recommendation exactly), which the stock
+`AutoscalerReconciler` already consumes. Since the decision-provenance PR
+the loop is CLOSED by default for DisaggregatedSet roles: the
+`ScaleActuator` (obs/decisions.py) drives this adapter per evaluation,
+records the full provenance chain in the `DecisionLedger`, and honors the
+`LWS_TPU_ACTUATION_DISABLE=scale` kill switch — with the switch set, the
+evaluation below is once again a pure recommendation.
+
+The port's copy of lws_tpu/obs/recommend.py, whole: the evaluation half
+and the store half (`role_replicas_from_store`, `default_recommender`,
+`AnnotationAdapter`). Its process-global `RECOMMENDER` is the port's own
+object, not the JAX package's.
 """
 
 from __future__ import annotations
@@ -359,3 +370,119 @@ class ScaleRecommender:
             # depth rule on the next watchdog pass (edge -> inactive).
             self._recorder.beat(f"burn_rate:{key}", progress=1.0, depth=0.0,
                                 now=now)
+
+
+def role_replicas_from_store(store) -> dict:
+    """{role name: spec replicas} summed over every DisaggregatedSet in the
+    store — the REAL per-role baseline the control plane's recommender
+    scales from (a hardcoded baseline of 1 would both understate desired
+    counts under burn and invite a calm 'scale to 1' against a wide
+    fleet). Empty when no DS exists (single-LWS deployments have no
+    prefill/decode roles to recommend for)."""
+    out: dict = {}
+    for ds in store.list("DisaggregatedSet"):
+        for role in getattr(ds.spec, "roles", None) or []:
+            name = getattr(role, "name", "")
+            if name:
+                out[name] = out.get(name, 0) + int(getattr(role, "replicas", 0) or 0)
+    return out
+
+
+# Process-default recommender over the process history ring: the control
+# plane evaluates it per fleet-history ingest (runtime/server.py), syncing
+# `current` from the store's DS roles first, so the recommendation/burn
+# gauges and the `burn_rate` alert feed exist on every live deployment
+# without any wiring. The same ingest step hands the verdict to the
+# default ScaleActuator (obs/decisions.py), which actuates DS roles
+# through the AnnotationAdapter below unless LWS_TPU_ACTUATION_DISABLE
+# says otherwise.
+RECOMMENDER: Optional[ScaleRecommender] = None
+_RECOMMENDER_LOCK = threading.Lock()
+
+
+def default_recommender(store=None) -> ScaleRecommender:
+    """The process-default recommender; with `store`, its `current`
+    baseline re-syncs to the store's actual per-role replica counts before
+    the caller evaluates."""
+    global RECOMMENDER
+    with _RECOMMENDER_LOCK:
+        if RECOMMENDER is None:
+            from lws_tpu_torch.obs.history import HISTORY
+
+            RECOMMENDER = ScaleRecommender(HISTORY)
+        if store is not None:
+            replicas = role_replicas_from_store(store)
+            if replicas:
+                RECOMMENDER.current = {**RECOMMENDER.current, **replicas}
+        return RECOMMENDER
+
+
+# ---------------------------------------------------------------------------
+# The opt-in actuation seam
+
+
+class AnnotationAdapter:
+    """Write a recommendation into the existing pod-annotation metric
+    contract (`metrics.lws.tpu/<metric>` on ready leader pods) that
+    `controllers/autoscaler_controller.py` already consumes.
+
+    The value is NORMALIZED so the HPA math reproduces the recommendation
+    exactly: each of the `n` ready leaders reports `(desired - 0.5) / n`,
+    and an `Autoscaler` with `spec.metric == adapter.metric` and
+    `spec.target_value == 1.0` computes
+    `ceil(n * avg / target) = ceil(desired - 0.5) = desired` — the half
+    offset makes the ceil land on `desired` for EVERY (desired, n) pair
+    (a bare `desired/n` share overshoots by one whenever the float
+    round-trip lands epsilon above the integer, e.g. desired=25, n=11).
+    The Autoscaler's own min/max clamps and scale-down stabilization stay
+    the operator's guardrails. Driven per evaluation by the default
+    `ScaleActuator` (obs/decisions.py) for DS roles; still usable directly
+    for manual or out-of-tree wiring."""
+
+    def __init__(self, store, namespace: str, target: str,
+                 metric: str = "scale_recommendation") -> None:
+        self.store = store
+        self.namespace = namespace
+        self.target = target
+        self.metric = metric
+
+    def leader_pods(self) -> list:
+        from lws_tpu_torch.api import contract
+        from lws_tpu_torch.utils.podutils import pod_running_and_ready
+
+        return [
+            p for p in self.store.list(
+                "Pod", self.namespace,
+                labels={
+                    contract.SET_NAME_LABEL_KEY: self.target,
+                    contract.WORKER_INDEX_LABEL_KEY: "0",
+                },
+            )
+            if pod_running_and_ready(p)
+        ]
+
+    def publish(self, desired: int) -> int:
+        """Annotate every ready leader with the normalized recommendation;
+        returns the number of leaders annotated (0 = nothing to feed the
+        controller yet — the caller retries on its own cadence)."""
+        from lws_tpu_torch.api.autoscaler import METRIC_ANNOTATION_PREFIX
+        from lws_tpu_torch.core.store import ConflictError
+
+        leaders = self.leader_pods()
+        if not leaders:
+            return 0
+        share = (float(desired) - 0.5) / len(leaders)
+        annotated = 0
+        for pod in leaders:
+            for _ in range(3):  # optimistic-concurrency retries, like /report-metric
+                try:
+                    fresh = self.store.get("Pod", pod.meta.namespace, pod.meta.name)
+                    fresh.meta.annotations[
+                        METRIC_ANNOTATION_PREFIX + self.metric
+                    ] = str(share)
+                    self.store.update(fresh)
+                    annotated += 1
+                    break
+                except ConflictError:
+                    continue
+        return annotated

@@ -1,11 +1,21 @@
-"""Rollout intelligence: the port's copy of lws_tpu/obs/rollout.py, its
-judging half (the guards, the revision folds, `CanaryAnalyzer`).
+"""Rollout intelligence plane: the sensor-and-verdict half of canarying.
 
+Three pieces turn a rolling update from a config mutation into an
+observable, judgeable process:
+
+  * **RolloutLedger** — a bounded, retention-aware timeline of control-plane
+    state transitions (group revision flips, partition movement, DS
+    lockstep steps, scale changes, drains, pod churn), fed by a store
+    watcher plus a flight-recorder observer in the manager's reconcile
+    path. Snapshotable at `GET /debug/rollout` and embedded in every
+    watchdog dump, so a canary alert ships the rollout timeline that led
+    to it.
   * **revision folds** — pure `signals.py`-style functions over the
-    `HistoryRing`: a fleet exposition labels every series with `revision`
-    (workers thread LWS_TPU_REVISION onto their local series), so
-    per-(engine, revision) burn, attainment, TTFT/ITL quantiles, and
-    GOOD%/SPEC%/PFX% are one `ring.series(family, {"revision": r})` away.
+    `HistoryRing`: the fleet exposition already labels every series with
+    `revision` (and PR 15 threads the same label through worker-local
+    series via LWS_TPU_REVISION), so per-(engine, revision) burn,
+    attainment, TTFT/ITL quantiles, and GOOD%/SPEC%/PFX% are one
+    `ring.series(family, {"revision": r})` away.
   * **CanaryAnalyzer** — promote/hold/rollback verdicts
     (`lws_rollout_canary_verdict{lws,revision}`: +1/0/-1) from
     baseline-vs-canary burn deltas, with minimum-sample and
@@ -15,21 +25,30 @@ judging half (the guards, the revision folds, `CanaryAnalyzer`).
     `canary:{lws}/{revision}` heartbeat at depth 1 (the `circuit_open`
     convention) so the stock Watchdog `canary_regression` rule produces
     ONE alert + diagnostics dump per episode — and the firing-edge ring
-    event embeds the offending revision's error-series window.
+    event embeds both the offending revision's error-series window and the
+    ledger window, so the dump carries the evidence, not just the verdict.
 
-The port runs it where `lws-tpu loadgen --server` does: `loadgen.fold_canary`
-replays a throwaway analyzer over the ring a run sampled. Left out, as the
-control plane's side: the `RolloutLedger` timeline fed by the store,
-`install`, `default_canary_analyzer` and `RolloutActuationAdapter`, which
-read or write the store. With no ledger, `CanaryAnalyzer` takes no
-`ledger=`: it records no verdict change, and its firing-edge event's
-`ledger_window` is `[]`, as JAX's analyzer built without a ledger gives.
+`RolloutActuationAdapter` is the actuation seam: it can pause the stock
+rollout controller (freeze the partition) or roll the template back to the
+baseline revision via the existing ControllerRevision machinery. Since the
+decision-provenance PR the edge-triggered `RolloutActuator`
+(obs/decisions.py) drives it by default when a canary regression fires,
+recording the full evidence chain in the decision ledger — behind the
+`LWS_TPU_ACTUATION_DISABLE=rollout` kill switch, which restores the old
+verdict-only behavior.
+
+The port's copy of lws_tpu/obs/rollout.py, whole: the judging half (the
+guards, the revision folds, `CanaryAnalyzer`) and the store half (the
+`RolloutLedger`, `install`, `default_canary_analyzer`,
+`RolloutActuationAdapter`). Its process-global `LEDGER` and `ANALYZER`
+are the port's own objects, not the JAX package's.
 """
 
 from __future__ import annotations
 
 import threading
 import time
+from collections import OrderedDict, deque
 from dataclasses import dataclass, field
 from typing import Optional
 
@@ -38,6 +57,7 @@ from lws_tpu_torch.obs import signals
 from lws_tpu_torch.obs.history import HistoryRing
 from lws_tpu_torch.utils.common import env_float as _env_float
 
+# ---- guards (env-tunable per deployment; tests pass explicit values) -------
 # Tokens a revision must have delivered before it is judgeable at all.
 MIN_SAMPLES_ENV = "LWS_TPU_CANARY_MIN_SAMPLES"
 DEFAULT_MIN_SAMPLES = 50.0
@@ -53,9 +73,359 @@ DEFAULT_DELTA = 2.0
 # Verdict gauge encoding: promote / hold / rollback.
 VERDICT_VALUES = {"promote": 1.0, "hold": 0.0, "rollback": -1.0}
 
-# Points embedded in the firing-edge ring event: enough to read the
+# Points/entries embedded in the firing-edge ring event: enough to read the
 # episode, bounded so a dump stays a dump.
 EVENT_WINDOW_POINTS = 64
+EVENT_LEDGER_ENTRIES = 32
+
+DEFAULT_LEDGER_CAPACITY = 512
+DEFAULT_LEDGER_RETENTION_S = 3600.0
+
+# Flight-recorder event kinds worth a rollout-timeline entry (drains,
+# restarts, alerts, chaos, actuations); everything else in the ring is
+# request-scale noise at rollout timescales.
+LEDGER_EVENT_KINDS = frozenset((
+    "drain_requested", "drain_ignored", "watchdog_alert",
+    "fault_injected", "burn_rate_fired", "canary_regression_fired",
+    "actuation", "actuation_flap", "autoscaler_scaled",
+))
+
+
+# ---------------------------------------------------------------------------
+# The rollout ledger
+
+
+class RolloutLedger:
+    """Bounded, retention-aware timeline of control-plane transitions.
+
+    Entries are plain dicts (`{"at", "unix", "kind", "object", "revision",
+    "detail"}`) so snapshots serve straight from `GET /debug/rollout` and
+    embed in watchdog dumps. Fed two ways: `observe_store_event` diffs
+    tracked objects on every store watch event (the manager's reconcile
+    path mutates the store, so every rollout decision lands here), and
+    `observe_recorder_event` mirrors the flight-recorder kinds that matter
+    at rollout timescale. `clock` is injectable for deterministic tests."""
+
+    def __init__(self, capacity: int = DEFAULT_LEDGER_CAPACITY,
+                 retention_s: float = DEFAULT_LEDGER_RETENTION_S,
+                 clock=time.monotonic, registry=None,
+                 capacity_per_kind: Optional[int] = None) -> None:
+        """`capacity` bounds the whole timeline; `capacity_per_kind`
+        (default capacity // 4, floor 64) bounds any ONE kind's share so
+        fleet-scale pod churn cannot flush the partition moves and
+        revision flips out of the window. Capacity evictions are counted
+        (`lws_rollout_ledger_dropped_total{kind}`) — a silently shortened
+        timeline reads as a quiet rollout."""
+        self.retention_s = retention_s
+        self.capacity = max(1, int(capacity))
+        self.capacity_per_kind = (
+            int(capacity_per_kind) if capacity_per_kind is not None
+            else max(64, self.capacity // 4)
+        )
+        self._entries: deque = deque()  # guarded-by: _lock
+        self._per_kind: dict = {}  # guarded-by: _lock — entry count by kind
+        self._lock = threading.Lock()
+        self._clock = clock
+        self._registry = registry
+        # Last-seen tracked fields per (kind, namespace, name): the diff
+        # base observe_store_event derives transitions from. LRU-bounded —
+        # a ledger must never grow with fleet size unbounded.
+        self._state: OrderedDict = OrderedDict()  # guarded-by: _lock
+
+    def _reg(self):
+        return self._registry if self._registry is not None else metrics.REGISTRY
+
+    # ---- feeds -----------------------------------------------------------
+    def record(self, kind: str, obj: str = "", revision: str = "",
+               now: Optional[float] = None, **detail) -> dict:
+        if now is None:
+            now = self._clock()
+        entry = {
+            "at": round(now, 6),
+            "unix": round(time.time(), 6),
+            "kind": kind,
+            "object": obj,
+            "revision": revision,
+            "detail": {k: v for k, v in detail.items() if v is not None},
+        }
+        with self._lock:
+            self._entries.append(entry)
+            self._per_kind[kind] = self._per_kind.get(kind, 0) + 1
+            dropped = self._evict_locked(kind)
+        self._reg().inc("lws_rollout_ledger_events_total", {"kind": kind})
+        for dkind, n in dropped.items():
+            self._reg().inc("lws_rollout_ledger_dropped_total",
+                            {"kind": dkind}, float(n))
+        return entry
+
+    def _evict_locked(self, kind: str) -> dict:  # holds-lock: _lock
+        """Enforce the per-kind then the global capacity, oldest first;
+        returns {kind: evicted count} for the caller to count OUTSIDE the
+        lock (registry has its own lock — no nesting)."""
+        dropped: dict = {}
+
+        def _forget(victim: dict) -> None:
+            vkind = victim["kind"]
+            left = self._per_kind.get(vkind, 0) - 1
+            if left > 0:
+                self._per_kind[vkind] = left
+            else:
+                self._per_kind.pop(vkind, None)
+            dropped[vkind] = dropped.get(vkind, 0) + 1
+
+        if (self.capacity_per_kind > 0
+                and self._per_kind.get(kind, 0) > self.capacity_per_kind):
+            for victim in self._entries:
+                if victim["kind"] == kind:
+                    self._entries.remove(victim)
+                    _forget(victim)
+                    break
+        while len(self._entries) > self.capacity:
+            _forget(self._entries.popleft())
+        return dropped
+
+    def observe_store_event(self, ev) -> None:
+        """Store watch feed: diff the tracked fields of rollout-relevant
+        kinds and record the transitions. Never raises — a broken observer
+        must never break the reconcile path it observes."""
+        try:
+            self._observe_store_event(ev)
+        except Exception:  # vet: ignore[hazard-exception-swallow]: observer must never break the watched store's notify loop (BLE001 intended)
+            pass
+
+    def _observe_store_event(self, ev) -> None:
+        obj = ev.obj
+        kind = getattr(obj, "kind", "") or type(obj).__name__
+        handler = {
+            "LeaderWorkerSet": self._track_lws,
+            "GroupSet": self._track_groupset,
+            "DisaggregatedSet": self._track_ds,
+            "Pod": self._track_pod,
+            "Node": self._track_node,
+        }.get(kind)
+        if handler is None:
+            return
+        name = f"{obj.meta.namespace}/{obj.meta.name}"
+        key = (kind, name)
+        if ev.type == "DELETED":
+            with self._lock:
+                prev = self._state.pop(key, None)
+            if kind == "Pod":
+                self._record_pod_gone(obj, prev)
+            elif prev is not None:
+                self.record("deleted", obj=f"{kind} {name}",
+                            revision=str(prev.get("revision", "")))
+            return
+        state = handler(obj, name, ev.type)
+        with self._lock:
+            self._state[key] = state
+            self._state.move_to_end(key)
+            while len(self._state) > 4096:
+                self._state.popitem(last=False)
+
+    def _prev(self, kind: str, name: str) -> Optional[dict]:
+        with self._lock:
+            return self._state.get((kind, name))
+
+    def _track_lws(self, obj, name: str, ev_type: str) -> dict:
+        ru = getattr(obj.spec.rollout_strategy, "rolling_update_configuration",
+                     None)
+        state = {
+            "partition": int(getattr(ru, "partition", 0) or 0),
+            "replicas": int(obj.spec.replicas),
+            "updated": int(getattr(obj.status, "updated_replicas", 0) or 0),
+            "ready": int(getattr(obj.status, "ready_replicas", 0) or 0),
+        }
+        prev = self._prev("LeaderWorkerSet", name)
+        label = f"LeaderWorkerSet {name}"
+        if prev is None:
+            if ev_type == "ADDED":
+                self.record("created", obj=label, replicas=state["replicas"])
+            return state
+        if state["partition"] != prev["partition"]:
+            self.record("partition_move", obj=label,
+                        from_partition=prev["partition"],
+                        to_partition=state["partition"])
+        if state["replicas"] != prev["replicas"]:
+            self.record("scale", obj=label, from_replicas=prev["replicas"],
+                        to_replicas=state["replicas"])
+        if (state["updated"], state["ready"]) != (prev["updated"], prev["ready"]):
+            self.record("rollout_progress", obj=label,
+                        updated=state["updated"], ready=state["ready"],
+                        replicas=state["replicas"])
+        return state
+
+    def _track_groupset(self, obj, name: str, ev_type: str) -> dict:
+        from lws_tpu_torch.api import contract
+
+        state = {
+            "revision": obj.meta.labels.get(contract.REVISION_LABEL_KEY, ""),
+            "partition": int(getattr(obj.spec.update_strategy, "partition", 0)
+                             or 0),
+        }
+        prev = self._prev("GroupSet", name)
+        label = f"GroupSet {name}"
+        if prev is None:
+            if ev_type == "ADDED" and state["revision"]:
+                self.record("group_created", obj=label,
+                            revision=state["revision"])
+            return state
+        if state["revision"] != prev["revision"]:
+            self.record("revision_flip", obj=label,
+                        revision=state["revision"],
+                        from_revision=prev["revision"])
+        if state["partition"] != prev["partition"]:
+            self.record("partition_move", obj=label,
+                        revision=state["revision"],
+                        from_partition=prev["partition"],
+                        to_partition=state["partition"])
+        return state
+
+    def _track_ds(self, obj, name: str, ev_type: str) -> dict:
+        roles = tuple(
+            (getattr(r, "name", ""), int(getattr(r, "replicas", 0) or 0))
+            for r in (getattr(obj.spec, "roles", None) or [])
+        )
+        state = {
+            "revision": getattr(obj.status, "current_revision", "") or "",
+            "roles": roles,
+        }
+        prev = self._prev("DisaggregatedSet", name)
+        label = f"DisaggregatedSet {name}"
+        if prev is None:
+            return state
+        if state["revision"] != prev["revision"]:
+            self.record("ds_revision_flip", obj=label,
+                        revision=state["revision"],
+                        from_revision=prev["revision"])
+        if state["roles"] != prev["roles"]:
+            self.record("ds_lockstep_step", obj=label,
+                        revision=state["revision"],
+                        from_roles=dict(prev["roles"]),
+                        to_roles=dict(roles))
+        return state
+
+    def _pod_revision(self, obj) -> str:
+        # Same precedence as the fleet scraper's labels (runtime/fleet.py):
+        # the DS per-role revision first, the LWS template revision second.
+        from lws_tpu_torch.api import contract, disagg
+
+        return (obj.meta.labels.get(disagg.DS_REVISION_LABEL_KEY)
+                or obj.meta.labels.get(contract.REVISION_LABEL_KEY) or "")
+
+    def _track_pod(self, obj, name: str, ev_type: str) -> dict:
+        phase = str(getattr(obj.status, "phase", "") or "")
+        state = {"revision": self._pod_revision(obj), "phase": phase}
+        prev = self._prev("Pod", name)
+        label = f"Pod {name}"
+        if prev is None:
+            if ev_type == "ADDED":
+                self.record("pod_created", obj=label,
+                            revision=state["revision"])
+            return state
+        if phase != prev["phase"] and phase in ("Failed", "Succeeded"):
+            self.record("pod_phase", obj=label, revision=state["revision"],
+                        phase=phase)
+        return state
+
+    def _record_pod_gone(self, obj, prev: Optional[dict]) -> None:
+        self.record("pod_deleted",
+                    obj=f"Pod {obj.meta.namespace}/{obj.meta.name}",
+                    revision=(prev or {}).get("revision",
+                                              self._pod_revision(obj)))
+
+    def _track_node(self, obj, name: str, ev_type: str) -> dict:
+        state = {"unschedulable": bool(getattr(obj.spec, "unschedulable",
+                                               False))}
+        prev = self._prev("Node", name)
+        if prev is not None and state["unschedulable"] != prev["unschedulable"]:
+            self.record("cordon" if state["unschedulable"] else "uncordon",
+                        obj=f"Node {obj.meta.name}")
+        return state
+
+    def observe_recorder_event(self, event: dict) -> None:
+        """Flight-recorder feed: mirror the event kinds that matter at
+        rollout timescale (drains, alerts, chaos) into the timeline."""
+        try:
+            kind = event.get("kind", "")
+            if kind not in LEDGER_EVENT_KINDS:
+                return
+            detail = {
+                k: v for k, v in event.items()
+                if k not in ("kind", "ts", "trace", "revision",
+                             "error_window", "ledger_window")
+                and isinstance(v, (str, int, float, bool))
+            }
+            self.record(kind,
+                        obj=str(event.get("series") or event.get("source")
+                                or event.get("point") or ""),
+                        revision=str(event.get("revision", "")), **detail)
+        except Exception:  # vet: ignore[hazard-exception-swallow]: observer must never break event recording (BLE001 intended)
+            pass
+
+    # ---- views -----------------------------------------------------------
+    def _sweep(self, now: float) -> None:
+        cutoff = now - self.retention_s
+        with self._lock:
+            while self._entries and self._entries[0]["at"] < cutoff:
+                aged = self._entries.popleft()
+                left = self._per_kind.get(aged["kind"], 0) - 1
+                if left > 0:
+                    self._per_kind[aged["kind"]] = left
+                else:
+                    self._per_kind.pop(aged["kind"], None)
+
+    def snapshot(self, limit: int = 256,
+                 now: Optional[float] = None) -> list:
+        """The newest `limit` retained entries, oldest first — the
+        `GET /debug/rollout` body and the watchdog dump embed."""
+        self._sweep(self._clock() if now is None else now)
+        with self._lock:
+            out = list(self._entries)
+        return out[-limit:] if limit else []
+
+    def window(self, since_s: float, now: Optional[float] = None) -> list:
+        """Entries from the trailing `since_s` seconds — the slice a canary
+        alert embeds next to the offending revision's error series."""
+        if now is None:
+            now = self._clock()
+        self._sweep(now)
+        cutoff = now - since_s
+        with self._lock:
+            return [e for e in self._entries if e["at"] >= cutoff]
+
+    def clear(self) -> None:
+        with self._lock:
+            self._entries.clear()
+            self._per_kind.clear()
+            self._state.clear()
+
+
+# Process-default ledger: the control plane wires its store watch + the
+# process flight recorder into THIS instance (runtime/harness.py install()),
+# and the watchdog dump / debug endpoint snapshot it.
+LEDGER = RolloutLedger()
+
+_INSTALL_LOCK = threading.Lock()
+_RECORDER_OBSERVED = False
+
+
+def _default_recorder_observer(event: dict) -> None:
+    LEDGER.observe_recorder_event(event)
+
+
+def install(store=None):
+    """Wire the process-default ledger: subscribe it to the process flight
+    recorder (once) and, with `store`, to that store's watch feed. Returns
+    the store-watch unsubscribe callable (None without a store)."""
+    global _RECORDER_OBSERVED
+    with _INSTALL_LOCK:
+        if not _RECORDER_OBSERVED:
+            flightrecorder.RECORDER.add_observer(_default_recorder_observer)
+            _RECORDER_OBSERVED = True
+    if store is not None:
+        return store.watch(LEDGER.observe_store_event)
+    return None
 
 
 # ---------------------------------------------------------------------------
@@ -292,13 +662,16 @@ class CanaryAnalyzer:
         min_samples: Optional[float] = None,
         min_duration_s: Optional[float] = None,
         delta: Optional[float] = None,
+        ledger: Optional[RolloutLedger] = None,
         registry=None,
         recorder: Optional[flightrecorder.FlightRecorder] = None,
     ) -> None:
-        """`lws` labels the verdict gauge (the deployment under analysis).
-        Guards default from env (`LWS_TPU_CANARY_MIN_SAMPLES` / `_MIN_DURATION_S` /
+        """`lws` labels the verdict gauge (the deployment under analysis;
+        `default_canary_analyzer` syncs it from the store). Guards default
+        from env (`LWS_TPU_CANARY_MIN_SAMPLES` / `_MIN_DURATION_S` /
         `_DELTA`); `windows` the burn tiers (default
-        `signals.burn_windows()`, env-scalable); `registry`/`recorder`
+        `signals.burn_windows()`, env-scalable); `ledger` contributes the
+        timeline window a firing-edge event embeds; `registry`/`recorder`
         default to the process ones, injectable for deterministic tests."""
         from lws_tpu_torch.obs.recommend import (
             ATTAINMENT_TARGET_ENV,
@@ -322,6 +695,7 @@ class CanaryAnalyzer:
         )
         self.delta = delta if delta is not None else _env_float(
             DELTA_ENV, DEFAULT_DELTA)
+        self.ledger = ledger
         self._registry = registry
         self._recorder = (recorder if recorder is not None
                           else flightrecorder.RECORDER)
@@ -329,6 +703,7 @@ class CanaryAnalyzer:
         self._firing: set = set()             # guarded-by: _lock
         self._published_verdicts: set = set()  # guarded-by: _lock
         self._published_burns: set = set()     # guarded-by: _lock
+        self._last_verdicts: dict = {}         # guarded-by: _lock
 
     def _reg(self):
         return self._registry if self._registry is not None else metrics.REGISTRY
@@ -443,12 +818,24 @@ class CanaryAnalyzer:
             self._published_verdicts = set(verdict_gauges)
             stale_burns = self._published_burns - set(burn_gauges)
             self._published_burns = set(burn_gauges)
+            changed = {
+                r: v.verdict for r, v in report.verdicts.items()
+                if self._last_verdicts.get(r) != v.verdict
+            }
+            self._last_verdicts = {
+                r: v.verdict for r, v in report.verdicts.items()
+            }
         for labels_t in stale_verdicts:
             reg.clear_gauge("lws_rollout_canary_verdict", dict(labels_t),
                             exact=True)
         for labels_t in stale_burns:
             reg.clear_gauge("serving_slo_burn_rate_by_revision",
                             dict(labels_t), exact=True)
+        if self.ledger is not None:
+            for rev, verdict in changed.items():
+                self.ledger.record("canary_verdict", obj=self.lws,
+                                   revision=rev, now=now, verdict=verdict,
+                                   reason=report.verdicts[rev].reason)
         return report
 
     # ---- edge-triggered alert feed ---------------------------------------
@@ -457,8 +844,8 @@ class CanaryAnalyzer:
         `canary:{lws}/{revision}` heartbeat at depth 1 (the `circuit_open`
         convention: the Watchdog's `canary_regression` rule fires once per
         episode). The NEW-episode edge records a ring event embedding the
-        offending revision's error-series window — the next watchdog dump
-        ships the evidence."""
+        offending revision's error-series window AND the rollout-ledger
+        window — the next watchdog dump ships the full evidence."""
         key = f"{self.lws}/{rev}"
         with self._lock:
             new_edge = key not in self._firing
@@ -470,6 +857,10 @@ class CanaryAnalyzer:
                 series = signals.error_series(good, total)
                 if len(series) > len(window):
                     window = series
+            ledger_window = (
+                self.ledger.snapshot(limit=EVENT_LEDGER_ENTRIES, now=now)
+                if self.ledger is not None else []
+            )
             self._recorder.record(
                 "canary_regression_fired",
                 lws=self.lws,
@@ -480,7 +871,7 @@ class CanaryAnalyzer:
                 threshold=self.windows[0].threshold,
                 error_window=[[t, v] for t, v
                               in window[-EVENT_WINDOW_POINTS:]],
-                ledger_window=[],
+                ledger_window=ledger_window,
             )
 
     def _clear_alerts(self, firing_now: set, now: float) -> None:
@@ -490,3 +881,120 @@ class CanaryAnalyzer:
         for key in cleared:
             self._recorder.beat(f"canary:{key}", progress=1.0, depth=0.0,
                                 now=now)
+
+
+# Process-default analyzer over the process history ring + ledger: the
+# control plane evaluates it per fleet-history ingest (runtime/server.py),
+# so the verdict/burn gauges and the `canary_regression` alert feed exist
+# on every live deployment without wiring. The analyzer itself never
+# mutates the store: acting on its reports is the RolloutActuator's job
+# (obs/decisions.py — on by default, LWS_TPU_ACTUATION_DISABLE=rollout to
+# record only).
+ANALYZER: Optional[CanaryAnalyzer] = None
+_ANALYZER_LOCK = threading.Lock()
+
+
+def default_canary_analyzer(store=None) -> CanaryAnalyzer:
+    """The process-default analyzer; with `store`, its `lws` target label
+    re-syncs to the store's first LeaderWorkerSet before the caller
+    evaluates."""
+    global ANALYZER
+    with _ANALYZER_LOCK:
+        if ANALYZER is None:
+            from lws_tpu_torch.obs.history import HISTORY
+
+            ANALYZER = CanaryAnalyzer(HISTORY, ledger=LEDGER)
+        if store is not None:
+            names = sorted(
+                f"{o.meta.namespace}/{o.meta.name}"
+                for o in store.list("LeaderWorkerSet")
+            )
+            if names:
+                ANALYZER.lws = names[0]
+        return ANALYZER
+
+
+# ---------------------------------------------------------------------------
+# The opt-in actuation seam
+
+
+class RolloutActuationAdapter:
+    """Act on a rollback verdict through the stock rollout machinery:
+    `pause()` freezes the rolling update by raising the partition to the
+    replica count (groups below the partition are never updated — the
+    existing canary/xPyD semantics), and `rollback(revision_key)` restores
+    the template from the named ControllerRevision via the same
+    `utils/revision.py` path the controller uses, so the rollout controller
+    itself walks the fleet back. Driven by the edge-triggered
+    `RolloutActuator` (obs/decisions.py) when a canary regression fires —
+    behind the `LWS_TPU_ACTUATION_DISABLE=rollout` kill switch; still
+    usable directly for manual rollbacks."""
+
+    def __init__(self, store, namespace: str, target: str) -> None:
+        self.store = store
+        self.namespace = namespace
+        self.target = target
+
+    def _retry_update(self, mutate) -> bool:
+        from lws_tpu_torch.core.store import ConflictError
+
+        for _ in range(3):  # optimistic-concurrency retries
+            lws = self.store.get("LeaderWorkerSet", self.namespace,
+                                 self.target)
+            if lws is None:
+                return False
+            if not mutate(lws):
+                return False
+            try:
+                self.store.update(lws)
+                return True
+            except ConflictError:
+                continue
+        return False
+
+    def pause(self) -> bool:
+        """Freeze the rollout where it stands: partition = replicas means
+        every group index is below the partition, so no further group is
+        updated until an operator (or a rollback) moves it."""
+        def mutate(lws) -> bool:
+            ru = lws.spec.rollout_strategy.rolling_update_configuration
+            ru.partition = int(lws.spec.replicas)
+            return True
+
+        return self._retry_update(mutate)
+
+    def rollback(self, revision_key: str) -> bool:
+        """Restore the LWS template from the named ControllerRevision and
+        release the partition — the stock controller then rolls every
+        group back to the restored (now-current) template."""
+        from lws_tpu_torch.utils import revision as revisionutils
+
+        def mutate(lws) -> bool:
+            rev = revisionutils.get_revision(self.store, lws, revision_key)
+            if rev is None:
+                return False
+            restored = revisionutils.apply_revision(lws, rev)
+            lws.spec.leader_worker_template = \
+                restored.spec.leader_worker_template
+            lws.spec.network_config = restored.spec.network_config
+            lws.spec.rollout_strategy.rolling_update_configuration.partition = 0
+            return True
+
+        return self._retry_update(mutate)
+
+    def apply(self, report: CanaryReport) -> dict:
+        """Act on a CanaryReport: when any non-baseline revision's verdict
+        is `rollback` and a judged baseline exists, pause the rollout and
+        restore the baseline revision. Returns what was done."""
+        offenders = [
+            r for r, v in report.verdicts.items()
+            if v.verdict == "rollback" and r != report.baseline
+        ]
+        if not offenders or not report.baseline:
+            return {"acted": False, "offenders": offenders}
+        paused = self.pause()
+        rolled_back = self.rollback(report.baseline)
+        return {
+            "acted": rolled_back, "paused": paused,
+            "rolled_back_to": report.baseline, "offenders": offenders,
+        }

@@ -5,7 +5,8 @@ worker workloads a group's members run.
   into a Manager (≈ cmd/main.go setup, SURVEY §3.1).
 - FakeKubelet: drives pod status like a node agent would (test/e2e backends).
 - local.LocalBackend: runs pods as local processes; server.ApiServer: the
-  control plane's HTTP face; worker.py and telemetry.py: the group worker
+  control plane's HTTP face; fleet.FleetCollector: the workers' telemetry
+  merged into /metrics/fleet; worker.py and telemetry.py: the group worker
   and its telemetry server.
 """
 

@@ -5,13 +5,11 @@ drains all workqueues to a fixed point (deterministic, no sleeps), `start()`
 runs them on background threads for live use.
 
 The port's copy of lws_tpu/runtime/harness.py: the webhooks, the LWS,
-GroupSet, pod and DisaggregatedSet reconcilers, the scheduler and node
-monitor when enabled, and the Watchdog. Left out, each waiting for its
-ROADMAP Queue 1 item: the fleet collector (`self.fleet`, item (a)); the
-autoscaler reconciler and the rollout and decision planes' store halves
-(`rollout.install`, `decisions.install`, item (b)); leader election
-(`leader_election=True` raises, item (c); with it go the `identity` and
-election keyword arguments and the `elector`).
+GroupSet, pod, DisaggregatedSet and autoscaler reconcilers, the scheduler
+and node monitor when enabled, the fleet collector, the Watchdog, and the
+rollout and decision planes' store halves. Left out: leader election
+(`leader_election=True` raises, ROADMAP Queue 1 item (c); with it go the
+`identity` and election keyword arguments and the `elector`).
 """
 
 from __future__ import annotations
@@ -222,6 +220,26 @@ class ControlPlane:
             },
         )
 
+        from lws_tpu_torch.controllers.autoscaler_controller import AutoscalerReconciler
+
+        def autoscalers_watching(obj) -> list[Key]:
+            # Leader pod metric annotations / LWS changes retrigger autoscalers.
+            return [
+                asc.key()
+                for asc in store.list("Autoscaler", obj.meta.namespace)
+                if asc.spec.target == obj.meta.labels.get(contract.SET_NAME_LABEL_KEY, obj.meta.name)
+            ]
+
+        self.autoscaler_controller = AutoscalerReconciler(self.store, self.recorder)
+        self.manager.register(
+            self.autoscaler_controller,
+            {
+                "Autoscaler": lambda o: [o.key()],
+                "Pod": autoscalers_watching,
+                "LeaderWorkerSet": autoscalers_watching,
+            },
+        )
+
         if enable_scheduler:
             # The scheduler subscribes its own store watch for its incremental
             # pod indexes (binding state, gang membership, pending set).
@@ -250,12 +268,41 @@ class ControlPlane:
             self.kubelet = FakeKubelet(self.store, require_binding=require_binding)
             self.manager.register(self.kubelet, {"Pod": lambda o: [o.key()]})
 
-        # The watchdog evaluates stall/hot-loop/backlog rules over the
-        # process flight recorder's heartbeats. run_until_stable ticks it
-        # deterministically; start() runs it on a thread.
+        # Fleet telemetry plane: the collector merges every ready worker's
+        # /metrics into /metrics/fleet (this registry + the process serving
+        # registry ride along as instance "control-plane"); the watchdog
+        # evaluates stall/hot-loop/backlog rules over the process flight
+        # recorder's heartbeats. run_until_stable ticks it deterministically;
+        # start() runs it on a thread.
         from lws_tpu_torch.core.flightrecorder import Watchdog
+        from lws_tpu_torch.core.metrics import REGISTRY as _process_registry
+        from lws_tpu_torch.runtime.fleet import FleetCollector
 
+        control_regs = (
+            (self.metrics,) if self.metrics is _process_registry
+            else (self.metrics, _process_registry)
+        )
+        self.fleet = FleetCollector(self.store, control_registries=control_regs)
         self.watchdog = Watchdog(registries=(self.metrics,))
+
+        # Rollout intelligence plane: the process-default ledger observes
+        # this store's watch feed plus the process flight recorder, so
+        # every revision flip, partition move, DS lockstep step, drain,
+        # and pod churn the reconcile path produces lands on the timeline
+        # (`GET /debug/rollout`, watchdog dumps, `lws-tpu rollout`).
+        from lws_tpu_torch.obs import rollout as rolloutmod
+
+        self.rollout = rolloutmod.LEDGER
+        rolloutmod.install(self.store)
+
+        # Decision plane: the provenance ledger (`GET /debug/decisions`,
+        # `lws-tpu why`) plus the synchronous DS replica writeback that
+        # lets the stock autoscaler move a DS child LWS without the DS
+        # reconciler fighting it (obs/decisions.py).
+        from lws_tpu_torch.obs import decisions as decisionsmod
+
+        self.decisions = decisionsmod.DECISIONS
+        decisionsmod.install(self.store)
 
     # ------------------------------------------------------------------
     def run_until_stable(self, max_iterations: int = 10000) -> int:

@@ -2,18 +2,54 @@
 (≈ the apiserver+webhook endpoint + healthz/readyz + metrics of
 cmd/main.go:252-262,336-348 rolled into one in-process server).
 
-The port's copy of lws_tpu/runtime/server.py, trimmed. Left out, each
-waiting for its ROADMAP Queue 1 item: `/metrics/fleet` and the `/debug/*`
-routes (the fleet collector, item (a)); `POST /report-metric` (the
-autoscaler, item (b)); TLS and bearer-token auth (`tls=`, `auth=` raise,
-item (c)); `POST /cordon` and `POST /drain` (item (d)). A left-out route
-answers 404 "unknown path", as any unknown path does.
+The port's copy of lws_tpu/runtime/server.py. Left out, each waiting for
+its ROADMAP Queue 1 item: TLS and bearer-token auth (`tls=`, `auth=`
+raise, item (c)); `POST /cordon` and `POST /drain` (item (d)). A left-out
+route answers 404 "unknown path", as any unknown path does.
 
 Endpoints:
   GET  /healthz | /readyz             liveness/readiness
   GET  /metrics                       Prometheus text (control plane +
                                       process serving registry, one valid
                                       exposition)
+  GET  /metrics/fleet                 the AGGREGATED fleet exposition: every
+                                      ready worker's /metrics scraped and
+                                      merged with instance/role/revision
+                                      labels (runtime/fleet.py)
+  GET  /debug/traces[?limit=N]        recent spans from the process tracer
+                                      (reconcile -> serving trace spine)
+  GET  /debug/flightrecorder[?limit=N] flight-recorder snapshot: event ring,
+                                      heartbeats, active watchdog alerts,
+                                      and the last alert's diagnostics dump
+  GET  /debug/profile[?limit=N&format=json|collapsed]
+                                      this process's collapsed-stack profile
+                                      (core/profile.py; collapsed = raw
+                                      flamegraph.pl input)
+  GET  /debug/profile/fleet           every ready worker's /debug/profile,
+                                      merged with instance/role labels
+                                      (runtime/fleet.py)
+  GET  /debug/history[?limit=N]       the process history ring: retained
+                                      per-series time series sampled from
+                                      the /metrics and /metrics/fleet
+                                      surfaces (lws_tpu_torch/obs/history.py)
+  GET  /debug/decisions[?limit=N]     the decision ledger: provenance
+                                      records for every recommender/canary
+                                      evaluation with guards, actuation
+                                      outcome, and convergence timing
+                                      (lws_tpu_torch/obs/decisions.py)
+  GET  /debug/compile[?limit=N]       this process's compile ledger:
+                                      backend-compile provenance records,
+                                      per-executable counters, active storm
+                                      windows (lws_tpu_torch/obs/device.py)
+  GET  /debug/compile/fleet           every ready worker's /debug/compile
+                                      plus the control-plane leg, instance-
+                                      labelled, with a cross-fleet
+                                      executables fold (runtime/fleet.py)
+  GET  /debug/faults                  armed fault points + hit/trip counters
+  POST /debug/faults                  arm/disarm deterministic fault
+                                      schedules in this process
+                                      (core/faults.py; bearer-gated like
+                                      every other mutating endpoint)
   POST /apply                         YAML/JSON manifest (create-or-update)
   POST /apis/{kind}/{ns}/{name}/apply server-side apply of a partial field
                                       tree (?fieldManager=&force=)
@@ -21,6 +57,7 @@ Endpoints:
   GET  /apis/{kind}/{ns}/{name}       get
   DELETE /apis/{kind}/{ns}/{name}     delete
   POST /scale/{ns}/{name}             {"replicas": N} on a LeaderWorkerSet
+  POST /report-metric/{ns}/{pod}      {"metric": value} -> pod annotation (autoscaler)
   GET  /watch?since=N[&timeout=S]     long-poll of store events (since=-1:
                                       a bookmark; {"expired": true}: relist)
   GET  /logs/{ns}/{pod}               captured pod stdout/stderr
@@ -43,8 +80,6 @@ from lws_tpu_torch.core.store import (
 from lws_tpu_torch.manifest import from_manifest, to_manifest
 
 
-# Autoscaler stays a known kind, so listings and errors read as JAX's; the
-# port never stores one (manifest.from_manifest refuses it).
 _CANONICAL_KINDS = (
     "LeaderWorkerSet", "DisaggregatedSet", "GroupSet", "Pod", "Node",
     "Service", "PodGroup", "ControllerRevision", "PersistentVolumeClaim",
@@ -113,6 +148,14 @@ class ApiServer:
         self.control_plane = control_plane
         cp = control_plane
 
+        # Journey-vault feeds for THIS process (span buffering, resilience
+        # events, SLO completions): the API server's local leg of the
+        # cross-process /debug/request assembly. Idempotent; off with
+        # LWS_TPU_JOURNEYS=0.
+        from lws_tpu_torch.obs import journey as journeymod
+
+        journeymod.install()
+
         # Watch plumbing (≈ the apiserver's watch cache): every store event
         # gets a server-local sequence number; /watch long-polls on it.
         events = collections.deque(maxlen=watch_buffer)
@@ -164,6 +207,39 @@ class ApiServer:
                 )
                 self._send(200, body, ctype)
 
+            def _stream_exposition(self, chunks) -> None:
+                """The streaming twin of _send_exposition: write exposition
+                chunks to the wire as they merge, close-delimited (HTTP/1.0,
+                no Content-Length) — the whole fleet text never exists
+                server-side. Per-chunk exemplar stripping and the trailing
+                `# EOF` replicate negotiate_exposition byte-for-byte (chunks
+                hold whole lines, so the line-anchored strip regex composes)."""
+                from lws_tpu_torch.core import metrics as metricsmod
+
+                om = metricsmod.wants_openmetrics(self.headers.get("Accept"))
+                chunks = iter(chunks)
+                # Pull the first chunk BEFORE committing headers: a scrape
+                # pass that dies whole must 500, not truncate a 200.
+                try:
+                    first = next(chunks)
+                except StopIteration:
+                    first = "\n"
+                self.send_response(200)
+                self.send_header(
+                    "Content-Type",
+                    metricsmod.OPENMETRICS_CONTENT_TYPE if om else "text/plain",
+                )
+                self.end_headers()
+                import itertools
+
+                for chunk in itertools.chain((first,), chunks):
+                    if not om:
+                        chunk = metricsmod.strip_exemplars(chunk)
+                    if chunk:
+                        self.wfile.write(chunk.encode())
+                if om:
+                    self.wfile.write(b"# EOF\n")
+
             def do_GET(self):
                 path = self.path.split("?", 1)[0]
                 parts = [p for p in path.split("/") if p]
@@ -175,6 +251,7 @@ class ApiServer:
                     # report into (a live worker embedding both is
                     # inspectable from one scrape).
                     from lws_tpu_torch.core import metrics as metricsmod
+                    from lws_tpu_torch.core import profile as profmod
                     from lws_tpu_torch.core import slo as slomod
 
                     # Device-memory gauges refresh per scrape (CPU-safe
@@ -191,7 +268,238 @@ class ApiServer:
                     regs = (cp.metrics,) if cp.metrics is metricsmod.REGISTRY \
                         else (cp.metrics, metricsmod.REGISTRY)
                     text = metricsmod.render_exposition(*regs)
+                    # Feed the process history ring ONLY when no fleet
+                    # collector is wired (the fleet handler below is the
+                    # richer source then, and two sources racing one
+                    # interval gate would starve each other and flap the
+                    # ring's live-series flags between shapes).
+                    if getattr(cp, "fleet", None) is None:
+                        from lws_tpu_torch.obs import history as historymod
+
+                        historymod.HISTORY.ingest_if_due(text)
                     self._send_exposition(text)
+                elif path == "/metrics/fleet":
+                    # The aggregated fleet view: every ready worker's
+                    # /metrics merged with instance/role/revision labels
+                    # under the cardinality cap (runtime/fleet.py).
+                    fleet = getattr(cp, "fleet", None)
+                    if fleet is None:
+                        self._json(404, {"error": "fleet collector not wired"})
+                        return
+                    from lws_tpu_torch.obs import history as historymod
+
+                    # The instance-labelled fleet view is the control
+                    # plane's history source: per-worker series ride the
+                    # process ring (interval-gated). The thunk keeps the
+                    # streaming bound honest: the whole-fleet text
+                    # materializes only when an ingest interval is actually
+                    # due (at most once per interval), never per scrape.
+                    # Each fresh ingest also evaluates the process-default
+                    # recommender, so
+                    # `serving_scale_recommendation`/`serving_slo_burn_rate`
+                    # and the `burn_rate` alert feed exist on every live
+                    # deployment — published on the NEXT scrape, like every
+                    # refresh-per-scrape gauge.
+                    if historymod.HISTORY.ingest_if_due(
+                            lambda: fleet.render_fleet()):
+                        from lws_tpu_torch.obs import decisions as decisionsmod
+
+                        try:
+                            # The closed-loop decision step: evaluate the
+                            # recommender (`current` re-synced from the
+                            # store's DS roles) and the canary analyzer,
+                            # actuate both planes through the defaults
+                            # (kill-switched by LWS_TPU_ACTUATION_DISABLE),
+                            # and sweep convergence. Every verdict lands in
+                            # the decision ledger either way.
+                            decisionsmod.evaluate_and_actuate(cp.store)
+                        except Exception:  # vet: ignore[hazard-exception-swallow]: a decision-plane hiccup must never 500 the fleet scrape (BLE001 intended)
+                            pass
+                    self._stream_exposition(fleet.render_fleet_chunks())
+                elif path == "/debug/traces":
+                    from urllib.parse import parse_qs, urlparse
+
+                    from lws_tpu_torch.core import trace as tracemod
+                    from lws_tpu_torch.runtime.telemetry import parse_limit
+
+                    q = parse_qs(urlparse(self.path).query)
+                    try:
+                        limit = parse_limit(q)
+                    except ValueError as e:
+                        # 400, never a 500: non-integer AND negative limits
+                        # are both caller errors.
+                        self._json(400, {"error": f"bad limit: {e}"})
+                        return
+                    self._json(200, tracemod.TRACER.spans(limit))
+                elif path == "/debug/flightrecorder":
+                    from urllib.parse import parse_qs, urlparse
+
+                    from lws_tpu_torch.core import flightrecorder as frmod
+                    from lws_tpu_torch.runtime.telemetry import parse_limit
+
+                    q = parse_qs(urlparse(self.path).query)
+                    try:
+                        limit = parse_limit(q)
+                    except ValueError as e:
+                        self._json(400, {"error": f"bad limit: {e}"})
+                        return
+                    self._json(200, frmod.debug_snapshot(
+                        limit, getattr(cp, "watchdog", None)
+                    ))
+                elif path in ("/debug/profile", "/debug/profile/fleet"):
+                    from urllib.parse import parse_qs, urlparse
+
+                    from lws_tpu_torch.core import profile as profmod
+                    from lws_tpu_torch.runtime.telemetry import (
+                        parse_limit,
+                        parse_profile_format,
+                    )
+
+                    q = parse_qs(urlparse(self.path).query)
+                    try:
+                        limit = parse_limit(q, default=512)
+                        fmt = parse_profile_format(q)
+                    except ValueError as e:
+                        self._json(400, {"error": f"bad query: {e}"})
+                        return
+                    if path == "/debug/profile":
+                        if fmt == "collapsed":
+                            self._send(200, profmod.PROFILER.collapsed(limit),
+                                       "text/plain")
+                        else:
+                            self._json(200, profmod.PROFILER.snapshot(limit))
+                        return
+                    # Fleet-merged: every ready worker's /debug/profile,
+                    # instance/role-labelled like /metrics/fleet.
+                    fleet = getattr(cp, "fleet", None)
+                    if fleet is None:
+                        self._json(404, {"error": "fleet collector not wired"})
+                        return
+                    sources = fleet.collect_profiles(limit)
+                    if fmt == "collapsed":
+                        self._send(200, profmod.merge_collapsed(sources),
+                                   "text/plain")
+                    else:
+                        self._json(200, {"instances": [
+                            {"labels": labels, "profile": snap}
+                            for labels, snap in sources
+                        ]})
+                elif path in ("/debug/compile", "/debug/compile/fleet"):
+                    from urllib.parse import parse_qs, urlparse
+
+                    from lws_tpu_torch.obs import device as devicemod
+                    from lws_tpu_torch.runtime.telemetry import parse_limit
+
+                    q = parse_qs(urlparse(self.path).query)
+                    try:
+                        limit = parse_limit(q)
+                    except ValueError as e:
+                        self._json(400, {"error": f"bad limit: {e}"})
+                        return
+                    if path == "/debug/compile":
+                        self._json(200, devicemod.debug_compile(limit))
+                        return
+                    # Fleet-merged: every ready worker's /debug/compile
+                    # plus the control plane's own leg, instance-labelled
+                    # like /metrics/fleet, with a cross-fleet executables
+                    # fold (runtime/fleet.py).
+                    fleet = getattr(cp, "fleet", None)
+                    if fleet is None:
+                        self._json(404, {"error": "fleet collector not wired"})
+                        return
+                    self._json(200, fleet.collect_compiles(limit))
+                elif path == "/debug/history":
+                    from urllib.parse import parse_qs, urlparse
+
+                    from lws_tpu_torch.obs import history as historymod
+                    from lws_tpu_torch.runtime.telemetry import parse_limit
+
+                    q = parse_qs(urlparse(self.path).query)
+                    try:
+                        limit = parse_limit(q)
+                    except ValueError as e:
+                        self._json(400, {"error": f"bad limit: {e}"})
+                        return
+                    self._json(200, historymod.HISTORY.snapshot(limit))
+                elif path == "/debug/rollout":
+                    from urllib.parse import parse_qs, urlparse
+
+                    from lws_tpu_torch.obs import rollout as rolloutmod
+                    from lws_tpu_torch.runtime.telemetry import parse_limit
+
+                    q = parse_qs(urlparse(self.path).query)
+                    try:
+                        limit = parse_limit(q)
+                    except ValueError as e:
+                        self._json(400, {"error": f"bad limit: {e}"})
+                        return
+                    self._json(200, rolloutmod.LEDGER.snapshot(limit))
+                elif path == "/debug/decisions":
+                    from urllib.parse import parse_qs, urlparse
+
+                    from lws_tpu_torch.obs import decisions as decisionsmod
+                    from lws_tpu_torch.runtime.telemetry import parse_limit
+
+                    q = parse_qs(urlparse(self.path).query)
+                    try:
+                        limit = parse_limit(q)
+                    except ValueError as e:
+                        self._json(400, {"error": f"bad limit: {e}"})
+                        return
+                    self._json(200, decisionsmod.DECISIONS.snapshot(limit))
+                elif path == "/debug/requests":
+                    from urllib.parse import parse_qs, urlparse
+
+                    from lws_tpu_torch.obs import journey as journeymod
+                    from lws_tpu_torch.runtime.telemetry import parse_limit
+
+                    q = parse_qs(urlparse(self.path).query)
+                    outcome = q.get("outcome", ["all"])[0]
+                    klass = q.get("klass", [""])[0]
+                    revision = q.get("revision", [""])[0]
+                    fleet = getattr(cp, "fleet", None)
+                    try:
+                        limit = parse_limit(q, default=32)
+                        if fleet is not None:
+                            # Fleet-joined index: every ready worker's
+                            # retained journeys plus this process's, one
+                            # worst-first table (runtime/fleet.py).
+                            rows = fleet.collect_request_index(
+                                outcome, klass, limit, revision=revision
+                            )
+                        else:
+                            rows = journeymod.VAULT.index(
+                                outcome=outcome, klass=klass, limit=limit,
+                                revision=revision,
+                            )
+                    except ValueError as e:
+                        # 400, never 500: bad limit/outcome are caller
+                        # errors (parse_limit contract, both servers).
+                        self._json(400, {"error": str(e)})
+                        return
+                    self._json(200, rows)
+                elif path.startswith("/debug/request/"):
+                    from urllib.parse import unquote
+
+                    from lws_tpu_torch.obs import journey as journeymod
+
+                    key = unquote(path[len("/debug/request/"):])
+                    fleet = getattr(cp, "fleet", None)
+                    if fleet is not None:
+                        # Cross-process assembly: the trace ctx rode the KV
+                        # frame meta, so every worker's local leg joins by
+                        # request id into one connected tree.
+                        body = fleet.collect_journeys(key)
+                    else:
+                        body = journeymod.local_journey(key)
+                    if body is None:
+                        self._json(404, {"error": f"no journey for {key!r}"})
+                        return
+                    self._json(200, body)
+                elif path == "/debug/faults":
+                    from lws_tpu_torch.core import faults as faultsmod
+
+                    self._json(200, faultsmod.INJECTOR.snapshot())
                 elif len(parts) == 2 and parts[0] == "apis":
                     try:
                         objs = cp.store.list(_kind(parts[1]))
@@ -286,6 +594,19 @@ class ApiServer:
                 body = self.rfile.read(length).decode()
                 path = self.path.split("?", 1)[0]
                 parts = [p for p in path.split("/") if p]
+                if path == "/debug/faults":
+                    from lws_tpu_torch.core import faults as faultsmod
+
+                    try:
+                        payload = json.loads(body) if body else {}
+                        result = faultsmod.apply_control(payload)
+                    except ValueError as e:
+                        # 400, never 500: bad specs/JSON are caller errors
+                        # (same contract as the other debug surfaces).
+                        self._json(400, {"error": str(e)})
+                        return
+                    self._json(200, result)
+                    return
                 try:
                     if (len(parts) == 5 and parts[0] == "apis"
                             and parts[4] == "apply"):
@@ -350,11 +671,30 @@ class ApiServer:
 
                         _retry_conflicts(attempt, f"scale of {parts[2]}")
                         self._json(200, {"scaled": parts[2], "replicas": replicas})
+                    elif len(parts) == 3 and parts[0] == "report-metric":
+                        # Workload-side metric push: annotates the pod so the
+                        # autoscaler's HPA loop can read it.
+                        from lws_tpu_torch.api.autoscaler import METRIC_ANNOTATION_PREFIX
+
+                        payload = json.loads(body)
+                        if not isinstance(payload, dict) or not all(
+                            isinstance(v, (int, float)) for v in payload.values()
+                        ):
+                            raise ValueError(
+                                "report-metric body must be a JSON object of numbers"
+                            )
+                        def attempt():
+                            pod = cp.store.get("Pod", parts[1], parts[2])
+                            for metric, value in payload.items():
+                                pod.meta.annotations[METRIC_ANNOTATION_PREFIX + metric] = str(
+                                    float(value)
+                                )
+                            cp.store.update(pod)
+
+                        _retry_conflicts(attempt, "metric report")
+                        self._json(200, {"reported": payload})
                     else:
                         self._json(404, {"error": "unknown path"})
-                except NotImplementedError as e:
-                    # A kind or route the port has not taken over yet.
-                    self._json(501, {"error": str(e)})
                 except (AdmissionError, ValueError) as e:
                     self._json(422, {"error": str(e)})
                 except (ConflictError, AlreadyExistsError) as e:

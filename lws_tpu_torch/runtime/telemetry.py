@@ -17,9 +17,10 @@ worker's routes, status codes and bodies:
                              (?format=collapsed for raw flamegraph input,
                              ?limit=N keeps the heaviest N stacks)
   GET /debug/history         the process history ring (obs/history.py)
-  GET /debug/decisions       the decision window, always [] here: no worker
-                             records a decision (the JAX package's
-                             actuators, which do, are control-plane code)
+  GET /debug/decisions       the process decision ledger window
+                             (obs/decisions.py): provenance records of the
+                             actuation planes; a worker records none unless
+                             it runs an actuator itself
   GET /debug/requests        the journey index, worst first (obs/journey.py;
                              ?outcome=, ?klass=, ?revision=, ?limit=)
   GET /debug/request/<id>    one request's local journey leg, by request or
@@ -73,6 +74,7 @@ from lws_tpu_torch.core import profile as profmod
 from lws_tpu_torch.core import resilience as resmod
 from lws_tpu_torch.core import slo as slomod
 from lws_tpu_torch.core import trace as tracemod
+from lws_tpu_torch.obs import decisions as decisionsmod
 from lws_tpu_torch.obs import device as devicemod
 from lws_tpu_torch.obs import history as historymod
 from lws_tpu_torch.obs import journey as journeymod
@@ -123,7 +125,7 @@ def _render_process_metrics() -> str:
 _LIMITED_ROUTES = {
     "/debug/traces": (256, lambda n: tracemod.TRACER.spans(n)),
     "/debug/history": (256, lambda n: historymod.HISTORY.snapshot(n)),
-    "/debug/decisions": (256, lambda n: []),
+    "/debug/decisions": (256, lambda n: decisionsmod.DECISIONS.snapshot(n)),
     "/debug/compile": (256, lambda n: devicemod.debug_compile(n)),
 }
 

@@ -8,7 +8,8 @@ requests and must answer with the same codes and bodies, and the commands
 of `python -m lws_tpu_torch` must print what `python -m lws_tpu` prints.
 Normalized, and only these: `uid`, `resourceVersion`,
 `last_transition_time` and the events' `timestamp`, with the age the
-`events` command prints from it (random ids and wall clocks). The routes the port has not taken over yet answer 404 there.
+`events` command prints from it (random ids and wall clocks). The routes
+the port has not taken over yet (`/cordon`, `/drain`) answer 404 there.
 """
 
 from __future__ import annotations
@@ -200,15 +201,15 @@ def test_watch_bookmarks_long_polls_and_expiry(jax_planes_restored):
 
 
 def test_the_left_out_routes_answer_404_on_the_port(servers):
-    for method, path in (("GET", "/metrics/fleet"), ("GET", "/debug/traces"),
-                         ("GET", "/debug/faults"), ("GET", "/debug/rollout"),
-                         ("POST", "/cordon/n1"), ("POST", "/drain/n1"),
-                         ("POST", "/report-metric/default/p")):
-        code, _, body = call(servers.urls[1], method, path, b"{}" if method == "POST" else None)
+    # Left out until ROADMAP Queue 1 (d): node maintenance.
+    for method, path in (("POST", "/cordon/n1"), ("POST", "/drain/n1")):
+        code, _, body = call(servers.urls[1], method, path, b"{}")
         assert (code, json.loads(body)) == (404, {"error": "unknown path"}), path
-    code, _, body = call(servers.urls[1], "POST", "/apply",
-                         (REPO / "examples" / "autoscaler.yaml").read_bytes())
-    assert code == 501 and "ROADMAP Queue 1 (b)" in json.loads(body)["error"]
+    # The Autoscaler kind applies as JAX's does (the fleet and debug routes:
+    # tests/test_torch_fleet.py).
+    example = (REPO / "examples" / "autoscaler.yaml").read_bytes()
+    assert servers.same("POST", "/apply", example)[:2] == (200, "application/json")
+    assert servers.same("GET", "/apis/autoscalers/default/psum-autoscaler")[0] == 200
 
 
 def test_deferred_options_fail_naming_their_roadmap_item():

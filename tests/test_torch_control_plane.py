@@ -166,17 +166,16 @@ def test_every_example_converges_to_the_same_state(path, jax_planes_restored):
 
 
 def test_the_autoscaler_example_is_refused_by_the_port_alone():
+    # Every document of the example, the Autoscaler among them, decodes as
+    # JAX's does.
     docs = load_docs(os.path.join(ROOT, "examples", "autoscaler.yaml"))
     kinds = [d["kind"] for d in docs]
     assert "Autoscaler" in kinds
     for doc in docs:
-        if doc["kind"] == "Autoscaler":
-            assert jmanifest.from_manifest(copy.deepcopy(doc)).kind == "Autoscaler"
-            with pytest.raises(NotImplementedError, match=r"ROADMAP Queue 1 \(b\)"):
-                pmanifest.from_manifest(copy.deepcopy(doc))
-        else:
-            assert (normalize(pmanifest.to_manifest(pmanifest.from_manifest(copy.deepcopy(doc))))
-                    == normalize(jmanifest.to_manifest(jmanifest.from_manifest(copy.deepcopy(doc)))))
+        got = pmanifest.from_manifest(copy.deepcopy(doc))
+        want = jmanifest.from_manifest(copy.deepcopy(doc))
+        assert got.kind == want.kind
+        assert normalize(pmanifest.to_manifest(got)) == normalize(jmanifest.to_manifest(want))
 
 
 # ---------------------------------------------------------------------------

@@ -218,9 +218,9 @@ def test_watchdogs_fire_alike():
 def test_flight_recorder_dump_embeds_profile_and_compiles():
     dump = flightrecorder.FlightRecorder().dump(reason="t")
     assert {"profile", "compiles", "spans", "metrics", "events", "heartbeats"} <= set(dump)
-    # The JAX dump's planes, but for its control-plane rollout ledger.
+    # The JAX dump's planes, the rollout ledger and decision window included.
     jdump = jfr.FlightRecorder().dump(reason="t")
-    assert set(dump) == set(jdump) - {"rollout"}
+    assert set(dump) == set(jdump)
     json.dumps(dump)
 
 
