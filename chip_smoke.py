@@ -1321,14 +1321,18 @@ def drive_local_targets(torch, loadgen, spec, schedule) -> None:
               f"requests completed, {report['all']['tokens']} tokens, {flash} flash launches")
 
 
-def run_loadgen_command(args: list, timeout: float) -> tuple:
-    """`python -m lws_tpu_torch loadgen ARGS --json` as a process from the
-    repo root. Returns (its `#` header line, the report it prints after
-    it, its wall seconds, its stderr); a non-zero exit fails the phase."""
+def run_loadgen_command(args: list, timeout: float, global_args: tuple = (),
+                        env_extra: Optional[dict] = None) -> tuple:
+    """`python -m lws_tpu_torch [GLOBAL_ARGS] loadgen ARGS --json` as a
+    process from the repo root (`env_extra` added to its environment).
+    Returns (its `#` header line, the report it prints after it, its wall
+    seconds, its stderr); a non-zero exit fails the phase."""
     repo = os.path.dirname(os.path.abspath(__file__))
-    env = dict(os.environ, PYTHONPATH=repo + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    env = dict(os.environ, PYTHONPATH=repo + os.pathsep + os.environ.get("PYTHONPATH", ""),
+               **(env_extra or {}))
     t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-m", "lws_tpu_torch", "loadgen", *args, "--json"],
+    proc = subprocess.run([sys.executable, "-m", "lws_tpu_torch", *global_args, "loadgen", *args,
+                           "--json"],
                           cwd=repo, env=env, capture_output=True, text=True, timeout=timeout)
     wall = time.perf_counter() - t0
     check(proc.returncode == 0, f"loadgen command {args} exited {proc.returncode}:\n"
@@ -3449,15 +3453,29 @@ def pid_alive(pid: int) -> bool:
         return False
 
 
-def http_call(port: int, path: str, body=None, timeout: float = 30.0) -> tuple:
-    """(status, text) of one GET (a POST of `body` as JSON) on 127.0.0.1."""
+# The API servers path 17 starts speak https with the CA of serve's
+# --tls-dir and want a bearer token (--token-file): by port, (the CA bundle,
+# the admin token), which http_call uses for them.
+API_AUTH: dict = {}
+
+
+def http_call(port: int, path: str, body=None, timeout: float = 30.0,
+              token: Optional[str] = None) -> tuple:
+    """(status, text) of one GET (a POST of `body` as JSON) on 127.0.0.1. A
+    port of API_AUTH is called over https, trusting its CA, with its admin
+    token, or with `token` when given ("" sends none)."""
+    import ssl
     import urllib.error
     import urllib.request
 
-    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}",
-                                 data=None if body is None else json.dumps(body).encode())
+    ca, admin = API_AUTH.get(port, (None, None))
+    bearer = admin if token is None else token
+    req = urllib.request.Request(f"{'https' if ca else 'http'}://127.0.0.1:{port}{path}",
+                                 data=None if body is None else json.dumps(body).encode(),
+                                 headers={"Authorization": f"Bearer {bearer}"} if bearer else {})
+    context = ssl.create_default_context(cafile=ca) if ca else None
     try:
-        with urllib.request.urlopen(req, timeout=timeout) as resp:
+        with urllib.request.urlopen(req, timeout=timeout, context=context) as resp:
             return resp.status, resp.read().decode()
     except urllib.error.HTTPError as e:
         return e.code, e.read().decode()
@@ -3545,11 +3563,14 @@ def command_over_deployed(eps: dict, api_port: int, metrics_ports: dict, loadgen
     n = len(schedule)
     before = {role: worker_metrics(port, role) for role, port in metrics_ports.items()}
     scraper = Scraper({"fleet": (api_port, "/metrics/fleet")})
+    ca, admin = API_AUTH.get(api_port, (None, None))
     try:
         header, report, wall, _ = run_loadgen_command(
             [LOADGEN_SCENARIO, "--seed", str(LOADGEN_SEED),
              "--prefill", "%s:%d" % eps["prefill"], "--decode", "%s:%d" % eps["decode"],
-             "--server", f"127.0.0.1:{api_port}", "--max-wall", "600"], timeout=900.0)
+             "--server", f"{'https' if ca else 'http'}://127.0.0.1:{api_port}", "--max-wall",
+             "600"], timeout=900.0, global_args=("--cacert", ca) if ca else (),
+            env_extra={"LWS_TPU_TOKEN": admin} if admin else None)
     finally:
         scrapes = scraper.stop()["fleet"]
     code, text = http_call(api_port, "/metrics/fleet")
@@ -4069,14 +4090,16 @@ DEPLOY_EXIT_S = 60.0  # every worker's exit after the DS is deleted
 PID_ANNOTATION = "local.lws.tpu/pid"  # lws_tpu_torch/runtime/local.py:PID_ANNOTATION_KEY
 
 
-def deploy_manifests(api_url: str, ports: dict) -> tuple[str, dict]:
+def deploy_manifests(api_url: str, ports: dict, auth: "ServeAuth") -> tuple[str, dict]:
     """The Configuration (backend local, no scheduler) and the
     DisaggregatedSet, in the shape of examples/disaggregated-live-demo.yaml
     with the port's workers: each role an LWS of size 1, 1 replica, the
     default RecreateGroupOnPodRestart, its KV port and its telemetry port
     (LWS_TPU_METRICS_PORT, which the fleet collector reads off the pod
     spec) in the template. Every journey is kept (LWS_TPU_JOURNEY_SAMPLE=1)
-    and the decode role is profiled (LWS_TPU_PROFILE_HZ)."""
+    and the decode role is profiled (LWS_TPU_PROFILE_HZ). The workers read
+    the https API server (`api_url`) with the view token (LWS_TPU_TOKEN)
+    and trust serve's CA through OpenSSL's SSL_CERT_FILE."""
     config = ("apiVersion: config.lws.tpu/v1alpha1\nkind: Configuration\n"
               "backend: local\nenableScheduler: false\n")
 
@@ -4085,7 +4108,9 @@ def deploy_manifests(api_url: str, ports: dict) -> tuple[str, dict]:
                {"name": "LWS_TPU_KV_PORT", "value": str(ports[name])},
                {"name": "LWS_TPU_METRICS_PORT", "value": str(ports[f"{name}-metrics"])},
                {"name": "LWS_TPU_JOURNEY_SAMPLE", "value": "1"},
-               {"name": "LWS_TPU_API", "value": api_url}]
+               {"name": "LWS_TPU_API", "value": api_url},
+               {"name": "LWS_TPU_TOKEN", "value": auth.tokens["view"]},
+               {"name": "SSL_CERT_FILE", "value": auth.ca}]
         if name == "prefill":
             env.append({"name": "LWS_TPU_KV_CHUNK", "value": str(CHUNK)})
         else:
@@ -4103,32 +4128,67 @@ def deploy_manifests(api_url: str, ports: dict) -> tuple[str, dict]:
     return config, ds
 
 
-class ServeProcess:
-    """`python -m lws_tpu_torch serve --config ... -f ... --port P` as a
-    process of its own, its output in a log; the commands of the same CLI
-    as processes against it."""
+class ServeAuth:
+    """What path 17's `serve` runs with besides its manifests: the state
+    directory (snapshot + write-ahead log), the token file (one admin and
+    one view token from the port's write_bootstrap_tokens) and the TLS
+    directory, whose CA serve's CertManager writes on its start."""
 
-    def __init__(self, work_dir: str, port: int, config: str, manifests: list) -> None:
+    def __init__(self, work_dir: str) -> None:
+        from lws_tpu_torch.core.auth import write_bootstrap_tokens
+
+        self.state_dir = os.path.join(work_dir, "state")
+        self.token_file = os.path.join(work_dir, "tokens.csv")
+        self.tls_dir = os.path.join(work_dir, "tls")
+        self.ca = os.path.join(self.tls_dir, "ca.crt")
+        self.tokens = write_bootstrap_tokens(self.token_file)
+
+    def flags(self) -> list:
+        return ["--state-dir", self.state_dir, "--token-file", self.token_file,
+                "--tls-dir", self.tls_dir]
+
+
+class ServeProcess:
+    """`python -m lws_tpu_torch serve --config ... [-f ...] --port P
+    --state-dir ... --token-file ... --tls-dir ... [--standby]` as a process
+    of its own, its output in `<name>.log`; the commands of the same CLI as
+    processes against it, over https with the CA and the admin token."""
+
+    def __init__(self, work_dir: str, port: int, config: str, manifests: list,
+                 auth: ServeAuth, name: str = "serve", standby: bool = False) -> None:
         self.repo = os.path.dirname(os.path.abspath(__file__))
         self.port = port
-        cfg, mf = os.path.join(work_dir, "config.yaml"), os.path.join(work_dir, "deploy.yaml")
+        self.auth = auth
+        cfg = os.path.join(work_dir, f"{name}-config.yaml")
         with open(cfg, "w") as f:
             f.write(config)
-        with open(mf, "w") as f:
-            # JSON documents, one per line: each is a YAML document too.
-            f.write("\n---\n".join(json.dumps(m) for m in manifests) + "\n")
+        argv = ["--config", cfg]
+        if manifests:
+            mf = os.path.join(work_dir, f"{name}-deploy.yaml")
+            with open(mf, "w") as f:
+                # JSON documents, one per line: each is a YAML document too.
+                f.write("\n---\n".join(json.dumps(m) for m in manifests) + "\n")
+            argv += ["-f", mf]
         # The decision plane records every verdict but moves nothing: a
         # role declaring its KV and telemetry ports in its template cannot
         # run two replicas on one host, so the pair's roles are not scaled
-        # on the card (the autoscaler is driven on a port-free LWS).
+        # on the card (the autoscaler is driven on a port-free LWS). The
+        # CLI's commands read the admin token from LWS_TPU_TOKEN (the pods
+        # inherit it; their templates give them the view token instead).
         self.env = dict(os.environ, LWS_TPU_ACTUATION_DISABLE="scale,rollout",
+                        LWS_TPU_TOKEN=auth.tokens["admin"],
                         PYTHONPATH=self.repo + os.pathsep + os.environ.get("PYTHONPATH", ""))
-        self.log_path = os.path.join(work_dir, "serve.log")
+        self.log_path = os.path.join(work_dir, f"{name}.log")
         self._log = open(self.log_path, "w")
         self.proc = subprocess.Popen(
-            [sys.executable, "-m", "lws_tpu_torch", "serve", "--config", cfg, "-f", mf,
-             "--port", str(port)],
+            [sys.executable, "-m", "lws_tpu_torch", "serve", *argv, "--port", str(port),
+             *auth.flags(), *(["--standby"] if standby else [])],
             env=self.env, cwd=self.repo, stdout=self._log, stderr=subprocess.STDOUT)
+        API_AUTH[port] = (auth.ca, auth.tokens["admin"])
+
+    def serving(self) -> bool:
+        """The API server is up: serve printed its https address."""
+        return f"serving on https://127.0.0.1:{self.port} " in self.log()
 
     def log(self) -> str:
         with open(self.log_path) as f:
@@ -4148,8 +4208,8 @@ class ServeProcess:
         """A command of the same CLI as a process, against this API server
         (or `server`)."""
         return subprocess.run(
-            [sys.executable, "-m", "lws_tpu_torch", *argv, "--server",
-             server or f"127.0.0.1:{self.port}"],
+            [sys.executable, "-m", "lws_tpu_torch", "--cacert", self.auth.ca, *argv, "--server",
+             server or f"https://127.0.0.1:{self.port}"],
             env=self.env, cwd=self.repo, capture_output=True, text=True, timeout=120)
 
     def stop(self) -> int:
@@ -4446,6 +4506,189 @@ def autoscale_loop(serve, client, work_dir: str) -> dict:
     return {"up_s": t_up, "down_s": t_down}
 
 
+FAILOVER_S = 60.0  # kill -9 of the active serve to the standby's /readyz answering 200
+ROUTE_CALLS = 40  # calls a route is timed over at the drill's quiet moment
+
+
+def check_api_auth(api_port: int, auth: ServeAuth, ds: dict) -> dict:
+    """serve's token auth over https: without a token (or with a wrong one)
+    /apis/... answers 401 while /healthz answers 200; the view token reads
+    and may not write (403). Returns the codes."""
+    view = auth.tokens["view"]
+    got = {"GET /apis/pods": http_call(api_port, "/apis/pods", token="")[0],
+           "GET /apis/pods wrong token": http_call(api_port, "/apis/pods", token="x")[0],
+           "GET /healthz": http_call(api_port, "/healthz", token=""),
+           "GET /apis/pods view": http_call(api_port, "/apis/pods", token=view)[0],
+           "POST /apply view": http_call(api_port, "/apply", body=ds, token=view)[0]}
+    want = {"GET /apis/pods": 401, "GET /apis/pods wrong token": 401,
+            "GET /healthz": (200, "ok"), "GET /apis/pods view": 200, "POST /apply view": 403}
+    check(got == want, f"deployed pair: serve's auth answered {got}, want {want}")
+    return {k: v if isinstance(v, int) else v[0] for k, v in got.items()}
+
+
+def store_objects(client) -> dict:
+    """{kind: sorted (namespace/name, uid)} of every kind the store keeps,
+    read through the API server."""
+    from lws_tpu_torch.core.serialize import _registry
+
+    out = {}
+    for kind in sorted(_registry()):
+        objs = client.list(kind)
+        if objs:
+            out[kind] = sorted((f"{o['metadata']['namespace']}/{o['metadata']['name']}",
+                                o["metadata"]["uid"]) for o in objs)
+    return out
+
+
+def listening(pid: int, port: int) -> bool:
+    """Whether process `pid` holds a listening TCP socket on `port`."""
+    inodes = set()
+    for fd in os.listdir(f"/proc/{pid}/fd"):
+        try:
+            link = os.readlink(f"/proc/{pid}/fd/{fd}")
+        except OSError:
+            continue
+        if link.startswith("socket:["):
+            inodes.add(link[len("socket:["):-1])
+    for table in ("/proc/net/tcp", "/proc/net/tcp6"):
+        try:
+            with open(table) as f:
+                rows = f.read().splitlines()[1:]
+        except OSError:
+            continue
+        for row in rows:
+            fields = row.split()
+            if (fields[3] == "0A" and int(fields[1].rsplit(":", 1)[1], 16) == port
+                    and fields[9] in inodes):
+                return True
+    return False
+
+
+def control_plane_failover(serve, standby, client, eps: dict, ports: dict, metrics_ports: dict,
+                           pods: dict, pids: dict, short_p, long_p) -> tuple:
+    """Path 17's control-plane drill. At a quiet moment (two equal readings)
+    the store's objects (each kind's names and uids) and every pod's pid are
+    recorded, with the write-ahead log's records and bytes; the standby
+    is alive and not listening. Then the active serve is SIGKILLed:
+    - with no control plane, a 100-token request completes through the pair;
+    - the standby's /readyz answers 200 within FAILOVER_S (kill-to-takeover),
+      and its "restored N objects" line counts the recorded objects;
+    - every pod keeps its uid and its pid (re-adopted, not respawned), no
+      new process holds the card, and the standby holds none;
+    - a 1,000-token streamed request completes under the new server, whose
+      /metrics/fleet carries both workers (check_fleet_view), and `get` as
+      a process lists the recorded objects of each kind.
+    Returns (the drill's facts, {request id: (meta, tokens)})."""
+    import signal
+
+    seen: list = []
+    deadline = time.monotonic() + 60.0
+    while len(seen) < 2 or seen[-1] != seen[-2]:
+        serve.alive()
+        check(time.monotonic() < deadline, "failover: the store never went quiet")
+        seen.append((store_objects(client), {
+            p["metadata"]["name"]: (p["metadata"]["uid"],
+                                    p["metadata"]["annotations"].get(PID_ANNOTATION))
+            for p in client.list("Pod")}))
+        time.sleep(0.5)
+    objects, pod_pids = seen[-1]
+    n_objects = sum(len(v) for v in objects.values())
+    with open(os.path.join(serve.auth.state_dir, "wal.jsonl"), "rb") as f:
+        wal = f.read()
+    snapshot_bytes = os.path.getsize(os.path.join(serve.auth.state_dir, "state.json"))
+    smi_before = nvidia_smi_pids()
+    # What one call costs at this quiet moment: /healthz over https (the TLS
+    # handshake, no token check) on the API server and over plain http on
+    # the decode worker's telemetry server (the same stdlib server), and
+    # /metrics/fleet over https with the admin token.
+    routes = {"api /healthz https": (ports["api"], "/healthz", ROUTE_CALLS),
+              "worker /healthz http": (metrics_ports["decode"], "/healthz", ROUTE_CALLS),
+              "api /metrics/fleet https": (ports["api"], "/metrics/fleet", ROUTE_CALLS // 2)}
+    route_ms = {}
+    for what, (port, path, calls) in routes.items():
+        ms = []
+        for _ in range(calls):
+            t0 = time.perf_counter()
+            code, _ = http_call(port, path)
+            ms.append((time.perf_counter() - t0) * 1e3)
+            check(code == 200, f"failover: {what} answered {code}")
+        route_ms[what] = statistics.median(ms)
+    print("control-plane failover, quiet moment: median ms a call " + ", ".join(
+        f"{what} {v:.2f} ({routes[what][2]} calls)" for what, v in route_ms.items()), flush=True)
+    standby.alive()
+    check(not listening(standby.proc.pid, ports["api"]) and "restored " not in standby.log(),
+          f"failover: the standby listens or restored before the kill:\n{standby.log()[-2000:]}")
+
+    t_kill = time.perf_counter()
+    os.kill(serve.proc.pid, signal.SIGKILL)
+    serve.proc.wait(timeout=30)
+    taken: dict = {}
+
+    def watch() -> None:
+        # Two steps of the takeover, each stamped when first seen (polled
+        # every 10 ms): the standby's "restored" line (the lock taken and
+        # the snapshot and WAL replayed), then its /readyz 200 (the resync,
+        # the backend's re-adoption, TLS and tokens loaded, the port bound).
+        while time.perf_counter() - t_kill < FAILOVER_S:
+            if "restored" not in taken and "restored " in standby.log():
+                taken["restored"] = time.perf_counter() - t_kill
+            try:
+                if http_call(ports["api"], "/readyz", timeout=2.0) == (200, "ok"):
+                    taken["s"] = time.perf_counter() - t_kill
+                    taken.setdefault("restored", taken["s"])
+                    return
+            except OSError:
+                pass
+            time.sleep(0.01)
+
+    watcher = threading.Thread(target=watch, daemon=True)
+    watcher.start()
+    # The data plane needs no control plane: the pair serves meanwhile.
+    t0 = time.perf_counter()
+    results = {"cp-outage": deployed_request(eps, "cp-outage", short_p, standby,
+                                             time.monotonic() + DEPLOY_READY_S)}
+    outage_s = time.perf_counter() - t0
+    watcher.join(FAILOVER_S)
+    check("s" in taken, f"failover: the standby's /readyz never answered 200 within "
+                        f"{FAILOVER_S:.0f} s of the kill:\n{standby.log()[-3000:]}")
+    restored = [ln for ln in standby.log().splitlines() if ln.startswith("restored ")]
+    check(len(restored) == 1 and restored[0].startswith(
+        f"restored {n_objects} objects from {serve.auth.state_dir} "),
+        f"failover: the standby printed {restored}, {n_objects} objects were recorded")
+    print(f"control-plane failover: kill-to-takeover {taken['s']:.3f} s (SIGKILL of the active "
+          f"serve to the standby's /readyz 200: {taken['restored']:.3f} s to its restored line, "
+          f"{taken['s'] - taken['restored']:.3f} s from there to /readyz 200); restored "
+          f"{n_objects} objects; at the kill the "
+          f"WAL held {wal.count(bytes([10]))} records in {len(wal)} bytes beside a "
+          f"{snapshot_bytes}-byte snapshot; the 100-token request during the outage took "
+          f"{outage_s:.3f} s", flush=True)
+
+    results["cp-long"] = deployed_request(eps, "cp-long", long_p, standby,
+                                          time.monotonic() + DEPLOY_READY_S)
+    got = client.list("Pod")
+    after = {p["metadata"]["name"]: (p["metadata"]["uid"],
+                                     p["metadata"]["annotations"].get(PID_ANNOTATION))
+             for p in got}
+    check(after == pod_pids and all((p.get("status") or {}).get("ready") for p in got),
+          f"failover: pods {after} after the takeover, {pod_pids} before")
+    check(all(pid_alive(pids[r]) for r in ("prefill", "decode-b")),
+          "failover: a worker died across the takeover")
+    smi_after = nvidia_smi_pids()
+    check(len(smi_after) == len(smi_before) and not holds_the_card(standby.proc.pid),
+          f"failover: nvidia-smi lists {smi_after} after the takeover, {smi_before} before")
+    fleet = check_fleet_view(ports["api"], pods, metrics_ports)
+    for kind, names in objects.items():
+        out = standby.cli("get", kind)
+        listed = sorted(ln.split("\t")[0] for ln in out.stdout.splitlines())
+        check(out.returncode == 0 and listed == [n for n, _ in names],
+              f"failover: `get {kind}` under the new server listed {listed}: {out.stderr}")
+    check(store_objects(client) == objects, "failover: the store's objects changed")
+    return ({"kill_to_takeover_s": taken["s"], "kill_to_restored_s": taken["restored"],
+             "route_ms": route_ms, "restored": n_objects, "wal_records":
+             wal.count(bytes([10])), "wal_bytes": len(wal), "outage_s": outage_s,
+             "fleet": fleet}, results)
+
+
 def path_deployed_pair(torch, dev, refs: dict) -> dict:
     """17. The deployed pair and its fleet plane: `python -m lws_tpu_torch
     serve` (the port's ControlPlane, LocalBackend, fleet collector and
@@ -4470,11 +4713,19 @@ def path_deployed_pair(torch, dev, refs: dict) -> dict:
     (autoscale_loop). Every request's bundle bytes and tokens equal path
     16's one-card references (tokens may fork only at an argmax near-tie).
     `get Pod`, `get DisaggregatedSet` and `logs` run as processes of the
-    same CLI; `delete DisaggregatedSet` ends every worker within
-    DEPLOY_EXIT_S; the launches the prefill role and the replacement decode
-    role print at exit equal the handoff formulas, the loadgen command's
-    requests included; no spawned process outlives the path; serve stops
-    on SIGINT. Prints deploy-to-ready, kill-to-result and the path's
+    same CLI. `serve` keeps a state directory, serves https
+    (--tls-dir) and wants bearer tokens (--token-file): every client here
+    trusts its CA and carries the admin token, the workers the view token
+    (check_api_auth holds the 401 and 403 answers); a `serve --standby` on
+    the same directory and port waits from the pair's start, and after the
+    autoscaler the active serve is SIGKILLed (control_plane_failover). Then
+    `delete DisaggregatedSet` through the new server ends every worker
+    within DEPLOY_EXIT_S; the launches the prefill role and the
+    replacement decode role print at exit equal the handoff formulas, the
+    loadgen command's and the failover's requests included, each worker
+    started once; no spawned process outlives the path; the standby stops
+    on SIGINT with a final snapshot that holds no DisaggregatedSet. Prints
+    deploy-to-ready, kill-to-result, kill-to-takeover and the path's
     seconds. Returns the two roles' launches."""
     import signal
     import tempfile
@@ -4492,15 +4743,23 @@ def path_deployed_pair(torch, dev, refs: dict) -> dict:
     while len(set(ports.values())) < len(names):  # a released port may come back
         ports = {name: launch.free_port() for name in names}
     metrics_ports = {r: ports[f"{r}-metrics"] for r in ("prefill", "decode")}
-    api_url = f"http://127.0.0.1:{ports['api']}"
-    config, ds = deploy_manifests(api_url, ports)
-    client = RemoteClient(api_url)
+    api_url = f"https://127.0.0.1:{ports['api']}"
     long_p, short_p = refs[(1000, 0)]["prompt"], refs[(100, 0)]["prompt"]
     workers: set = set()
     with tempfile.TemporaryDirectory() as work_dir:
-        serve = ServeProcess(work_dir, ports["api"], config, [ds])
+        auth = ServeAuth(work_dir)
+        config, ds = deploy_manifests(api_url, ports, auth)
+        serve = ServeProcess(work_dir, ports["api"], config, [ds], auth)
+        standby = None
         try:
             deadline = time.monotonic() + DEPLOY_READY_S
+            while not serve.serving():
+                serve.alive()
+                check(time.monotonic() < deadline, f"deployed pair: serve never served "
+                                                   f"https\n{serve.log()[-3000:]}")
+                time.sleep(0.1)
+            client = RemoteClient(api_url, ca_cert=auth.ca, token=auth.tokens["admin"])
+            auth_codes = check_api_auth(ports["api"], auth, ds)
             eps: dict = {}
             while len(eps) < 2:
                 serve.alive()
@@ -4562,6 +4821,10 @@ def path_deployed_pair(torch, dev, refs: dict) -> dict:
                 check(holds_the_card(pids[role]), f"deployed pair: the {role} worker holds no "
                                                   "device node")
             results = {"short": deployed_request(eps, "short", short_p, serve, deadline)}
+            # The hot spare: a second serve on the same state dir and port,
+            # blocked on the state dir's lock (checked before the kill below).
+            standby = ServeProcess(work_dir, ports["api"], config, [], auth, name="standby",
+                                   standby=True)
 
             # Group-atomic restart: SIGKILL the decode pod's process.
             code, text = http_call(ports["api"], "/watch?since=-1")
@@ -4652,7 +4915,14 @@ def path_deployed_pair(torch, dev, refs: dict) -> dict:
                   and "finished short" not in logs.stdout,
                   f"logs of the new decode pod: {logs.stdout[-2000:]!r}")
 
-            gone = serve.cli("delete", "DisaggregatedSet", "default", DEPLOY_NAME)
+            # The control plane dies with kill -9 while the pair serves; the
+            # standby takes over with every acknowledged write and the live
+            # workers.
+            drill, drilled = control_plane_failover(serve, standby, client, eps, ports,
+                                                    metrics_ports, pods, pids, short_p, long_p)
+            results.update(drilled)
+
+            gone = standby.cli("delete", "DisaggregatedSet", "default", DEPLOY_NAME)
             check(gone.returncode == 0 and json.loads(gone.stdout) == {
                 "deleted": f"DisaggregatedSet/default/{DEPLOY_NAME}"},
                 f"delete DisaggregatedSet: {gone.returncode} {gone.stdout} {gone.stderr}")
@@ -4673,20 +4943,35 @@ def path_deployed_pair(torch, dev, refs: dict) -> dict:
 
             launches = {"prefill": launch_line(pod_log(pods["prefill"]), "prefill"),
                         "decode-b": launch_line(pod_log(new), "decode")}
-            leftover = proc_children(serve.proc.pid)
+            leftover = proc_children(serve.proc.pid) + proc_children(standby.proc.pid)
             check(not leftover, f"deployed pair: serve's children {leftover} outlived the path")
+            for role, pod in (("prefill", pods["prefill"]), ("decode", new)):
+                started = [ln for ln in pod_log(pod).splitlines()
+                           if ln.startswith(f"[{role} ") and " serving " in ln]
+                check(len(started) == 1, f"deployed pair: the {role} worker started "
+                                         f"{len(started)} times (one model load across the "
+                                         "failover)")
         finally:
             rc = serve.stop()
+            rc_standby = standby.stop() if standby is not None else None
             stray = [p for p in workers if pid_alive(p)]
             for p in stray:
                 os.kill(p, signal.SIGKILL)
         check(not stray, f"deployed pair: processes {stray} outlived the path")
-        check(rc == 0, f"deployed pair: serve exited {rc} on SIGINT:\n{serve.log()[-3000:]}")
+        check(rc == -signal.SIGKILL, f"deployed pair: the killed serve exited {rc}")
+        check(rc_standby == 0, f"deployed pair: the standby exited {rc_standby} on SIGINT:\n"
+                               f"{standby.log()[-3000:]}")
+        # Its final compaction: the snapshot holds no DisaggregatedSet.
+        with open(os.path.join(auth.state_dir, "state.json")) as f:
+            final = json.load(f)
+        check(not final.get("DisaggregatedSet") and not final.get("Pod"),
+              f"deployed pair: the standby's final snapshot holds {sorted(final)}")
     # Bundles and tokens against path 16's references.
     model_box: dict = {}
     verdicts = {}
     for rid, (S, chunk) in (("short", (100, 0)), ("outage", (100, 0)),
-                            ("long-s", (1000, CHUNK)), ("fault", (100, 0))):
+                            ("long-s", (1000, CHUNK)), ("fault", (100, 0)),
+                            ("cp-outage", (100, 0)), ("cp-long", (1000, CHUNK))):
         meta, toks = results[rid]
         ref, h = refs[(S, chunk)], meta["handoff"]
         check(h["bundle_bytes"] == ref["stats"]["bundle_bytes"],
@@ -4696,14 +4981,16 @@ def path_deployed_pair(torch, dev, refs: dict) -> dict:
               f"deployed pair {rid}: handoff record {h}")
         verdicts[rid] = check_pair_stream(torch, dev, toks, ref, f"deployed pair {rid}",
                                           model_box)
-    # The launches each role printed at exit: prefill handled the streamed
-    # 1,000-token prompt, three 100-token prompts and the loadgen command's
+    # The launches each role printed at exit, its counters kept across the
+    # control plane's failover: prefill handled the streamed 1,000-token
+    # prompt twice, four 100-token prompts and the loadgen command's
     # prompts; the replacement decode role decoded all but `short`.
     mono = lambda S: {"flash_attention": L, "int8_matmul": 7 * L * (S <= 256) + 1}  # noqa: E731
-    want = {"prefill": {"flash_attention": 0, "int8_matmul": 7 * L * -(-1000 // CHUNK) + 1},
+    want = {"prefill": {"flash_attention": 0,
+                        "int8_matmul": 2 * (7 * L * -(-1000 // CHUNK) + 1)},
             "decode-b": {"int8_matmul": (7 * L + 1) * HANDOFF_STEPS
-                         * (3 + len(command_prompts))}}
-    for S in [100, 100, 100] + command_prompts:
+                         * (5 + len(command_prompts))}}
+    for S in [100, 100, 100, 100] + command_prompts:
         for k, v in mono(S).items():
             want["prefill"][k] += v
     total = {name: 0 for name in kernel_counters()}
@@ -4725,8 +5012,13 @@ def path_deployed_pair(torch, dev, refs: dict) -> dict:
           f"samples), explain long-s (one connected tree, spans by instance "
           f"{facts['explain_spans']}), why {facts['decision']}; faults armed on the decode "
           f"worker, its request redelivered; autoscaler {AUTOSCALE_LWS} 1 -> 2 in "
-          f"{autoscale['up_s']:.1f} s, 2 -> 1 in {autoscale['down_s']:.1f} s; workers gone "
-          f"{t_exit:.1f} s after `delete`; path wall time {time.perf_counter() - t_path:.1f} s")
+          f"{autoscale['up_s']:.1f} s, 2 -> 1 in {autoscale['down_s']:.1f} s; serve over https "
+          f"with token auth {auth_codes}; the control plane's failover (kill -9 of serve, the "
+          f"standby restored {drill['restored']} objects, every pod re-adopted with its uid and "
+          f"pid, no new process on the card, the outage and post-takeover requests equal their "
+          f"references, /metrics/fleet of the new server {drill['fleet']}); workers gone "
+          f"{t_exit:.1f} s after `delete` through the new server; path wall time "
+          f"{time.perf_counter() - t_path:.1f} s")
     return total
 
 

@@ -27,6 +27,15 @@ that never touches the card, and `apply|get|delete|scale|logs|events` talk
 to it.
 """
 
-from lws_tpu_torch._device import resolve_device
-
 __all__ = ["resolve_device"]
+
+
+def __getattr__(name: str):
+    # Imported on first use: the control plane's commands (`python -m
+    # lws_tpu_torch get ...`, `serve`) need no torch, and importing it costs
+    # each such process seconds.
+    if name == "resolve_device":
+        from lws_tpu_torch._device import resolve_device
+
+        return resolve_device
+    raise AttributeError(f"module 'lws_tpu_torch' has no attribute {name!r}")

@@ -2,13 +2,18 @@
 command of lws_tpu/cli.py, over the port's control plane and engines.
 
   python -m lws_tpu_torch serve  --config cfg.yaml [-f manifests.yaml ...] [--port N]
-                                 [--state-file FILE]
+                                 [--state-file FILE | --state-dir DIR [--standby]
+                                 [--no-fsync]] [--tls-dir DIR] [--token-file FILE]
   python -m lws_tpu_torch apply  -f manifests.yaml [--server HOST:PORT]
   python -m lws_tpu_torch get    KIND [NAME] [--server HOST:PORT] [-o yaml]
   python -m lws_tpu_torch delete KIND NAMESPACE NAME [--server HOST:PORT]
   python -m lws_tpu_torch scale  NAME REPLICAS [--server HOST:PORT]
   python -m lws_tpu_torch logs   POD [-n NAMESPACE] [--server HOST:PORT]
   python -m lws_tpu_torch events [NAME] [-n NAMESPACE] [--server HOST:PORT]
+  python -m lws_tpu_torch cordon NODE [--uncordon] [--server HOST:PORT]
+  python -m lws_tpu_torch drain  NODE [--server HOST:PORT]
+  python -m lws_tpu_torch install DIR [--values FILE] [--set KEY=VALUE ...]
+  python -m lws_tpu_torch plan-steps --initial 4,4 --target 4,4 [--surge 1,1] [--unavailable 0,0]
   python -m lws_tpu_torch top      [--server HOST:PORT] [--watch] [--by-class] [--by-tier]
   python -m lws_tpu_torch monitor  [FILTER] [--server HOST:PORT] [--watch]
   python -m lws_tpu_torch explain  [REQUEST_ID] [--slowest|--breached|--errored] [--json]
@@ -23,17 +28,14 @@ command of lws_tpu/cli.py, over the port's control plane and engines.
   python -m lws_tpu_torch loadgen SCENARIO --prefill HOST:PORT --decode HOST:PORT
 
 The flags, the output and the exit codes are the JAX package's
-(`lws-tpu serve|apply|get|delete|scale|logs|events|top|monitor|explain|
-rollout|why|profile|devices|faults|loadgen`), with the
-global `--cacert`, `--insecure`, `--token`, `--client-token-file` and
-`$LWS_TPU_TOKEN` for an https or auth-enabled `--server`. `serve` runs the
-control plane and its API server in a process that never touches the card:
-the pods it runs (`backend: local`) are the processes that do.
-
-`serve`'s `--state-dir`, `--standby`, `--no-fsync`, `--tls-dir` and
-`--token-file` wait for ROADMAP Queue 1 (c) (durability and HA) and fail
-with an error naming it. The JAX package's `cordon`, `drain`, `install`
-and `plan-steps` wait for item (d) and are not offered.
+(`lws-tpu serve|apply|get|delete|scale|logs|events|cordon|drain|install|
+plan-steps|top|monitor|explain|rollout|why|profile|devices|faults|loadgen`),
+with the global `--cacert`, `--insecure`, `--token`, `--client-token-file`
+and `$LWS_TPU_TOKEN` for an https or auth-enabled `--server`. `serve` runs
+the control plane and its API server in a process that never touches the
+card: the pods it runs (`backend: local`) are the processes that do.
+`install` renders a bundle whose `start.sh`, systemd unit and Kubernetes
+manifests run `python -m lws_tpu_torch serve`.
 
 Two additions to `loadgen`: `--device` places the in-process target
 (default: the card; with no card and no `--device cpu` the command raises
@@ -87,17 +89,6 @@ def _http(server: str, method: str, path: str, body: bytes | None = None):
         raise SystemExit(f"error: cannot reach server {server}: {e.reason}") from None
 
 
-# serve's flags that wait for a later slice, with the ROADMAP item each
-# names when given.
-_DEFERRED_SERVE_FLAGS = {
-    "state_dir": "--state-dir",
-    "standby": "--standby",
-    "no_fsync": "--no-fsync",
-    "tls_dir": "--tls-dir",
-    "token_file": "--token-file",
-}
-
-
 def cmd_serve(args) -> int:
     from lws_tpu_torch.config import Configuration, load_configuration
     from lws_tpu_torch.core.serialize import load_store, save_store
@@ -105,19 +96,36 @@ def cmd_serve(args) -> int:
     from lws_tpu_torch.runtime import ControlPlane
     from lws_tpu_torch.runtime.server import ApiServer
 
-    for attr, flag in _DEFERRED_SERVE_FLAGS.items():
-        if getattr(args, attr):
-            raise SystemExit(
-                f"error: {flag} is not ported yet: the write-ahead log, "
-                "leader election, TLS and token auth wait for ROADMAP "
-                "Queue 1 (c), durability and HA"
-            )
     cfg = load_configuration(args.config) if args.config else Configuration()
+    if args.state_file and args.state_dir:
+        raise SystemExit("error: --state-file and --state-dir are exclusive")
     cp = ControlPlane(
         scheduler_provider=cfg.gang_scheduling_management.scheduler_provider,
         enable_scheduler=cfg.enable_scheduler,
         auto_ready=(cfg.backend == "fake"),
     )
+    state_dir = None
+    if args.state_dir:
+        from lws_tpu_torch.core.wal import StateDir, StateLockedError
+
+        state_dir = StateDir(args.state_dir, fsync=not args.no_fsync)
+        try:
+            state_dir.acquire(wait=args.standby)
+        except StateLockedError as e:
+            raise SystemExit(
+                f"error: {e}\nhint: add --standby to wait as a hot spare "
+                "(takes over the instant the active process dies)"
+            ) from None
+        try:
+            n = state_dir.attach(cp.store)
+        except (ValueError, KeyError, TypeError) as e:
+            raise SystemExit(
+                f"error: state dir {args.state_dir} is corrupt ({e}); "
+                "move it aside to start fresh"
+            ) from None
+        print(f"restored {n} objects from {args.state_dir} "
+              "(WAL journaling on: every acknowledged write is durable)", flush=True)
+        cp.resync()
     if args.state_file and os.path.exists(args.state_file):
         try:
             n = load_store(cp.store, args.state_file)
@@ -162,12 +170,26 @@ def cmd_serve(args) -> int:
             else:
                 print(f"exists {obj.kind}/{obj.meta.name} (restored)")
 
+    tls = None
+    if args.tls_dir:
+        from lws_tpu_torch.core.certs import CertManager
+
+        tls = CertManager(args.tls_dir)
+        paths = tls.ensure()
+        print(f"serving TLS; clients trust {paths.ca_cert}")
+    auth = None
+    if args.token_file:
+        from lws_tpu_torch.core.auth import TokenAuth
+
+        auth = TokenAuth.load(args.token_file)
+        print(f"API authentication on ({len(auth.entries)} token(s) from "
+              f"{args.token_file}; /healthz and /readyz stay open)")
     from lws_tpu_torch.core import profile as profmod
 
     if profmod.start_from_env() is not None:
         print(f"continuous profiler on at {profmod.PROFILER.hz:g} Hz "
               "(GET /debug/profile)")
-    server = ApiServer(cp, port=args.port)
+    server = ApiServer(cp, port=args.port, tls=tls, auth=auth)
     dirty = {"flag": True}  # always persist once after boot
     if args.state_file:
         # Register BEFORE the manager threads start: the first burst of
@@ -177,7 +199,8 @@ def cmd_serve(args) -> int:
     cp.start()
     from lws_tpu_torch.version import user_agent
 
-    print(f"{user_agent()} serving on http://127.0.0.1:{server.port} "
+    scheme = "https" if tls else "http"
+    print(f"{user_agent()} serving on {scheme}://127.0.0.1:{server.port} "
           f"(backend={cfg.backend}, scheduler={cfg.enable_scheduler})", flush=True)
     try:
         while True:
@@ -190,6 +213,8 @@ def cmd_serve(args) -> int:
         server.stop()
         if args.state_file:
             save_store(cp.store, args.state_file)
+        if state_dir is not None:
+            state_dir.close()  # final compaction + lock release → instant failover
     return 0
 
 
@@ -252,6 +277,251 @@ def cmd_events(args) -> int:
     for ev in _http(args.server, "GET", path):
         age = max(0, int(now - ev["timestamp"]))
         print(f"{age}s\t{ev['type']}\t{ev['reason']}\t{ev['object']}\t{ev['message']}")
+    return 0
+
+
+def cmd_cordon(args) -> int:
+    body = json.dumps({"unschedulable": not args.uncordon}).encode()
+    print(json.dumps(_http(args.server, "POST", f"/cordon/{args.node}", body)))
+    return 0
+
+
+def cmd_drain(args) -> int:
+    print(json.dumps(_http(args.server, "POST", f"/drain/{args.node}", b"{}")))
+    return 0
+
+
+# Parameterized install values (≈ ref charts/lws/values.yaml): every knob
+# the rendered bundle honors, with its default. Strict: unknown keys are
+# rejected, values are coerced to the default's type.
+INSTALL_VALUES = {
+    "port": 9443,
+    "backend": "local",            # pod backend: local | fake
+    "enableScheduler": True,
+    "schedulerProvider": "gang",   # "" | gang | external[:name]
+    "namespace": "lws-tpu-system",  # k8s hosted-mode namespace
+    "replicaCount": 2,             # hosted-mode replicas (active + standby)
+    "image": "lws-tpu:latest",     # hosted-mode controller image
+    "serviceType": "ClusterIP",
+    "enablePrometheus": False,     # scrape annotations on the hosted pod
+    "nameOverride": "",            # k8s object name prefix override
+}
+
+
+def resolve_install_values(values_file, sets, port=None, backend=None) -> dict:
+    """defaults <- --values file <- --set k=v (helm precedence); --port and
+    --backend remain as aliases for their values keys."""
+    values = dict(INSTALL_VALUES)
+
+    def apply(key, raw):
+        if key not in values:
+            raise ValueError(
+                f"unknown install value {key!r} (known: {', '.join(sorted(values))})"
+            )
+        default = INSTALL_VALUES[key]
+        if isinstance(default, bool):
+            if isinstance(raw, bool):
+                values[key] = raw
+            elif str(raw).lower() in ("true", "1", "yes"):
+                values[key] = True
+            elif str(raw).lower() in ("false", "0", "no"):
+                values[key] = False
+            else:
+                raise ValueError(f"{key} must be a boolean, got {raw!r}")
+        elif isinstance(default, int):
+            try:
+                values[key] = int(raw)
+            except (TypeError, ValueError):
+                raise ValueError(f"{key} must be an integer, got {raw!r}") from None
+        else:
+            values[key] = str(raw)
+
+    if values_file:
+        import yaml
+
+        with open(values_file) as f:
+            try:
+                data = yaml.safe_load(f) or {}
+            except yaml.YAMLError as e:
+                raise ValueError(f"{values_file}: invalid YAML ({e})") from None
+        if not isinstance(data, dict):
+            raise ValueError(f"{values_file} must contain a mapping")
+        for k, v in data.items():
+            apply(k, v)
+    for item in sets or ():
+        if "=" not in item:
+            raise ValueError(f"--set expects key=value, got {item!r}")
+        k, v = item.split("=", 1)
+        apply(k.strip(), v.strip())
+    if port is not None:
+        values["port"] = port
+    if backend is not None:
+        values["backend"] = backend
+    if values["backend"] not in ("local", "fake"):
+        raise ValueError(f"backend must be 'local' or 'fake', got {values['backend']!r}")
+    if values["serviceType"] not in ("ClusterIP", "NodePort", "LoadBalancer"):
+        raise ValueError(f"invalid serviceType {values['serviceType']!r}")
+    return values
+
+
+def cmd_install(args) -> int:
+    """Render a one-command deployable bundle (≈ ref charts/lws + config/
+    kustomize install tree + config/rbac): component config, TLS material,
+    API tokens, durable state dir, a systemd unit, and optional Kubernetes
+    manifests for clusters that host the control plane as a pod. Values-
+    parameterized like the reference helm chart: --values file.yaml and
+    repeatable --set key=value override INSTALL_VALUES."""
+    import os
+    import stat
+
+    from lws_tpu_torch.core.auth import write_bootstrap_tokens
+    from lws_tpu_torch.core.certs import CertManager
+
+    try:
+        values = resolve_install_values(args.values, args.set, args.port, args.backend)
+    except (ValueError, OSError) as e:
+        print(f"install: {e}", file=sys.stderr)
+        return 1
+    port = values["port"]
+    namespace = values["namespace"]
+    app_name = values["nameOverride"] or "lws-tpu"
+
+    root = os.path.abspath(args.dir)
+    os.makedirs(root, exist_ok=True)
+    state_dir = os.path.join(root, "state")
+    os.makedirs(state_dir, exist_ok=True)
+
+    token_path = os.path.join(root, "tokens.csv")
+    if os.path.exists(token_path):
+        # Re-rendering the bundle must NOT rotate credentials already handed
+        # to clients; delete tokens.csv explicitly to rotate.
+        from lws_tpu_torch.core.auth import TokenAuth
+
+        tokens = {e.role: e.token for e in TokenAuth.load(token_path).entries}
+        print(f"preserved existing tokens at {token_path}")
+    else:
+        tokens = write_bootstrap_tokens(token_path)
+    paths = CertManager(os.path.join(root, "tls")).ensure()
+
+    gang_section = (
+        f"gangSchedulingManagement:\n  schedulerProvider: {values['schedulerProvider']}\n"
+        if values["schedulerProvider"]
+        else ""
+    )
+    with open(os.path.join(root, "config.yaml"), "w") as f:
+        f.write(
+            "# lws-tpu component config (strict-decoded; see lws_tpu_torch/config.py)\n"
+            f"api:\n  port: {port}\n"
+            f"backend: {values['backend']}\n"
+            f"enableScheduler: {'true' if values['enableScheduler'] else 'false'}\n"
+            + gang_section
+        )
+
+    serve_cmd = (
+        f"{args.python} -m lws_tpu_torch serve --config {root}/config.yaml "
+        f"--port {port} --state-dir {state_dir} "
+        f"--tls-dir {root}/tls --token-file {root}/tokens.csv"
+    )
+    start = os.path.join(root, "start.sh")
+    with open(start, "w") as f:
+        f.write(f"#!/bin/sh\n# active control plane (add --standby on a hot spare)\nexec {serve_cmd} \"$@\"\n")
+    os.chmod(start, os.stat(start).st_mode | stat.S_IEXEC)
+
+    with open(os.path.join(root, "lws-tpu.service"), "w") as f:
+        f.write(
+            "[Unit]\n"
+            "Description=lws-tpu control plane\n"
+            "After=network-online.target\n\n"
+            "[Service]\n"
+            f"ExecStart={serve_cmd}\n"
+            "Restart=always\nRestartSec=2\n\n"
+            "[Install]\nWantedBy=multi-user.target\n"
+        )
+
+    k8s = os.path.join(root, "kubernetes")
+    os.makedirs(k8s, exist_ok=True)
+    prom_annotations = (
+        "      annotations:\n"
+        "        prometheus.io/scrape: 'true'\n"
+        f"        prometheus.io/port: '{port}'\n"
+        if values["enablePrometheus"]
+        else ""
+    )
+    with open(os.path.join(k8s, "deployment.yaml"), "w") as f:
+        f.write(
+            "# Hosted mode: run the control plane as a cluster workload\n"
+            "# (tokens/TLS mounted from the Secret; state on a PVC so the WAL\n"
+            "#  survives rescheduling). kubectl apply -f kubernetes/\n"
+            "apiVersion: apps/v1\nkind: Deployment\nmetadata:\n"
+            f"  name: {app_name}-controller\n  namespace: {namespace}\n"
+            f"spec:\n  replicas: {values['replicaCount']}"
+            "  # active + --standby hot spares over the shared PVC\n"
+            f"  selector:\n    matchLabels: {{app: {app_name}}}\n"
+            f"  template:\n    metadata:\n      labels: {{app: {app_name}}}\n"
+            + prom_annotations +
+            "    spec:\n      containers:\n      - name: controller\n"
+            f"        image: {values['image']}\n"
+            "        command: [python, -m, lws_tpu_torch]\n"
+            f"        args: [serve, --config, /etc/lws-tpu/config.yaml, --port, '{port}',\n"
+            "               --state-dir, /var/lib/lws-tpu, --tls-dir, /etc/lws-tpu/tls,\n"
+            "               --token-file, /etc/lws-tpu/tokens.csv, --standby]\n"
+            f"        ports: [{{containerPort: {port}}}]\n"
+            "        readinessProbe: {httpGet: {path: /readyz, port: "
+            f"{port}, scheme: HTTPS}}}}\n"
+            "        volumeMounts:\n"
+            "        - {name: config, mountPath: /etc/lws-tpu}\n"
+            "        - {name: state, mountPath: /var/lib/lws-tpu}\n"
+            "      volumes:\n"
+            f"      - {{name: config, secret: {{secretName: {app_name}-config}}}}\n"
+            f"      - {{name: state, persistentVolumeClaim: {{claimName: {app_name}-state}}}}\n"
+            "---\n"
+            "apiVersion: v1\nkind: Service\nmetadata:\n"
+            f"  name: {app_name}\n  namespace: {namespace}\n"
+            f"spec:\n  type: {values['serviceType']}\n"
+            f"  selector: {{app: {app_name}}}\n"
+            f"  ports: [{{port: {port}, targetPort: {port}}}]\n"
+        )
+    with open(os.path.join(k8s, "README.md"), "w") as f:
+        f.write(
+            "Create the config Secret + state PVC, then apply:\n\n"
+            f"    kubectl create namespace {namespace}\n"
+            f"    kubectl -n {namespace} create secret generic {app_name}-config \\\n"
+            "        --from-file=config.yaml=../config.yaml "
+            "--from-file=tokens.csv=../tokens.csv\n"
+            f"    kubectl -n {namespace} apply -f .\n"
+        )
+    # The resolved values, recorded for reproducible re-renders (helm's
+    # `helm get values` analog).
+    import yaml as _yaml
+
+    with open(os.path.join(root, "values.yaml"), "w") as f:
+        _yaml.safe_dump(values, f, default_flow_style=False)
+
+    with open(os.path.join(root, "README.md"), "w") as f:
+        f.write(
+            "# lws-tpu install bundle\n\n"
+            "Start the control plane (TLS + token auth + durable WAL state):\n\n"
+            f"    {start}\n\n"
+            "Hot-spare HA on the same host/filesystem:\n\n"
+            f"    {start} --standby\n\n"
+            "Client usage:\n\n"
+            f"    export LWS_TPU_TOKEN=$(head -2 {root}/tokens.csv | tail -1 | cut -d, -f1)\n"
+            f"    {args.python} -m lws_tpu_torch --cacert {paths.ca_cert} get lws "
+            f"--server https://127.0.0.1:{port}\n\n"
+            "Files: config.yaml (component config), tokens.csv (admin+view\n"
+            "Bearer tokens, 0600), tls/ (auto-rotated self-signed CA+cert),\n"
+            "state/ (snapshot + write-ahead log), lws-tpu.service (systemd),\n"
+            "kubernetes/ (hosted-mode manifests).\n"
+        )
+
+    print(f"bundle rendered at {root}")
+    print(f"  start:       {start}")
+    admin = tokens.get("admin")
+    if admin:
+        print(f"  admin token: {admin[:8]}… (full value in tokens.csv)")
+    else:  # preserved file the operator customized; don't crash post-render
+        print("  tokens:      preserved tokens.csv has no admin-role entry")
+    print(f"  ca cert:     {paths.ca_cert}")
     return 0
 
 
@@ -1868,6 +2138,34 @@ def cmd_loadgen(args) -> int:
     return 0
 
 
+def cmd_plan_steps(args) -> int:
+    """≈ hack/plan-steps/main.go: print the DS rollout step table."""
+    from lws_tpu_torch.controllers.disagg.planner import (
+        ComputeAllSteps,
+        RollingUpdateConfig,
+        default_rolling_update_config,
+    )
+
+    initial = [int(x) for x in args.initial.split(",")]
+    target = [int(x) for x in args.target.split(",")]
+    if len(initial) != len(target):
+        print("initial and target must have the same number of roles", file=sys.stderr)
+        return 1
+    config = default_rolling_update_config(len(initial))
+    if args.surge:
+        for i, s in enumerate(args.surge.split(",")):
+            config[i] = RollingUpdateConfig(max_surge=int(s), max_unavailable=config[i].max_unavailable)
+    if args.unavailable:
+        for i, u in enumerate(args.unavailable.split(",")):
+            config[i] = RollingUpdateConfig(max_surge=config[i].max_surge, max_unavailable=int(u))
+    steps = ComputeAllSteps(initial, target, config)
+    width = max(len(str(target)), len(str(initial)))
+    print(f"{'step':>4}  {'old':>{width}}  {'new':>{width}}")
+    for i, s in enumerate(steps):
+        print(f"{i:>4}  {str(s.past):>{width}}  {str(s.new):>{width}}")
+    return 0
+
+
 def engine_launch_line(target) -> str:
     """An in-process target's kernel launches in this process, beside the
     engine's own counts they follow from (its depth, decode steps and,
@@ -1902,12 +2200,24 @@ def main(argv=None) -> int:
     sp.add_argument("--port", type=int, default=9443)
     sp.add_argument("--state-file", default=None,
                     help="persist the object store here; restored on restart")
-    deferred = "not ported yet (ROADMAP Queue 1 (c)): fails if given"
-    sp.add_argument("--state-dir", default=None, help=deferred)
-    sp.add_argument("--standby", action="store_true", help=deferred)
-    sp.add_argument("--no-fsync", action="store_true", help=deferred)
-    sp.add_argument("--tls-dir", default=None, help=deferred)
-    sp.add_argument("--token-file", default=None, help=deferred)
+    sp.add_argument("--state-dir", default=None,
+                    help="durable state directory (snapshot + write-ahead log; "
+                         "every acknowledged write survives kill -9). Holds an "
+                         "exclusive flock: run a second serve with --standby "
+                         "for hot-spare HA")
+    sp.add_argument("--standby", action="store_true",
+                    help="with --state-dir: if another process holds the state "
+                         "lock, wait for it to die instead of exiting, then "
+                         "take over with zero lost acknowledged writes")
+    sp.add_argument("--no-fsync", action="store_true",
+                    help="with --state-dir: skip per-write fsync (faster, but "
+                         "an OS crash may lose the tail of the journal)")
+    sp.add_argument("--tls-dir", default=None,
+                    help="serve HTTPS with an auto-generated, auto-rotated "
+                         "self-signed cert kept in this directory")
+    sp.add_argument("--token-file", default=None,
+                    help="require Bearer-token auth on the API: CSV lines of "
+                         "<token>,<name>,<role> (role: admin|view)")
     sp.set_defaults(fn=cmd_serve)
 
     ap = sub.add_parser("apply")
@@ -1942,6 +2252,39 @@ def main(argv=None) -> int:
     scp.add_argument("--namespace", "-n", default="default")
     scp.add_argument("--server", default="127.0.0.1:9443")
     scp.set_defaults(fn=cmd_scale)
+
+    cp_ = sub.add_parser("cordon", help="mark a node unschedulable (or --uncordon)")
+    cp_.add_argument("node")
+    cp_.add_argument("--uncordon", action="store_true")
+    cp_.add_argument("--server", default="127.0.0.1:9443")
+    cp_.set_defaults(fn=cmd_cordon)
+
+    dr = sub.add_parser("drain", help="cordon a node and evict its pods (groups recreate elsewhere)")
+    dr.add_argument("node")
+    dr.add_argument("--server", default="127.0.0.1:9443")
+    dr.set_defaults(fn=cmd_drain)
+
+    ip = sub.add_parser("install", help="render a deployable bundle: config, "
+                        "TLS, API tokens, state dir, systemd unit, k8s manifests")
+    ip.add_argument("dir")
+    ip.add_argument("--port", type=int, default=None,
+                    help="alias for --set port=N")
+    ip.add_argument("--backend", default=None, choices=("local", "fake"),
+                    help="alias for --set backend=NAME")
+    ip.add_argument("--python", default=sys.executable)
+    ip.add_argument("--set", action="append", metavar="KEY=VALUE",
+                    help="override an install value (repeatable; "
+                         "see lws_tpu_torch.cli.INSTALL_VALUES for the schema)")
+    ip.add_argument("--values", default=None, metavar="FILE",
+                    help="YAML file of install values (helm values.yaml analog)")
+    ip.set_defaults(fn=cmd_install)
+
+    pp = sub.add_parser("plan-steps", help="print a DisaggregatedSet rollout step table")
+    pp.add_argument("--initial", required=True)
+    pp.add_argument("--target", required=True)
+    pp.add_argument("--surge", default="")
+    pp.add_argument("--unavailable", default="")
+    pp.set_defaults(fn=cmd_plan_steps)
 
     ep = sub.add_parser("events", help="controller decision trace (k8s Events)")
     ep.add_argument("name", nargs="?")

@@ -11,8 +11,8 @@ rollout mid-flight exactly like the reference (SURVEY §5 checkpoint/resume).
 The port's copy of lws_tpu/core/store.py. Left out: the JAX package's
 native clone (native/fastclone.c, an optional C extension with the same
 semantics as `_py_clone`); the port always clones in Python. The journal
-hook (`_journal`) and the restore helpers stay for the write-ahead log,
-which waits for ROADMAP Queue 1 (c), durability and HA.
+hook (`_journal`) and the restore helpers serve the write-ahead log
+(core/wal.py).
 """
 
 from __future__ import annotations

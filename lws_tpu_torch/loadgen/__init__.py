@@ -16,9 +16,9 @@ ledger uses, and the report renders it as the JAX package renders it.
 
 `DisaggTarget(prefill_endpoint, decode_endpoint)` drives a live
 disaggregated pair the same way. CLI: `python -m lws_tpu_torch loadgen
-SCENARIO` (lws_tpu_torch/cli.py). Left out: the closed-loop sweep
-(lws_tpu/loadgen/closedloop.py), which replays a synthetic capacity plant
-against the control plane's store and drives no engine.
+SCENARIO` (lws_tpu_torch/cli.py). `run_sweep` (closedloop.py) replays the
+flash crowd against a synthetic capacity plant and the port's control
+plane under an injected clock; it drives no engine.
 """
 
 from lws_tpu_torch.loadgen.arrivals import (
@@ -30,6 +30,12 @@ from lws_tpu_torch.loadgen.arrivals import (
     arrival_times,
     make_process,
     piecewise_poisson,
+)
+from lws_tpu_torch.loadgen.closedloop import (
+    CapacityPlant,
+    crowd_arrivals,
+    densified_flash_crowd,
+    run_sweep,
 )
 from lws_tpu_torch.loadgen.report import (
     fold_actuations,
@@ -73,6 +79,7 @@ from lws_tpu_torch.loadgen.workload import (
 __all__ = [
     "SCENARIOS",
     "BurstProcess",
+    "CapacityPlant",
     "DisaggTarget",
     "EngineTarget",
     "FlashCrowdProcess",
@@ -90,6 +97,8 @@ __all__ = [
     "build_prompt",
     "build_schedule",
     "class_targets",
+    "crowd_arrivals",
+    "densified_flash_crowd",
     "describe_scenario",
     "fold_actuations",
     "fold_canary",
@@ -105,6 +114,7 @@ __all__ = [
     "render_report",
     "revision_bump",
     "run_schedule",
+    "run_sweep",
     "scenario_names",
     "schedule_digest",
     "summarize",

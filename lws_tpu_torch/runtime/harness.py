@@ -7,9 +7,9 @@ runs them on background threads for live use.
 The port's copy of lws_tpu/runtime/harness.py: the webhooks, the LWS,
 GroupSet, pod, DisaggregatedSet and autoscaler reconcilers, the scheduler
 and node monitor when enabled, the fleet collector, the Watchdog, and the
-rollout and decision planes' store halves. Left out: leader election
-(`leader_election=True` raises, ROADMAP Queue 1 item (c); with it go the
-`identity` and election keyword arguments and the `elector`).
+rollout and decision planes' store halves, and leader election
+(`leader_election=True`: the manager reconciles only while its
+`elector` holds the cluster Lease).
 """
 
 from __future__ import annotations
@@ -69,6 +69,8 @@ class ControlPlane:
         require_binding: bool = False,
         store: Optional[Store] = None,
         leader_election: bool = False,
+        identity: Optional[str] = None,
+        **election_kw,
     ) -> None:
         from lws_tpu_torch.core.metrics import MetricsRegistry
 
@@ -85,11 +87,24 @@ class ControlPlane:
 
         self.manager = Manager(self.store, metrics=self.metrics)
 
+        # HA: with leader_election on, this manager reconciles only while it
+        # holds the cluster Lease (reference cmd/main.go:95-106 semantics —
+        # standbys watch but stay passive until the lease expires).
+        self.elector = None
         if leader_election:
-            raise NotImplementedError(
-                "leader election (core/election.py) is not ported yet: "
-                "ROADMAP Queue 1 (c), durability and HA"
+            import os
+            import uuid
+
+            from lws_tpu_torch.core.election import LeaderElector
+
+            self.elector = LeaderElector(
+                self.store,
+                identity=identity or f"{os.getpid()}-{uuid.uuid4().hex[:8]}",
+                **election_kw,
             )
+            # Gate ALL dispatch (deterministic and threaded) on holding the
+            # lease — a standby that reconciled would be a split brain.
+            self.manager.gate = self.elector.is_leader
         store = self.store
 
         def lws_key_by_label(obj) -> list[Key]:
@@ -306,6 +321,8 @@ class ControlPlane:
 
     # ------------------------------------------------------------------
     def run_until_stable(self, max_iterations: int = 10000) -> int:
+        if self.elector is not None:
+            self.elector.tick()
         n = self.manager.run_until_stable(max_iterations)
         # Deterministic watchdog tick: non-threaded control planes (the
         # dominant test shape) still get alert evaluation after each drain.
@@ -313,13 +330,18 @@ class ControlPlane:
         return n
 
     def start(self) -> None:
-        """Threaded mode: the controller workers and the watchdog."""
+        """Threaded mode: election loop (if configured) + controller workers.
+        The manager's gate keeps standby workers passive until elected."""
+        if self.elector is not None:
+            self.elector.start()
         self.manager.start()
         self.watchdog.start()
 
     def stop(self) -> None:
         self.watchdog.stop()
         self.manager.stop()
+        if self.elector is not None:
+            self.elector.stop()
 
     def resync(self) -> None:
         """Cold-start cache resync: enqueue every stored object to every

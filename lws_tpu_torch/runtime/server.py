@@ -2,10 +2,7 @@
 (≈ the apiserver+webhook endpoint + healthz/readyz + metrics of
 cmd/main.go:252-262,336-348 rolled into one in-process server).
 
-The port's copy of lws_tpu/runtime/server.py. Left out, each waiting for
-its ROADMAP Queue 1 item: TLS and bearer-token auth (`tls=`, `auth=`
-raise, item (c)); `POST /cordon` and `POST /drain` (item (d)). A left-out
-route answers 404 "unknown path", as any unknown path does.
+The port's copy of lws_tpu/runtime/server.py.
 
 Endpoints:
   GET  /healthz | /readyz             liveness/readiness
@@ -58,6 +55,8 @@ Endpoints:
   DELETE /apis/{kind}/{ns}/{name}     delete
   POST /scale/{ns}/{name}             {"replicas": N} on a LeaderWorkerSet
   POST /report-metric/{ns}/{pod}      {"metric": value} -> pod annotation (autoscaler)
+  POST /cordon/{node}                 {"unschedulable": bool} (default true)
+  POST /drain/{node}                  cordon + evict (groups recreate elsewhere)
   GET  /watch?since=N[&timeout=S]     long-poll of store events (since=-1:
                                       a bookmark; {"expired": true}: relist)
   GET  /logs/{ns}/{pod}               captured pod stdout/stderr
@@ -124,6 +123,17 @@ def _retry_conflicts(attempt_fn, what: str):
         raise ConflictError(f"{what}: {e}") from e
 
 
+def _set_cordon(store, node_name: str, unschedulable: bool) -> None:
+    from lws_tpu_torch.api.node import CLUSTER_NAMESPACE
+
+    def attempt():
+        node = store.get("Node", CLUSTER_NAMESPACE, node_name)
+        node.spec.unschedulable = unschedulable
+        store.update(node)
+
+    _retry_conflicts(attempt, f"cordon of {node_name}")
+
+
 class ApiServer:
     def __init__(
         self,
@@ -134,18 +144,18 @@ class ApiServer:
         watch_buffer: int = 4096,
         auth=None,
     ) -> None:
-        """`watch_buffer`: events retained for /watch replay; clients that
-        fall further behind are told to relist (k8s "410 Gone" semantics).
-        `tls` and `auth` (the JAX package's CertManager and TokenAuth) are
-        not ported yet: passing either raises."""
+        """`tls`: an optional lws_tpu_torch.core.certs.CertManager; when given
+        the server speaks HTTPS with its (auto-generated, auto-rotated) cert.
+        `watch_buffer`: events retained for /watch replay; clients that fall
+        further behind are told to relist (k8s "410 Gone" semantics).
+        `auth`: an optional lws_tpu_torch.core.auth.TokenAuth; when given every
+        endpoint except /healthz//readyz requires a Bearer token (ref gates
+        metrics behind authn/authz filters, cmd/main.go:336-348)."""
         import collections
 
-        if tls is not None or auth is not None:
-            raise NotImplementedError(
-                "TLS and token auth (core/certs.CertManager, core/auth.py) "
-                "are not ported yet: ROADMAP Queue 1 (c), durability and HA"
-            )
         self.control_plane = control_plane
+        self.tls = tls
+        self.auth = auth
         cp = control_plane
 
         # Journey-vault feeds for THIS process (span buffering, resilience
@@ -240,7 +250,25 @@ class ApiServer:
                 if om:
                     self.wfile.write(b"# EOF\n")
 
+            def _authorized(self) -> bool:
+                if auth is None:
+                    return True
+                from lws_tpu_torch.core.auth import OPEN_PATHS
+
+                if self.path.split("?", 1)[0] in OPEN_PATHS:
+                    return True
+                entry = auth.authenticate(self.headers.get("Authorization"))
+                if entry is None:
+                    self._json(401, {"error": "unauthorized: missing or invalid bearer token"})
+                    return False
+                if not auth.authorize(entry, self.command):
+                    self._json(403, {"error": f"forbidden: role {entry.role!r} may not {self.command}"})
+                    return False
+                return True
+
             def do_GET(self):
+                if not self._authorized():
+                    return
                 path = self.path.split("?", 1)[0]
                 parts = [p for p in path.split("/") if p]
                 if self.path in ("/healthz", "/readyz"):
@@ -577,6 +605,8 @@ class ApiServer:
                     self._json(404, {"error": "unknown path"})
 
             def do_DELETE(self):
+                if not self._authorized():
+                    return
                 path = self.path.split("?", 1)[0]
                 parts = [p for p in path.split("/") if p]
                 if len(parts) == 4 and parts[0] == "apis":
@@ -590,6 +620,8 @@ class ApiServer:
                     self._json(404, {"error": "unknown path"})
 
             def do_POST(self):
+                if not self._authorized():
+                    return
                 length = int(self.headers.get("Content-Length", 0))
                 body = self.rfile.read(length).decode()
                 path = self.path.split("?", 1)[0]
@@ -693,6 +725,29 @@ class ApiServer:
 
                         _retry_conflicts(attempt, "metric report")
                         self._json(200, {"reported": payload})
+                    elif len(parts) == 2 and parts[0] == "cordon":
+                        payload = json.loads(body) if body else {}
+                        if not isinstance(payload, dict):
+                            raise ValueError("cordon body must be a JSON object")
+                        unschedulable = payload.get("unschedulable", True)
+                        if not isinstance(unschedulable, bool):
+                            raise ValueError(
+                                "cordon field 'unschedulable' must be a JSON bool"
+                            )
+                        _set_cordon(cp.store, parts[1], unschedulable)
+                        self._json(200, {"node": parts[1], "unschedulable": unschedulable})
+                    elif len(parts) == 2 and parts[0] == "drain":
+                        # Cordon + evict: pods on the node are failed so their
+                        # groups recreate onto other capacity (slice
+                        # maintenance; same path preemption takes).
+                        from lws_tpu_torch.controllers.node_monitor import evict_pods_on_node
+
+                        _set_cordon(cp.store, parts[1], True)
+                        evicted = evict_pods_on_node(
+                            cp.store, parts[1], f"drained from node {parts[1]}",
+                            recorder=cp.recorder, reason="Drained",
+                        )
+                        self._json(200, {"node": parts[1], "evicted": evicted})
                     else:
                         self._json(404, {"error": "unknown path"})
                 except (AdmissionError, ValueError) as e:
@@ -706,7 +761,30 @@ class ApiServer:
                     # JSON error, not a dropped connection.
                     self._json(400, {"error": f"{type(e).__name__}: {e}"})
 
-        self._httpd = ThreadingHTTPServer((host, port), Handler)
+        if tls is None:
+            self._httpd = ThreadingHTTPServer((host, port), Handler)
+        else:
+            # Wrap per-accepted-connection, not the listening socket: rotation
+            # (CertManager regenerating at 2/3 lifetime) must reach clients
+            # without a server restart, and a baked-in listener context would
+            # pin the original cert forever.
+            class _TLSHTTPServer(ThreadingHTTPServer):
+                _ctx = tls.server_context()
+
+                def get_request(inner):
+                    sock, addr = ThreadingHTTPServer.get_request(inner)
+                    if tls.needs_rotation():
+                        type(inner)._ctx = tls.server_context()  # re-ensures
+                    # Defer the handshake to the per-connection thread (first
+                    # read) and bound it: a client that connects and stalls
+                    # must not block the accept loop for everyone else.
+                    sock.settimeout(60)
+                    wrapped = inner._ctx.wrap_socket(
+                        sock, server_side=True, do_handshake_on_connect=False
+                    )
+                    return wrapped, addr
+
+            self._httpd = _TLSHTTPServer((host, port), Handler)
         self.port = self._httpd.server_port
 
     def start(self) -> None:

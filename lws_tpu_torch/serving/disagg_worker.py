@@ -579,7 +579,9 @@ def run_decode_tcp(steps: int, once: bool, max_len: int, gamma: int = 0, ngram: 
     breakers: dict[str, resilience.CircuitBreaker] = {}
     me = os.environ.get("POD_NAME", str(os.getpid()))
     namespace = os.environ.get("POD_NAMESPACE", "default")
-    client = RemoteClient(os.environ["LWS_TPU_API"])
+    # The bearer token of an auth-enabled API server (the CLI's variable);
+    # the JAX package's worker sends none.
+    client = RemoteClient(os.environ["LWS_TPU_API"], token=os.environ.get("LWS_TPU_TOKEN"))
     labels = _own_pod(client, namespace, me)["metadata"]["labels"]
     ds_name = labels[kt.DS_NAME_LABEL_KEY]
     # Pin the pairing to OUR revision and slice: across a rollout both

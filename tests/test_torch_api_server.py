@@ -8,8 +8,11 @@ requests and must answer with the same codes and bodies, and the commands
 of `python -m lws_tpu_torch` must print what `python -m lws_tpu` prints.
 Normalized, and only these: `uid`, `resourceVersion`,
 `last_transition_time` and the events' `timestamp`, with the age the
-`events` command prints from it (random ids and wall clocks). The routes
-the port has not taken over yet (`/cordon`, `/drain`) answer 404 there.
+`events` command prints from it (random ids and wall clocks). Node
+maintenance (`/cordon`, `/drain`) and the durability, TLS and auth options
+are held to JAX in tests/test_torch_maintenance.py,
+tests/test_torch_wal.py, tests/test_torch_election.py and
+tests/test_torch_auth_certs.py.
 """
 
 from __future__ import annotations
@@ -31,6 +34,11 @@ from lws_tpu_torch import cli as pcli
 from lws_tpu_torch.runtime.server import ApiServer as PApiServer
 from tests.test_torch_cli import jax_planes_restored  # noqa: F401
 from tests.test_torch_control_plane import KINDS, PORT, ROOT, Both, state
+from tests.test_torch_fleet import port_planes_restored  # noqa: F401
+
+# Every test here leaves the port's process planes as it found them
+# (tests/test_torch_fleet.py:port_planes_restored).
+pytestmark = pytest.mark.usefixtures("port_planes_restored")
 
 REPO = Path(ROOT)
 NORMALIZED = frozenset({"uid", "resourceVersion", "last_transition_time", "timestamp"})
@@ -201,10 +209,13 @@ def test_watch_bookmarks_long_polls_and_expiry(jax_planes_restored):
 
 
 def test_the_left_out_routes_answer_404_on_the_port(servers):
-    # Left out until ROADMAP Queue 1 (d): node maintenance.
-    for method, path in (("POST", "/cordon/n1"), ("POST", "/drain/n1")):
-        code, _, body = call(servers.urls[1], method, path, b"{}")
-        assert (code, json.loads(body)) == (404, {"error": "unknown path"}), path
+    # Node maintenance, once left out, answers as JAX's: an unknown node is
+    # a 404 naming it, a malformed body a 422 (the routes over real nodes:
+    # tests/test_torch_maintenance.py).
+    for path, body in (("/cordon/n1", b"{}"), ("/drain/n1", b"{}"),
+                       ("/cordon/n1", b'{"unschedulable": "yes"}'), ("/cordon/n1", b"[]")):
+        code, _, got = servers.same("POST", path, body)
+        assert code in (404, 422) and got["error"] != "unknown path", (path, got)
     # The Autoscaler kind applies as JAX's does (the fleet and debug routes:
     # tests/test_torch_fleet.py).
     example = (REPO / "examples" / "autoscaler.yaml").read_bytes()
@@ -212,17 +223,23 @@ def test_the_left_out_routes_answer_404_on_the_port(servers):
     assert servers.same("GET", "/apis/autoscalers/default/psum-autoscaler")[0] == 200
 
 
-def test_deferred_options_fail_naming_their_roadmap_item():
+def test_deferred_options_fail_naming_their_roadmap_item(tmp_path):
+    """No option is deferred any more; the name stays from when some were.
+    A leader-elected ControlPlane builds its elector and gates its manager
+    on it, and `serve --state-file --state-dir` fails with JAX's message
+    (the options at work: tests/test_torch_wal.py,
+    tests/test_torch_election.py, tests/test_torch_auth_certs.py)."""
     from lws_tpu_torch.runtime import ControlPlane
 
-    with pytest.raises(NotImplementedError, match=r"Queue 1 \(c\)"):
-        ControlPlane(leader_election=True)
-    with pytest.raises(NotImplementedError, match=r"Queue 1 \(c\)"):
-        PApiServer(ControlPlane(), port=0, tls=object())
-    for flag in (["--state-dir", "d"], ["--standby"], ["--no-fsync"], ["--tls-dir", "d"],
-                 ["--token-file", "t"]):
-        with pytest.raises(SystemExit, match=r"Queue 1 \(c\)"):
-            pcli.main(["serve", *flag])
+    cp = ControlPlane(leader_election=True, identity="a")
+    assert cp.elector.identity == "a" and cp.manager.gate == cp.elector.is_leader
+    argv = ["serve", "--state-file", str(tmp_path / "s.json"), "--state-dir", str(tmp_path)]
+    errors = []
+    for main in (jcli.main, pcli.main):
+        with pytest.raises(SystemExit) as e:
+            main(argv)
+        errors.append(str(e.value))
+    assert errors[1] == errors[0] == "error: --state-file and --state-dir are exclusive"
 
 
 # ---------------------------------------------------------------------------

@@ -34,6 +34,11 @@ from lws_tpu_torch.core import store as pstore
 from lws_tpu_torch.runtime import ControlPlane as PControlPlane
 from lws_tpu_torch.sched import make_slice_nodes as pslice_nodes
 from tests.test_torch_cli import jax_planes_restored  # noqa: F401
+from tests.test_torch_fleet import port_planes_restored  # noqa: F401
+
+# Every test here leaves the port's process planes as it found them
+# (tests/test_torch_fleet.py:port_planes_restored).
+pytestmark = pytest.mark.usefixtures("port_planes_restored")
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # The repo's examples (the autoscaler's apart, below) and the port's own.

@@ -56,6 +56,10 @@ from tests.test_torch_cli import jax_planes_restored  # noqa: F401
 from tests.test_torch_control_plane import Both, apply_doc, normalize
 from tests.test_torch_fleet import port_planes_restored  # noqa: F401
 
+# Every test here leaves the port's process planes as it found them
+# (tests/test_torch_fleet.py:port_planes_restored).
+pytestmark = pytest.mark.usefixtures("port_planes_restored")
+
 OBS = {"jax": SimpleNamespace(decisions=jdecisions, rollout=jrollout, recommend=jrecommend,
                               history=jhistory, signals=jsignals, metrics=jmetrics, fr=jfr,
                               revision=jrevision, autoscaler=jautoscaler),

@@ -62,6 +62,10 @@ from lws_tpu_torch.runtime import fleet as pfleet
 from lws_tpu_torch.runtime.telemetry import TelemetryServer
 from tests.test_torch_cli import _guarded, _restore, jax_planes_restored  # noqa: F401
 
+# Every test here leaves the port's process planes as it found them
+# (tests/test_torch_fleet.py:port_planes_restored).
+pytestmark = pytest.mark.usefixtures("port_planes_restored")
+
 JAX = SimpleNamespace(name="jax", metrics=jmetrics, fleet=jfleet, pod=jpod, store=jstore,
                       history=jhistory, rollout=jrollout, decisions=jdecisions,
                       journey=jjourney, device=jdevice, faults=jfaults)
@@ -80,12 +84,44 @@ def normalize(x, keys=WALL_KEYS):
     return x
 
 
+def journey_feeds(journey, trace, fr, slo) -> dict:
+    """Whether each of a package's journey VAULT feeds is wired onto its
+    process tracer, flight recorder and SLO recorder, and `_INSTALLED`."""
+    v = journey.VAULT
+    return {"span": v.on_span in trace.TRACER._finish_listeners,
+            "event": v.on_event in fr.RECORDER._observers,
+            "timeline": v.on_timeline in slo.RECORDER.journey_sinks,
+            "installed": journey._INSTALLED}
+
+
+def restore_journey_feeds(found: dict, journey, trace, fr, slo) -> None:
+    """Take off the feeds `found` (journey_feeds) did not hold, reset
+    `_INSTALLED`, and clear the VAULT."""
+    v = journey.VAULT
+    if not found["span"]:
+        trace.TRACER.remove_finish_listener(v.on_span)
+    if not found["event"]:
+        fr.RECORDER.remove_observer(v.on_event)
+    if not found["timeline"]:
+        while v.on_timeline in slo.RECORDER.journey_sinks:
+            slo.RECORDER.journey_sinks.remove(v.on_timeline)
+    journey._INSTALLED = found["installed"]
+    v.clear()
+
+
 @pytest.fixture
 def port_planes_restored():
     """The port's process-global planes that an ApiServer's /metrics/fleet
     drives and a ControlPlane feeds are left as found: the process HISTORY
     (with its interval gate), the rollout LEDGER, the DECISIONS ledger, and
-    the default ANALYZER, RECOMMENDER and actuators."""
+    the default ANALYZER, RECOMMENDER and actuators. So are the journey
+    plane an ApiServer or TelemetryServer installs (the VAULT's feeds on the
+    process tracer, flight recorder and SLO recorder, and
+    `journey._INSTALLED`; the VAULT is cleared) and the fault INJECTOR
+    (disarmed): left wired, the feeds open journeys for the spans of a
+    later test in the same process."""
+    from lws_tpu_torch.core import flightrecorder, slo, trace
+
     state = [(obj, _guarded(obj, names)) for obj, names in (
         (phistory.HISTORY, ("_series", "_per_source", "_last_ingest_t", "_last_ingest_keys",
                             "_dropped")),
@@ -96,11 +132,15 @@ def port_planes_restored():
     defaults = [(m, n, getattr(m, n)) for m, n in (
         (prollout, "ANALYZER"), (precommend, "RECOMMENDER"), (pdecisions, "ACTUATOR"),
         (pdecisions, "ROLLOUT_ACTUATOR"))]
+    planes = (pjourney, trace, flightrecorder, slo)
+    feeds = journey_feeds(*planes)
     yield
     for obj, saved in state:
         _restore(obj, saved)
     for m, n, v in defaults:
         setattr(m, n, v)
+    restore_journey_feeds(feeds, *planes)
+    pfaults.INJECTOR.disarm()
 
 
 # ---------------------------------------------------------------------------
@@ -250,7 +290,7 @@ def add_worker_pod(side, store, name: str, role: str, port: int, ready: bool = T
 
 
 @pytest.fixture
-def workers():
+def workers(port_planes_restored):
     servers = []
     for i in range(len(ROLES)):
         srv = TelemetryServer(port=0, host="127.0.0.1", registry=worker_registry(i))

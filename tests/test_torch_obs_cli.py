@@ -48,6 +48,10 @@ from tests.test_torch_fleet import (  # noqa: F401
     workers,
 )
 
+# Every test here leaves the port's process planes as it found them
+# (tests/test_torch_fleet.py:port_planes_restored).
+pytestmark = pytest.mark.usefixtures("port_planes_restored")
+
 SIDES = (("jax", jcli, jmetrics, JRing), ("port", pcli, pmetrics, PRing))
 
 

@@ -35,6 +35,11 @@ from lws_tpu_torch.parallel.launch import free_port
 from lws_tpu_torch.serving import kv_transport as kt
 from lws_tpu_torch.serving.disagg_worker import build_engine
 from tests.test_torch_disagg_e2e import DECODE_STEPS, MAX_LEN, free_ports
+from tests.test_torch_fleet import port_planes_restored  # noqa: F401
+
+# Every test here leaves the port's process planes as it found them
+# (tests/test_torch_fleet.py:port_planes_restored).
+pytestmark = pytest.mark.usefixtures("port_planes_restored")
 
 REPO = Path(__file__).resolve().parent.parent
 PID_ANNOTATION = "local.lws.tpu/pid"

@@ -825,3 +825,180 @@ def test_telemetry_imports_no_serving_stack():
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          check=True).stdout.split()
     assert out == ["False"]
+
+
+@pytest.fixture
+def worker_feeds(monkeypatch):
+    """Both packages' journey feeds installed and tracing on, as a worker
+    runs (`journey.install()`, `_force_tracing`); each package's feeds, its
+    VAULT and its fault INJECTOR put back afterwards. The default SLO
+    targets are out of reach, so that no journey is flagged breached by
+    how fast this machine decodes."""
+    from tests.test_torch_fleet import journey_feeds, restore_journey_feeds
+
+    planes = {id(pkg): (pkg["journey"], pkg["trace"], pkg["fr"], pkg["slo"])
+              for pkg in (PORT, JAX)}
+    found = {k: journey_feeds(*v) for k, v in planes.items()}
+    for pkg in (PORT, JAX):
+        monkeypatch.setattr(pkg["trace"].TRACER, "enabled", True)
+        monkeypatch.setattr(pkg["trace"].TRACER, "sample_rate", 1.0)
+        monkeypatch.setattr(pkg["slo"].RECORDER, "targets", pkg["slo"].SLOTargets(
+            ttft_s=1e9, itl_s=1e9, queue_wait_s=1e9))
+        pkg["journey"].VAULT.clear()
+        pkg["journey"].install()
+    yield
+    for pkg in (PORT, JAX):
+        restore_journey_feeds(found[id(pkg)], *planes[id(pkg)])
+        pkg["faults"].INJECTOR.disarm()
+
+
+def jax_decode_process(engine, server, steps: int):
+    """The decode role's `process(meta, payload)` of JAX's worker
+    (lws_tpu/serving/disagg_worker.py:521-598, a closure of
+    `run_decode_tcp`), restated over JAX's own module functions for the
+    steps this drill reaches: the chaos hook, the replay guard, the decode
+    under its `serve.request` span and its result, or the poison guard's
+    errored journey and failed result. The closure cannot be imported, so
+    each statement restated here is first found in its source: a change
+    there fails this test instead of leaving the copy behind."""
+    import inspect
+
+    from lws_tpu.serving import disagg_worker as jdw
+    from lws_tpu.serving import kv_transport as jkt
+
+    source = " ".join(inspect.getsource(jdw.run_decode_tcp).split())
+    at = 0
+    for statement in (
+            'def process(meta, payload):',
+            'faults.fire("disagg.decode.process")',
+            'if seen.contains(meta["id"]):',
+            'return',
+            's_req = trace.span( "serve.request", parent=meta.get("trace"), '
+            'role="decode", request_id=meta["id"], )',
+            'full, dstats, dspans = _decode_bundle( engine, payload, steps,',
+            'klass=str(meta.get("klass") or ""), request_id=meta["id"], )',
+            'except Exception as e:',
+            'journeymod.VAULT.complete( meta["id"], trace=meta.get("trace"), '
+            'engine="disagg", klass=str(meta.get("klass") or ""), '
+            'outcome="errored", error=repr(e), )',
+            'server.post_result(meta["id"], {"id": meta["id"], "failed": repr(e)[:300]}, b"")',
+            'seen.record(meta["id"])',
+            'handoff = {**meta.get("handoff", {}), **dstats}',
+            'spans_out = list(meta.get("spans", [])) + dspans + [s_req.to_dict()]',
+            'server.post_result( meta["id"], {"id": meta["id"], "handoff": handoff, '
+            '"spans": spans_out}, kt.arrays_to_bytes(tokens=full), )',
+            'seen.record(meta["id"])'):
+        found = source.find(statement, at)
+        assert found >= 0, f"JAX's decode closure changed at: {statement}"
+        at = found + len(statement)
+    seen = jresilience.SeenIds(capacity=1024, site="decode")
+
+    def process(meta, payload):
+        jfaults.fire("disagg.decode.process")
+        if seen.contains(meta["id"]):
+            return
+        s_req = jtrace.span("serve.request", parent=meta.get("trace"), role="decode",
+                            request_id=meta["id"])
+        try:
+            with s_req:
+                full, dstats, dspans = jdw._decode_bundle(
+                    engine, payload, steps, klass=str(meta.get("klass") or ""),
+                    request_id=meta["id"])
+        except Exception as e:  # noqa: BLE001
+            jjourney.VAULT.complete(meta["id"], trace=meta.get("trace"), engine="disagg",
+                                    klass=str(meta.get("klass") or ""), outcome="errored",
+                                    error=repr(e))
+            server.post_result(meta["id"], {"id": meta["id"], "failed": repr(e)[:300]}, b"")
+            seen.record(meta["id"])
+            return
+        handoff = {**meta.get("handoff", {}), **dstats}
+        spans_out = list(meta.get("spans", [])) + dspans + [s_req.to_dict()]
+        server.post_result(meta["id"], {"id": meta["id"], "handoff": handoff,
+                                        "spans": spans_out},
+                           jkt.arrays_to_bytes(tokens=full))
+        seen.record(meta["id"])
+
+    return process
+
+
+def journey_digest(j):
+    """What a journey says about its request, without ids, clocks or the
+    packages' own decode spans' timings."""
+    if j is None:
+        return None
+    return {"completed": j["completed"], "outcome": j.get("outcome"),
+            "flags": sorted(j.get("flags") or []),
+            "spans": sorted(sp["name"] for sp in j.get("spans") or []),
+            "events": sorted(e.get("kind", "") for e in j.get("events") or [])}
+
+
+def test_the_decode_fault_drill_with_worker_feeds_installed_matches_jax(worker_feeds):
+    """The decode-fault drill of the test above, with both packages' journey
+    feeds installed (as in a worker, or after an ApiServer in the same
+    process): the failed pull's spans open a journey for the request in
+    each VAULT, and after every step the port's journey says what JAX's
+    says."""
+    import numpy as np
+
+    from lws_tpu.serving import disagg_worker as jdw
+    from lws_tpu.serving import kv_transport as jkt
+    from lws_tpu_torch.serving import disagg_worker as dw
+    from lws_tpu_torch.serving import kv_transport as kt
+
+    prompt = np.array([[5, 9, 2, 11, 7]], dtype=np.int32)
+    sides = {}
+    for name, pkg, wire, eng in (("port", PORT, kt, dw.build_engine(1, 16, device="cpu")),
+                                 ("jax", JAX, jkt, jdw.build_engine(1, 16))):
+        token, cache = eng.prefill(prompt)
+        server = wire.KVServer(port=0, host="127.0.0.1")
+        for rid in ("warm", "r"):
+            server.offer_bundle({"id": rid}, wire.cache_to_bundle(cache, token))
+        process = (dw.decode_processor(eng, server, steps=3) if name == "port"
+                   else jax_decode_process(eng, server, 3))
+        sides[name] = (pkg, wire, server, ("127.0.0.1", server.port), process)
+    try:
+        def step(fn) -> dict:
+            got = {}
+            for name, (pkg, wire, server, ep, process) in sides.items():
+                out = fn(pkg, wire, ep, process)
+                got[name] = (out, journey_digest(pkg["journey"].VAULT.get("r")),
+                             journey_digest(pkg["journey"].VAULT.get("p")))
+            assert got["port"] == got["jax"]
+            return got["port"]
+
+        def warm_up(pkg, wire, ep, process):
+            # One decode first (JAX compiles its decode here).
+            wire.pull_bundle(ep, timeout=60.0, process=process)
+            return "failed" in wire.pull_result(ep, "warm")[0]
+
+        assert step(warm_up) == (False, None, None)
+
+        def failed_pull(pkg, wire, ep, process):
+            pkg["faults"].INJECTOR.arm("disagg.decode.process", "fail_n_times:1")
+            with pytest.raises(OSError):
+                wire.pull_bundle(ep, timeout=1.0, process=process)
+            return wire.pull_result(ep, "r")
+
+        out, opened, _ = step(failed_pull)
+        assert out is None and opened is not None and not opened["completed"]
+
+        def redelivery(pkg, wire, ep, process):
+            wire.pull_bundle(ep, timeout=5.0, process=process)
+            meta, payload = wire.pull_result(ep, "r")
+            return ("failed" in meta, wire.bytes_to_arrays(payload)["tokens"].shape,
+                    pkg["faults"].INJECTOR.snapshot()["trips"])
+
+        out, _, _ = step(redelivery)
+        assert out == (False, (1, 4), {"disagg.decode.process": 1})
+
+        def poison(pkg, wire, ep, process):
+            process({"id": "p"}, wire.PoisonPayload(ValueError("20 KV rows but decode "
+                                                               "max_len=16")))
+            meta, _ = wire.pull_result(ep, "p")
+            return meta["failed"]
+
+        out, _, leg = step(poison)
+        assert "max_len" in out and leg["outcome"] == "errored" and "errored" in leg["flags"]
+    finally:
+        for _, _, server, _, _ in sides.values():
+            server.close()
