@@ -236,9 +236,19 @@ engine paths, 15 trains.
      ends every worker within 60 s; the launches the prefill role and the
      replacement decode role print at exit equal the handoff formulas, the
      loadgen command's requests included; no spawned process outlives the
-     path; serve exits 0 on SIGINT. It prints deploy-to-ready,
-     kill-to-result, /metrics/fleet's scrape latency and the path's
-     seconds.
+     path; serve exits 0 on SIGINT. Serve keeps a state directory and
+     serves https with token auth; a `--standby` on the same directory
+     takes over when the active serve is SIGKILLed, with every object and
+     both live workers. An Informer (lws_tpu_torch.client) on the LWSs, the
+     DS and the pods, started before the deploy settles, equals the store
+     at a quiet moment, after a server-side apply through RemoteClient and
+     after the takeover; the streamed request's span tree (the DS's
+     reconcile, the client's span, both workers' subtrees) survives
+     Tracer.record, export_jsonl and read_jsonl connected; serve and the
+     standby print `store clone: native (...)`, the store's clone built
+     from csrc/fastclone.c. It prints deploy-to-ready, kill-to-result,
+     kill-to-takeover, the Informer's convergence, /metrics/fleet's scrape
+     latency and the path's seconds.
  15. (last) training at benchmarks/train_bench.py's on-accelerator config
      (vocab 32000, d_model 1536, 12 layers, 12 heads, 6 KV heads, d_ff 4096,
      remat; f32 parameters, bf16 compute; AdamW at lr 3e-4; a fixed batch of
@@ -3759,6 +3769,7 @@ def disagg_profile_member(rank: int, out_dir: str, prompt) -> None:
     from lws_tpu_torch.parallel import MeshSpec, build_mesh, initialize_from_env, local_device
     from lws_tpu_torch.serving import disagg_worker as dw
 
+    os.environ["LWS_TPU_MODEL"] = PAIR_MODEL  # the decode workers' model, as their env sets it
     info = initialize_from_env(timeout_s=TP_TIMEOUT_S)
     dev = local_device(info)
     mesh = build_mesh(MeshSpec(tp=info.num_processes))
@@ -4508,6 +4519,146 @@ def autoscale_loop(serve, client, work_dir: str) -> dict:
 
 FAILOVER_S = 60.0  # kill -9 of the active serve to the standby's /readyz answering 200
 ROUTE_CALLS = 40  # calls a route is timed over at the drill's quiet moment
+INFORMER_KINDS = ("LeaderWorkerSet", "DisaggregatedSet", "Pod")
+INFORMER_S = 30.0  # the Informer's cache to equal the store (quiet moment, write, takeover)
+INFORMER_POLL_S = 2.0  # the Informer's /watch long-poll
+INFORMER_NOTE = "chip-smoke.lws.tpu/informer"  # the annotation path 17 writes on the DS
+
+
+def start_informer(api_url: str, auth: ServeAuth):
+    """lws_tpu_torch.client.Informer over its own RemoteClient (https, the
+    CA, the admin token) on INFORMER_KINDS, started: its first relist fills
+    the cache, and its thread long-polls /watch. Every relist is recorded
+    as (the time, the bookmark before it, the bookmark after it): a relist
+    after the first follows an `expired` answer. So is the time each sync
+    (one answered /watch) returns."""
+    from lws_tpu_torch.client import Informer, RemoteClient
+
+    class Recording(Informer):
+        def relist(self) -> None:
+            before = self._seq
+            super().relist()
+            self.relists.append((time.perf_counter(), before, self._seq))
+
+        def sync(self, timeout: float = 0.0) -> int:
+            applied = super().sync(timeout)
+            self.synced.append(time.perf_counter())
+            return applied
+
+    informer = Recording(RemoteClient(api_url, ca_cert=auth.ca, token=auth.tokens["admin"]),
+                         kinds=INFORMER_KINDS)
+    informer.relists, informer.synced = [], []
+    informer.start(poll_timeout=INFORMER_POLL_S)
+    return informer
+
+
+def informer_converges(informer, client, what: str, timeout: float = INFORMER_S) -> tuple:
+    """Waits until the Informer's cache equals the store: a list of each of
+    its kinds, read just before and just after one read of the cache, by
+    (kind, namespace, name) -> (uid, resourceVersion), all three equal.
+    Returns (the seconds it took, the objects compared)."""
+    def listed() -> dict:
+        return {(m["kind"], m["metadata"]["namespace"], m["metadata"]["name"]):
+                (m["metadata"]["uid"], m["metadata"]["resourceVersion"])
+                for kind in INFORMER_KINDS for m in client.list(kind)}
+
+    def cached() -> dict:
+        with informer._lock:
+            return {k: (m["metadata"]["uid"], m["metadata"]["resourceVersion"])
+                    for k, m in informer.cache.items()}
+
+    t0 = time.perf_counter()
+    while True:
+        a, c, b = listed(), cached(), listed()
+        if a == b == c:
+            return time.perf_counter() - t0, len(c)
+        check(time.perf_counter() - t0 < timeout, f"{what}: the Informer's cache never equalled "
+              f"the store in {timeout:.0f} s: only cached {sorted(set(c.items()) - set(b.items()))}"
+              f", only listed {sorted(set(b.items()) - set(c.items()))}")
+        time.sleep(0.05)
+
+
+def informer_sees_a_write(informer, client) -> dict:
+    """One write through the client's server-side apply (an annotation on
+    the DisaggregatedSet, field manager chip-smoke; the roles' revision
+    does not read annotations, so nothing rolls): the Informer's cache
+    holds the written resourceVersion, and then equals the store. Returns
+    the seconds of each step and the written resourceVersion."""
+    t0 = time.perf_counter()
+    applied = client.server_side_apply("DisaggregatedSet", "default", DEPLOY_NAME,
+                                       {"meta": {"annotations": {INFORMER_NOTE: "1"}}},
+                                       field_manager="chip-smoke")
+    rv = int(applied["metadata"]["resourceVersion"])
+    check(applied["metadata"]["annotations"].get(INFORMER_NOTE) == "1",
+          f"server-side apply: {applied['metadata']}")
+    t_write = time.perf_counter()
+
+    def seen() -> bool:
+        got = informer.get("DisaggregatedSet", "default", DEPLOY_NAME)
+        return bool(got) and int(got["metadata"]["resourceVersion"]) >= rv \
+            and got["metadata"]["annotations"].get(INFORMER_NOTE) == "1"
+
+    check(wait_until(seen, timeout=INFORMER_S),
+          f"the Informer never saw the write (resourceVersion {rv})")
+    t_seen = time.perf_counter()
+    equal_s, n = informer_converges(informer, client, "after the write")
+    return {"apply_s": t_write - t0, "seen_s": t_seen - t_write, "equal_s": equal_s,
+            "resource_version": rv, "objects": n}
+
+
+def traced_request(eps: dict, rid: str, prompt, serve, deadline: float, api_port: int,
+                   work_dir: str) -> tuple:
+    """One deployed request as one span tree, as tests/test_e2e_disagg.py
+    assembles it: the DisaggregatedSet's latest `reconcile` root span, read
+    from serve's /debug/traces; a client `serve.request` span grafted onto
+    it, in which the prompt is submitted (its context rides the frame); the
+    workers' subtrees that rode back with the result. The tree goes through
+    Tracer.record, export_jsonl and read_jsonl, and what is read back must
+    be the tree and connected. Returns (the request's (meta, tokens), facts)."""
+    from lws_tpu_torch.core import trace
+
+    code, text = http_call(api_port, "/debug/traces?limit=4096")
+    check(code == 200, f"/debug/traces answered {code}")
+    reconciles = [s for s in json.loads(text) if s["name"] == "reconcile"
+                  and s["attrs"].get("controller") == "disaggregatedset"
+                  and s["attrs"].get("object") == DEPLOY_NAME]
+    check(reconciles, "serve's /debug/traces holds no reconcile of the DisaggregatedSet")
+    root = reconciles[-1]
+    request_span = trace.TRACER.span("serve.request", parent={
+        "trace_id": root["trace_id"], "span_id": root["span_id"]}, role="client",
+        request_id=rid)
+    with request_span:
+        out = deployed_request(eps, rid, prompt, serve, deadline)
+    tree = [root, request_span.to_dict()] + list(out[0].get("spans") or [])
+    names = {s["name"] for s in tree}
+    want = {"reconcile", "serve.request", "serve.prefill", "kv.gather", "kv.deserialize",
+            "kv.reshard", "serve.decode_dispatch"}
+    check(want <= names and trace.connected_tree(tree),
+          f"{rid}: the span tree is not one connected tree of {sorted(want)}: " + str(
+              [(s["name"], s["trace_id"], s["parent_id"]) for s in tree]))
+    collector = trace.Tracer(enabled=True)
+    for s in tree:
+        collector.record(s)
+    path = os.path.join(work_dir, "request_trace.jsonl")
+    n = collector.export_jsonl(path)
+    back = trace.Tracer.read_jsonl(path)
+    check(n == len(tree) and back == json.loads(json.dumps(tree)) and trace.connected_tree(back),
+          f"{rid}: the span tree did not survive the JSONL round trip ({n} of {len(tree)})")
+    order = [s["name"] for s in trace.walk(back, root["span_id"])]
+    check(len(order) == len(tree) and order[0] == "reconcile",
+          f"{rid}: walk from the reconcile visits {order}")
+    return out, {"spans": len(tree), "jsonl_bytes": os.path.getsize(path)}
+
+
+def store_clone(log: str, who: str) -> str:
+    """The clone the store of a `serve` process used, from its start line
+    (`store clone: native (<library>)`), which must be the only one and name
+    the native clone built from the checkout's csrc/fastclone.c."""
+    lines = [ln for ln in log.splitlines() if ln.startswith("store clone: ")]
+    check(len(lines) == 1, f"{who} printed {len(lines)} store clone lines: {lines}")
+    check(lines[0].startswith("store clone: native (") and "/lws_tpu_torch/_build/_fastclone-"
+          in lines[0], f"{who}: {lines[0]}")
+    return lines[0][len("store clone: "):]
 
 
 def check_api_auth(api_port: int, auth: ServeAuth, ds: dict) -> dict:
@@ -4564,8 +4715,8 @@ def listening(pid: int, port: int) -> bool:
     return False
 
 
-def control_plane_failover(serve, standby, client, eps: dict, ports: dict, metrics_ports: dict,
-                           pods: dict, pids: dict, short_p, long_p) -> tuple:
+def control_plane_failover(serve, standby, client, informer, eps: dict, ports: dict,
+                           metrics_ports: dict, pods: dict, pids: dict, short_p, long_p) -> tuple:
     """Path 17's control-plane drill. At a quiet moment (two equal readings)
     the store's objects (each kind's names and uids) and every pod's pid are
     recorded, with the write-ahead log's records and bytes; the standby
@@ -4573,11 +4724,19 @@ def control_plane_failover(serve, standby, client, eps: dict, ports: dict, metri
     - with no control plane, a 100-token request completes through the pair;
     - the standby's /readyz answers 200 within FAILOVER_S (kill-to-takeover),
       and its "restored N objects" line counts the recorded objects;
+    - the Informer started before the deploy, which equalled the store at
+      the quiet moment, has its first /watch answered by the standby and
+      then equals the standby's store within INFORMER_S of its /readyz 200
+      (its relists after the kill are counted: the standby's /watch
+      sequence starts afresh, and only an `expired` answer makes an
+      Informer relist);
+    - the standby's store clones with the native clone (store_clone);
     - every pod keeps its uid and its pid (re-adopted, not respawned), no
       new process holds the card, and the standby holds none;
-    - a 1,000-token streamed request completes under the new server, whose
-      /metrics/fleet carries both workers (check_fleet_view), and `get` as
-      a process lists the recorded objects of each kind.
+    - a 1,000-token streamed request completes under the new server as one
+      span tree (traced_request); the new server's /metrics/fleet carries
+      both workers (check_fleet_view), and `get` as a process lists the
+      recorded objects of each kind.
     Returns (the drill's facts, {request id: (meta, tokens)})."""
     import signal
 
@@ -4593,6 +4752,8 @@ def control_plane_failover(serve, standby, client, eps: dict, ports: dict, metri
         time.sleep(0.5)
     objects, pod_pids = seen[-1]
     n_objects = sum(len(v) for v in objects.values())
+    quiet_s, n_cached = informer_converges(informer, client, "failover, before the kill")
+    bookmark, relists_before = informer._seq, len(informer.relists)
     with open(os.path.join(serve.auth.state_dir, "wal.jsonl"), "rb") as f:
         wal = f.read()
     snapshot_bytes = os.path.getsize(os.path.join(serve.auth.state_dir, "state.json"))
@@ -4636,10 +4797,28 @@ def control_plane_failover(serve, standby, client, eps: dict, ports: dict, metri
                 if http_call(ports["api"], "/readyz", timeout=2.0) == (200, "ok"):
                     taken["s"] = time.perf_counter() - t_kill
                     taken.setdefault("restored", taken["s"])
-                    return
+                    break
             except OSError:
                 pass
             time.sleep(0.01)
+        if "s" not in taken:
+            return
+        # Then the Informer: its first sync the standby answered (any that
+        # returns after the standby's restored line: the old server died
+        # before it), then its cache against the standby's store. (Before
+        # that sync the cache may equal the store only because the restore
+        # kept every object as it was.)
+        try:
+            t_restored = t_kill + taken["restored"]
+            check(wait_until(lambda: informer.synced and informer.synced[-1] > t_restored,
+                             timeout=INFORMER_S),
+                  "failover: the standby answered none of the Informer's /watch polls")
+            taken["synced"] = informer.synced[-1] - t_kill
+            informer_converges(informer, client, "failover, after the takeover")
+            taken["informer"] = time.perf_counter() - t_kill
+            taken["seq"] = client.current_seq()
+        except (SmokeFailure, OSError) as e:
+            taken["informer_error"] = str(e)[:2000]
 
     watcher = threading.Thread(target=watch, daemon=True)
     watcher.start()
@@ -4648,9 +4827,41 @@ def control_plane_failover(serve, standby, client, eps: dict, ports: dict, metri
     results = {"cp-outage": deployed_request(eps, "cp-outage", short_p, standby,
                                              time.monotonic() + DEPLOY_READY_S)}
     outage_s = time.perf_counter() - t0
-    watcher.join(FAILOVER_S)
+    watcher.join(FAILOVER_S + INFORMER_S)
     check("s" in taken, f"failover: the standby's /readyz never answered 200 within "
                         f"{FAILOVER_S:.0f} s of the kill:\n{standby.log()[-3000:]}")
+    relists = informer.relists[relists_before:]
+    clone = store_clone(standby.log(), "the standby")
+    if relists:
+        how = (f"by {len(relists)} relist(s) on `expired`: its bookmark {bookmark} from the "
+               f"killed server stood ahead of the standby's sequence {relists[0][2]}")
+    else:
+        # The standby's /watch sequence passed the bookmark before the
+        # Informer's first poll, so /watch answered with events instead of
+        # `expired`: the Informer replays the new server's events after the
+        # bookmark and never sees those up to it. A fault shared with the
+        # JAX package (ROADMAP Queue 3; tests/test_torch_client_informer.py::
+        # test_a_restarted_server_past_the_bookmark_leaves_both_caches_stale).
+        how = (f"with no relist: the standby's sequence had passed the bookmark {bookmark} at "
+               "the Informer's first poll (a fault shared with the JAX package, ROADMAP Queue "
+               f"3), so the cache could only match by luck (the standby's sequence "
+               f"{taken.get('seq', '-')} when it matched)")
+    if "informer" in taken:
+        converged = (f"equalled the standby's store {taken['informer'] - taken['s']:.3f} s after "
+                     f"its /readyz 200 ({taken['informer']:.3f} s after the kill; the standby "
+                     f"answered its first /watch {taken['synced']:.3f} s after the kill), {how}")
+    else:
+        check(not relists, f"failover: the Informer relisted and still differs from the store: "
+                           f"{taken.get('informer_error', 'the watcher hung')}")
+        # The fault struck: the cache stayed stale. A relist mends it.
+        informer.relist()
+        mended, _ = informer_converges(informer, client, "failover, after a relist")
+        converged = (f"did not equal the standby's store within {INFORMER_S:.0f} s of its "
+                     f"/readyz 200, {how} ({taken.get('informer_error')}); a relist by hand "
+                     f"made it equal in {mended:.3f} s")
+    print(f"control-plane failover, the Informer: its cache equalled the store at the quiet "
+          f"moment ({n_cached} objects, {quiet_s:.3f} s), and {converged}; the standby's store "
+          f"clone: {clone}", flush=True)
     restored = [ln for ln in standby.log().splitlines() if ln.startswith("restored ")]
     check(len(restored) == 1 and restored[0].startswith(
         f"restored {n_objects} objects from {serve.auth.state_dir} "),
@@ -4663,8 +4874,12 @@ def control_plane_failover(serve, standby, client, eps: dict, ports: dict, metri
           f"{snapshot_bytes}-byte snapshot; the 100-token request during the outage took "
           f"{outage_s:.3f} s", flush=True)
 
-    results["cp-long"] = deployed_request(eps, "cp-long", long_p, standby,
-                                          time.monotonic() + DEPLOY_READY_S)
+    # The streamed request under the new server, as one span tree grafted
+    # onto the standby's own reconcile of the DS (its resync reconciles
+    # every object).
+    results["cp-long"], traced = traced_request(eps, "cp-long", long_p, standby,
+                                                time.monotonic() + DEPLOY_READY_S, ports["api"],
+                                                os.path.dirname(standby.log_path))
     got = client.list("Pod")
     after = {p["metadata"]["name"]: (p["metadata"]["uid"],
                                      p["metadata"]["annotations"].get(PID_ANNOTATION))
@@ -4686,7 +4901,8 @@ def control_plane_failover(serve, standby, client, eps: dict, ports: dict, metri
     return ({"kill_to_takeover_s": taken["s"], "kill_to_restored_s": taken["restored"],
              "route_ms": route_ms, "restored": n_objects, "wal_records":
              wal.count(bytes([10])), "wal_bytes": len(wal), "outage_s": outage_s,
-             "fleet": fleet}, results)
+             "fleet": fleet, "informer": converged.split(", ", 1)[0],
+             "informer_relists": len(relists), "traced": traced}, results)
 
 
 def path_deployed_pair(torch, dev, refs: dict) -> dict:
@@ -4724,9 +4940,16 @@ def path_deployed_pair(torch, dev, refs: dict) -> dict:
     replacement decode role print at exit equal the handoff formulas, the
     loadgen command's and the failover's requests included, each worker
     started once; no spawned process outlives the path; the standby stops
-    on SIGINT with a final snapshot that holds no DisaggregatedSet. Prints
-    deploy-to-ready, kill-to-result, kill-to-takeover and the path's
-    seconds. Returns the two roles' launches."""
+    on SIGINT with a final snapshot that holds no DisaggregatedSet. Through
+    it all an Informer (lws_tpu_torch.client, over https with the admin
+    token) watches the LWSs, the DS and the pods: its cache equals the
+    store at the quiet moment after the decode restart, after one
+    server-side apply through RemoteClient, and after the standby's
+    takeover (informer_converges); the 1,000-token request under the
+    standby goes out as one span tree (traced_request); serve and the standby name
+    the native store clone (store_clone). Prints deploy-to-ready,
+    kill-to-result, kill-to-takeover and the path's seconds. Returns the
+    two roles' launches."""
     import signal
     import tempfile
 
@@ -4750,7 +4973,7 @@ def path_deployed_pair(torch, dev, refs: dict) -> dict:
         auth = ServeAuth(work_dir)
         config, ds = deploy_manifests(api_url, ports, auth)
         serve = ServeProcess(work_dir, ports["api"], config, [ds], auth)
-        standby = None
+        standby = informer = None
         try:
             deadline = time.monotonic() + DEPLOY_READY_S
             while not serve.serving():
@@ -4759,6 +4982,9 @@ def path_deployed_pair(torch, dev, refs: dict) -> dict:
                                                    f"https\n{serve.log()[-3000:]}")
                 time.sleep(0.1)
             client = RemoteClient(api_url, ca_cert=auth.ca, token=auth.tokens["admin"])
+            # Started before the deploy settles; it runs across the failover.
+            informer = start_informer(api_url, auth)
+            clone = store_clone(serve.log(), "serve")
             auth_codes = check_api_auth(ports["api"], auth, ds)
             eps: dict = {}
             while len(eps) < 2:
@@ -4827,9 +5053,7 @@ def path_deployed_pair(torch, dev, refs: dict) -> dict:
                                    standby=True)
 
             # Group-atomic restart: SIGKILL the decode pod's process.
-            code, text = http_call(ports["api"], "/watch?since=-1")
-            check(code == 200, f"deployed pair: /watch bookmark {code} {text}")
-            since = json.loads(text)["next"]
+            since = client.current_seq()
             old = pods["decode"]
             t_kill = time.perf_counter()
             os.kill(pids["decode"], signal.SIGKILL)
@@ -4843,9 +5067,7 @@ def path_deployed_pair(torch, dev, refs: dict) -> dict:
                 serve.alive()
                 check(time.monotonic() < deadline, "deployed pair: the killed pod never went "
                                                    "Failed on /watch")
-                code, text = http_call(ports["api"], f"/watch?since={since}&timeout=1")
-                check(code == 200, f"deployed pair: /watch {code} {text[:300]}")
-                batch = json.loads(text)
+                batch = client.watch(since, timeout=1)
                 check("expired" not in batch, "deployed pair: the /watch bookmark expired")
                 since = batch["next"]
                 failed = next((e["object"] for e in batch["events"]
@@ -4875,6 +5097,10 @@ def path_deployed_pair(torch, dev, refs: dict) -> dict:
             results["outage"] = deployed_request(eps, "outage", short_p, serve, deadline,
                                                  submit=False)
             t_recover = time.perf_counter() - t_kill
+            # The Informer at this quiet moment and after one write through
+            # the client.
+            informer_quiet = informer_converges(informer, client, "at the quiet moment")
+            informer_write = informer_sees_a_write(informer, client)
             results["long-s"] = deployed_request(eps, "long-s", long_p, serve, deadline)
 
             # The fleet plane: the fleet view at a quiet moment, the loadgen
@@ -4918,7 +5144,7 @@ def path_deployed_pair(torch, dev, refs: dict) -> dict:
             # The control plane dies with kill -9 while the pair serves; the
             # standby takes over with every acknowledged write and the live
             # workers.
-            drill, drilled = control_plane_failover(serve, standby, client, eps, ports,
+            drill, drilled = control_plane_failover(serve, standby, client, informer, eps, ports,
                                                     metrics_ports, pods, pids, short_p, long_p)
             results.update(drilled)
 
@@ -4952,6 +5178,8 @@ def path_deployed_pair(torch, dev, refs: dict) -> dict:
                                          f"{len(started)} times (one model load across the "
                                          "failover)")
         finally:
+            if informer is not None:
+                informer.stop()
             rc = serve.stop()
             rc_standby = standby.stop() if standby is not None else None
             stray = [p for p in workers if pid_alive(p)]
@@ -5017,8 +5245,17 @@ def path_deployed_pair(torch, dev, refs: dict) -> dict:
           f"standby restored {drill['restored']} objects, every pod re-adopted with its uid and "
           f"pid, no new process on the card, the outage and post-takeover requests equal their "
           f"references, /metrics/fleet of the new server {drill['fleet']}); workers gone "
-          f"{t_exit:.1f} s after `delete` through the new server; path wall time "
-          f"{time.perf_counter() - t_path:.1f} s")
+          f"{t_exit:.1f} s after `delete` through the new server; serve's store clone "
+          f"{clone}; the Informer (LWS, DS, Pod) equalled the store at the quiet moment "
+          f"({informer_quiet[1]} objects, {informer_quiet[0]:.3f} s), saw a server-side apply "
+          f"(resourceVersion {informer_write['resource_version']}) {informer_write['seen_s']:.4f}"
+          f" s after it and equalled the store {informer_write['equal_s']:.3f} s later; after the "
+          f"takeover it {drill['informer']} ({drill['informer_relists']} relist(s) on expired); "
+          f"cp-long as one span tree of "
+          f"{drill['traced']['spans']} spans (the standby's reconcile, the client, both "
+          f"workers) through record, export_jsonl ({drill['traced']['jsonl_bytes']} bytes) and "
+          f"read_jsonl, connected; path wall "
+          f"time {time.perf_counter() - t_path:.1f} s")
     return total
 
 

@@ -104,6 +104,11 @@ def cmd_serve(args) -> int:
         enable_scheduler=cfg.enable_scheduler,
         auto_ready=(cfg.backend == "fake"),
     )
+    from lws_tpu_torch.core.store import clone_info
+
+    clone = clone_info()
+    why = clone.get("library") or clone.get("reason") or f"the native build failed: {clone['error']}"
+    print(f"store clone: {clone['clone']} ({why})", flush=True)
     state_dir = None
     if args.state_dir:
         from lws_tpu_torch.core.wal import StateDir, StateLockedError

@@ -8,11 +8,12 @@ concurrency on `resource_version`; every mutation fans out a WatchEvent.
 Controllers are stateless against this store, so crash/restart resumes any
 rollout mid-flight exactly like the reference (SURVEY §5 checkpoint/resume).
 
-The port's copy of lws_tpu/core/store.py. Left out: the JAX package's
-native clone (native/fastclone.c, an optional C extension with the same
-semantics as `_py_clone`); the port always clones in Python. The journal
-hook (`_journal`) and the restore helpers serve the write-ahead log
-(core/wal.py).
+The port's copy of lws_tpu/core/store.py. The clone at every boundary is
+chosen as JAX's store chooses it: the native clone (csrc/fastclone.c, the
+same semantics as `_py_clone`, built by core/fastclone.py at the first
+clone) unless LWS_TPU_PURE_PY is set or the build fails; `clone_info()`
+names the clone in use and why. The journal hook (`_journal`) and the
+restore helpers serve the write-ahead log (core/wal.py).
 """
 
 from __future__ import annotations
@@ -92,7 +93,46 @@ def _py_clone(x):
     return copy.deepcopy(x)  # anything exotic: full generality
 
 
-_clone = _py_clone
+_CLONE_INFO: dict = {}  # the clone in use, once chosen (under _CLONE_LOCK)
+_CLONE_LOCK = threading.Lock()
+
+
+def _choose_clone() -> dict:
+    """Rebind `_clone` once per process: the native extension (built at
+    this first call if need be) unless LWS_TPU_PURE_PY is set or its build
+    fails, whose reason is kept."""
+    global _clone
+    with _CLONE_LOCK:
+        if not _CLONE_INFO:
+            _clone, info = _py_clone, {"clone": "python"}
+            if os.environ.get("LWS_TPU_PURE_PY"):
+                info["reason"] = "LWS_TPU_PURE_PY is set"
+            else:
+                from lws_tpu_torch.core import fastclone
+
+                try:
+                    native = fastclone.load()
+                    native.init(enum.Enum, copy.deepcopy)
+                    _clone, info = native.clone, {"clone": "native", "library": native.__file__}
+                except fastclone.BuildError as e:
+                    info["error"] = str(e)
+            _CLONE_INFO.update(info)
+        return dict(_CLONE_INFO)
+
+
+def _first_clone(x):
+    _choose_clone()
+    return _clone(x)
+
+
+_clone = _first_clone
+
+
+def clone_info() -> dict:
+    """The clone the store uses: {"clone": "native", "library": path}, or
+    {"clone": "python"} with "reason" (LWS_TPU_PURE_PY) or "error" (why
+    the native build failed)."""
+    return _choose_clone()
 
 
 def clone_object(x):

@@ -1,17 +1,17 @@
-"""Tracing spine: the port's copy of lws_tpu/core/trace.py, trimmed to what
-the port calls (`Tracer`, `span`, `current_context`, `current_span`,
-`spans`, `set_enabled`, finish listeners, the per-thread span stacks
-the profiler tags samples with, and `connected_tree`, which the fleet
-collector's journey join reports). Left out: the JSONL export, the
-decorator form, `record` of a peer's spans, and `walk`, which serve the
-JAX package's control plane and disaggregated workers.
+"""Tracing spine: the port's copy of lws_tpu/core/trace.py, with the same
+record format, so a JSONL file written by either package's `export_jsonl`
+reads back in the other's `read_jsonl`. Left out: JAX's
+`LWS_TPU_TRACE_EXPORT` stream of every finished span (`export_path`),
+which no port process turns on.
 
-  * context-manager API over a thread-local span stack, so nesting and
-    parent/child links come for free;
-  * monotonic clocks for duration, wall clock for ordering;
-  * bounded in-memory ring of finished spans;
+  * context-manager + decorator API over a thread-local span stack, so
+    nesting and parent/child links come for free;
+  * monotonic clocks for duration, wall clock for export ordering;
+  * bounded in-memory ring of finished spans + JSONL export;
   * cross-process propagation: a span's `context` is a 2-key dict that
-    rides any JSON channel and seeds a child span in the peer process;
+    rides any JSON channel (the KV transport's frame meta) and seeds a
+    child span in the peer process; the peer's finished records ride back
+    and join this ring through `record`;
   * a no-op fast path: with tracing disabled (LWS_TPU_TRACE=0) or a root
     sampled out, `span()` returns one shared singleton — no allocation, no
     clock reads — so the paged decode loop keeps its throughput.
@@ -23,12 +23,14 @@ worker, like the process-global metrics REGISTRY); tests build private
 
 from __future__ import annotations
 
+import json
 import os
 import random
 import threading
 import time
 from collections import deque
-from typing import Callable, Optional
+from functools import wraps
+from typing import Callable, Iterator, Optional
 
 
 def _new_id() -> str:
@@ -294,6 +296,22 @@ class Tracer:
             parent_id = None
         return Span(self, name, trace_id, parent_id, attrs)
 
+    def trace(self, name: Optional[str] = None, **attrs) -> Callable:
+        """Decorator form: the wrapped call runs inside a span named after
+        the function (or `name`)."""
+
+        def deco(fn: Callable) -> Callable:
+            span_name = name or fn.__qualname__
+
+            @wraps(fn)
+            def wrapper(*args, **kwargs):
+                with self.span(span_name, **attrs):
+                    return fn(*args, **kwargs)
+
+            return wrapper
+
+        return deco
+
     def current_context(self) -> Optional[dict]:
         stack = self._stack()
         return stack[-1].context if stack else None
@@ -303,6 +321,11 @@ class Tracer:
         none is open — callers may unconditionally set()/add() on it."""
         stack = self._stack()
         return stack[-1] if stack else NOOP
+
+    def record(self, record: dict) -> None:
+        """Ingest a span record produced elsewhere (a peer process's subtree
+        riding back over the result channel) into this ring."""
+        self._ring.append(dict(record))
 
     def spans(self, limit: Optional[int] = None) -> list[dict]:
         """Finished spans, oldest first; `limit` keeps the most recent N."""
@@ -314,6 +337,19 @@ class Tracer:
 
     def clear(self) -> None:
         self._ring.clear()
+
+    def export_jsonl(self, path: str) -> int:
+        """Write the ring as JSON lines; returns the span count."""
+        spans = self.spans()
+        with open(path, "w") as f:
+            for record in spans:
+                f.write(json.dumps(record, default=str) + "\n")
+        return len(spans)
+
+    @staticmethod
+    def read_jsonl(path: str) -> list[dict]:
+        with open(path) as f:
+            return [json.loads(line) for line in f if line.strip()]
 
 
 def connected_tree(spans: list[dict]) -> bool:
@@ -330,6 +366,18 @@ def connected_tree(spans: list[dict]) -> bool:
     return len(roots) == 1
 
 
+def walk(spans: list[dict], root_id: str) -> Iterator[dict]:
+    """Depth-first iteration of a span subtree by parent links."""
+    children: dict[Optional[str], list[dict]] = {}
+    for s in spans:
+        children.setdefault(s.get("parent_id"), []).append(s)
+    todo = [s for s in spans if s["span_id"] == root_id]
+    while todo:
+        s = todo.pop()
+        yield s
+        todo.extend(children.get(s["span_id"], []))
+
+
 # Process-default tracer + conveniences.
 TRACER = Tracer()
 
@@ -338,12 +386,20 @@ def span(name: str, parent: Optional[dict] = None, **attrs):
     return TRACER.span(name, parent=parent, **attrs)
 
 
+def traced(name: Optional[str] = None, **attrs) -> Callable:
+    return TRACER.trace(name, **attrs)
+
+
 def current_context() -> Optional[dict]:
     return TRACER.current_context()
 
 
 def current_span():
     return TRACER.current_span()
+
+
+def record(rec: dict) -> None:
+    TRACER.record(rec)
 
 
 def spans(limit: Optional[int] = None) -> list[dict]:

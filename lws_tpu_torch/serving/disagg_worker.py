@@ -210,16 +210,19 @@ class RoleGroup:
             q.put(cmd)
 
     def stop(self, timeout_s: float = 60.0) -> None:
-        """Send the stop, reap every other rank, tear the group down."""
+        """Send the stop, tear the group down as the other ranks do, then
+        reap them. Every rank tears down together: over NCCL (four H100s,
+        tp = 2) a follower did not exit while rank 0 waited to reap it
+        before its own teardown; over gloo either order ends."""
         import torch.distributed as dist
 
         from lws_tpu_torch.parallel import launch
 
         self.send({"op": "stop"})
-        if self._ctx is not None:
-            launch.join(self._ctx, timeout_s=timeout_s)
         if dist.is_initialized():
             dist.destroy_process_group()
+        if self._ctx is not None:
+            launch.join(self._ctx, timeout_s=timeout_s)
 
 
 # ---------------------------------------------------------------------------

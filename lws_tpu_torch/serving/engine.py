@@ -232,11 +232,17 @@ class Engine:
         self.params = params
         self.batch_size = batch_size
         self.max_len = max_len
-        self.sampling = sampling
+        self._sampling = sampling
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
         if pipeline_depth is None:
             pipeline_depth = 2 if self.device.type == "cuda" else 0
         self.pipeline_depth = pipeline_depth
+
+    @property
+    def sampling(self) -> SamplingParams:
+        """Read-only, as JAX's (where sampling is compiled into the jitted
+        decode paths): build a new Engine to change it."""
+        return self._sampling
 
     @staticmethod
     def _draft_ngram(context: list, ngram: int, gamma: int) -> list:
