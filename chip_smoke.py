@@ -261,7 +261,11 @@ engine paths, 15 trains.
      trains on XLA attention). --train-only --mesh runs the same config on
      several cards (one rank per card, NCCL), each layout's ranks agreeing
      and its step-0 loss near the single card's, with ms per step, tokens/s
-     per card and NCCL's share of a step.
+     per card, NCCL's share of a step and its kernels by kind, and each
+     rank's block-input sequence length; at tp > 1 the training forward
+     must hold the sequence share over tp (sequence parallelism): blocks fed
+     [B, ceil(S / (cp tp)), D], reduce-scatters run and no all-reduce over
+     tp in the forward.
 Every engine path is driven with all kernels' launch counts set to 0 just
 before it and read just after, and the counts are checked exactly. The
 port's telemetry is armed for paths 5-13 (tracing on, a fresh SLO recorder
@@ -340,6 +344,17 @@ class SmokeFailure(RuntimeError):
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise SmokeFailure(msg)
+
+
+def device_kernels(prof) -> list:
+    """A torch.profiler run's key_averages() rows of device kernels: CUDA
+    events but the GPU user annotations (ProcessGroupNCCL brackets each
+    collective with one, `nccl:<op>`, which repeats its kernel's time and
+    count; torch's own table leaves them out of device totals too)."""
+    from torch.autograd import DeviceType
+
+    return [ev for ev in prof.key_averages()
+            if ev.device_type == DeviceType.CUDA and not getattr(ev, "is_user_annotation", False)]
 
 
 def card_line() -> str:
@@ -2857,7 +2872,6 @@ def phase_profile(torch, engine, prompts, what: str, steps: int = 16,
     8-slot paged engine (torch.profiler, CUDA activity), or with
     `speculative` over `steps` verify passes (step_speculative), and the
     device's busy share of the window's wall time."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     budget = steps * (GAMMA + 1) + 8 if speculative else steps + 8  # never exhausted in the window
@@ -2882,9 +2896,7 @@ def phase_profile(torch, engine, prompts, what: str, steps: int = 16,
     families = {"paged_decode": 0.0, "flash": 0.0, "products (int8_matmul)": 0.0,
                 "products (cuBLAS)": 0.0, "other": 0.0}
     rows, launches = [], 0
-    for ev in prof.key_averages():
-        if ev.device_type != DeviceType.CUDA:  # CPU ops carry their kernels' time too
-            continue
+    for ev in device_kernels(prof):  # CPU ops carry their kernels' time too
         us = ev.self_device_time_total
         name, low = ev.key, ev.key.lower()
         rows.append((us, ev.count, name))
@@ -3008,7 +3020,6 @@ def tp_profile(torch, engine, prompts, record: bool, steps: int = 16) -> Optiona
     """Every rank runs `steps` steady decode steps of the 8-slot TP engine
     in lockstep; `record` (rank 0) profiles them: the device time of the
     NCCL kernels against all device time and against the window's wall."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     import contextlib
@@ -3033,9 +3044,7 @@ def tp_profile(torch, engine, prompts, record: bool, steps: int = 16) -> Optiona
         return None
     nccl = busy = 0.0
     launches = nccl_launches = 0
-    for ev in prof.key_averages():
-        if ev.device_type != DeviceType.CUDA:
-            continue
+    for ev in device_kernels(prof):
         busy += ev.self_device_time_total
         launches += ev.count
         if "nccl" in ev.key.lower():
@@ -3289,6 +3298,32 @@ PAIR_PROFILE_HZ = 67.0  # the decode role's continuous profiler (LWS_TPU_PROFILE
 # The poison prompt: more rows than the decode role's max_len (MAX_LEN),
 # prefilled by the second prefill process, whose budget is larger.
 PAIR_POISON_LEN, PAIR_POISON_MAX_LEN = MAX_LEN + 64, MAX_LEN + 128
+# Ports that a child process binds later (KV, telemetry, API server) are
+# drawn from here: below Linux's ephemeral range (32768-60999 by default), so
+# no bind to port 0 and no outgoing connection of any process (a group's
+# rendezvous store, NCCL's bootstrap, a readiness probe) can take one between
+# the pick and the child's bind, as it can a port that `bind(0)` handed out.
+LISTEN_PORTS = (20000, 32768)
+
+
+def listen_ports(names) -> dict:
+    """One distinct port of LISTEN_PORTS per name, each free on every
+    address when drawn."""
+    import random
+    import socket
+
+    rng, ports = random.Random(), {}
+    while len(ports) < len(names):
+        port = rng.randrange(*LISTEN_PORTS)
+        if port in ports.values():
+            continue
+        with socket.socket() as s:
+            try:
+                s.bind(("", port))
+            except OSError:
+                continue
+        ports[names[len(ports)]] = port
+    return ports
 
 
 class StandInApi:
@@ -3760,7 +3795,6 @@ def disagg_profile_member(rank: int, out_dir: str, prompt) -> None:
     steps profiled on rank 0 (every rank runs them in lockstep)."""
     import torch
     import torch.distributed as dist
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     import contextlib
@@ -3786,11 +3820,10 @@ def disagg_profile_member(rank: int, out_dir: str, prompt) -> None:
         wall = time.perf_counter() - t0
     if rank == 0:
         nccl = busy = 0.0
-        for ev in prof.key_averages():
-            if ev.device_type == DeviceType.CUDA:
-                busy += ev.self_device_time_total
-                if "nccl" in ev.key.lower():
-                    nccl += ev.self_device_time_total
+        for ev in device_kernels(prof):
+            busy += ev.self_device_time_total
+            if "nccl" in ev.key.lower():
+                nccl += ev.self_device_time_total
         with open(os.path.join(out_dir, "profile.json"), "w") as f:
             json.dump({"wall_ms": wall * 1e3, "busy_ms": busy / 1e3, "nccl_ms": nccl / 1e3}, f)
     dist.destroy_process_group()
@@ -3899,7 +3932,6 @@ def path_tp_disagg(torch, dev, tp: int, refs: dict, profile_nccl: bool = False) 
     import tempfile
 
     from lws_tpu_torch import loadgen
-    from lws_tpu_torch.parallel import launch
     from lws_tpu_torch.models.flagship import flagship_config
 
     t_path = time.perf_counter()
@@ -3909,10 +3941,7 @@ def path_tp_disagg(torch, dev, tp: int, refs: dict, profile_nccl: bool = False) 
     split = cards_all >= 2 * tp
     cards = {"prefill": ",".join(str(c) for c in range(tp)),
              "decode": ",".join(str(c) for c in (range(tp, 2 * tp) if split else range(tp)))}
-    ports: dict = {}
-    names = ("prefill", "decode", "prefill-metrics", "decode-metrics")
-    while len(set(ports.values())) < len(names):  # a released port may come back
-        ports = {name: launch.free_port() for name in names}
+    ports = listen_ports(("prefill", "decode", "prefill-metrics", "decode-metrics"))
     api = StandInApi({role: ports[role] for role in ("prefill", "decode")})
     long_p, short_p = refs[(1000, 0)]["prompt"], refs[(100, 0)]["prompt"]
     spec = loadgen.load_scenario("shared_prefix")
@@ -4956,15 +4985,11 @@ def path_deployed_pair(torch, dev, refs: dict) -> dict:
     from lws_tpu_torch import loadgen
     from lws_tpu_torch.client import RemoteClient
     from lws_tpu_torch.models.flagship import flagship_config
-    from lws_tpu_torch.parallel import launch
     from lws_tpu_torch.serving import kv_transport as kt
 
     t_path = time.perf_counter()
     L = flagship_config("full" if PAIR_MODEL == "flagship" else "smoke").n_layers
-    names = ("api", "prefill", "decode", "prefill-metrics", "decode-metrics")
-    ports: dict = {}
-    while len(set(ports.values())) < len(names):  # a released port may come back
-        ports = {name: launch.free_port() for name in names}
+    ports = listen_ports(("api", "prefill", "decode", "prefill-metrics", "decode-metrics"))
     metrics_ports = {r: ports[f"{r}-metrics"] for r in ("prefill", "decode")}
     api_url = f"https://127.0.0.1:{ports['api']}"
     long_p, short_p = refs[(1000, 0)]["prompt"], refs[(100, 0)]["prompt"]
@@ -5336,7 +5361,6 @@ def profile_train_steps(torch, run, params, state, tokens, steps: int = 2) -> tu
     """torch.profiler over `steps` steady training steps: wall, device busy,
     kernels a step, NCCL's device time, and the largest kernels by device
     time. Returns (record, params, state)."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -5349,9 +5373,7 @@ def profile_train_steps(torch, run, params, state, tokens, steps: int = 2) -> tu
     busy = nccl = 0.0
     kernels = 0
     top = []
-    for ev in prof.key_averages():
-        if ev.device_type != DeviceType.CUDA:
-            continue
+    for ev in device_kernels(prof):
         busy += ev.self_device_time_total
         kernels += ev.count
         top.append((ev.self_device_time_total, ev.key, ev.count))
@@ -5590,15 +5612,70 @@ def mesh_label(dims, m: int) -> str:
     return "(" + ", ".join(parts or ["one rank"]) + ")" + (f" {how}" if how else "")
 
 
+NCCL_KINDS = ("AllReduce", "ReduceScatter", "AllGather", "SendRecv")
+
+
+def nccl_kind(key: str):
+    """The collective an NCCL kernel's name says it runs (NCCL_KINDS, else
+    "other"), or None for a kernel that is not NCCL's."""
+    if "nccl" not in key.lower():
+        return None
+    return next((k for k in NCCL_KINDS if k.lower() in key.lower()), "other")
+
+
+def forward_collectives(torch, params, batch, mesh) -> tuple:
+    """One training forward (loss_fn with autograd, no backward) with the
+    collectives it posts counted on the host: (its loss, {every
+    all-reduce's element count and whether it runs over the tp group, the
+    reduce-scatters, the all-gathers}), the last two through
+    parallel/collectives.py's own calls. `mesh` may be None."""
+    import torch.distributed as dist
+
+    from lws_tpu_torch.models.llama import loss_fn
+    from lws_tpu_torch.parallel import collectives
+
+    calls = {"all_reduce": [], "reduce_scatter": 0, "all_gather": 0}
+    real_all_reduce = dist.all_reduce
+    # A package without sequence parallelism has no reduce-scatter to count.
+    wrapped = {k: getattr(collectives, name) for k, name in (
+        ("reduce_scatter", "_reduce_scatter_single"), ("all_gather", "_all_gather_single"))
+        if hasattr(collectives, name)}
+
+    tp = None if mesh is None else mesh.tp_group
+
+    def all_reduce(t, *a, group=None, **kw):
+        calls["all_reduce"].append((t.numel(), tp is not None and group is tp))
+        return real_all_reduce(t, *a, group=group, **kw)
+
+    def counted(key):
+        def fn(*a, **kw):
+            calls[key] += 1
+            return wrapped[key](*a, **kw)
+        return fn
+
+    dist.all_reduce = all_reduce
+    for key in wrapped:
+        setattr(collectives, f"_{key}_single", counted(key))
+    try:
+        loss, _ = loss_fn(params, batch)
+    finally:
+        dist.all_reduce = real_all_reduce
+        for key, fn in wrapped.items():
+            setattr(collectives, f"_{key}_single", fn)
+    return loss, calls
+
+
 def train_layout_run(torch, dev, mesh, m: int, steps: int = 4) -> dict:
     """One layout on every rank: the seed-0 weights as this rank's shards,
     `steps` steps on train_tokens (the first's loss is step 0's), the later
-    ones timed, then one step under torch.profiler for NCCL's share."""
-    from torch.autograd import DeviceType
+    ones timed, each training block's input sequence lengths recorded
+    (forward pre-hooks), then one step under torch.profiler for NCCL's
+    share and its kernels by kind, and one forward with its collectives
+    counted (forward_collectives)."""
     from torch.profiler import ProfilerActivity, profile
 
     from lws_tpu_torch.models.llama import init_params
-    from lws_tpu_torch.models.train import make_optimizer, make_train_step
+    from lws_tpu_torch.models.train import dp_rows, make_optimizer, make_train_step, value_and_grad
 
     cfg = train_config(torch, context_parallel=mesh.cp > 1, pipeline_microbatches=m)
     opt = make_optimizer()
@@ -5606,6 +5683,9 @@ def train_layout_run(torch, dev, mesh, m: int, steps: int = 4) -> dict:
     state = opt.init(params)
     run = make_train_step(cfg, mesh, opt)
     tokens = train_tokens(torch, dev, cfg)
+    block_seq = set()
+    hooks = [blk.register_forward_pre_hook(lambda mod, args: block_seq.add(args[0].shape[1]))
+             for blk in params.layers]
     losses = []
     torch.cuda.reset_peak_memory_stats(dev)
     for i in range(steps):
@@ -5616,18 +5696,41 @@ def train_layout_run(torch, dev, mesh, m: int, steps: int = 4) -> dict:
         losses.append(loss)
     torch.cuda.synchronize()
     step_s = (time.perf_counter() - t0) / (steps - 1)
+    for h in hooks:
+        h.remove()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         params, state, loss, _ = run(params, state, {"tokens": tokens})
         torch.cuda.synchronize()
     busy = nccl = 0.0
-    for ev in prof.key_averages():
-        if ev.device_type == DeviceType.CUDA:
-            busy += ev.self_device_time_total
-            if "nccl" in ev.key.lower():
-                nccl += ev.self_device_time_total
+    kinds = {}
+    for ev in device_kernels(prof):
+        busy += ev.self_device_time_total
+        kind = nccl_kind(ev.key)
+        if kind is not None:
+            nccl += ev.self_device_time_total
+            n, us = kinds.get(kind, (0, 0.0))
+            kinds[kind] = (n + ev.count, us + ev.self_device_time_total)
+    # The annotations device_kernels leaves out, to show what they repeat.
+    notes = {ev.key: [ev.count, ev.self_device_time_total / 1e3] for ev in prof.key_averages()
+             if getattr(ev, "is_user_annotation", False) and "nccl" in ev.key.lower()
+             and ev.self_device_time_total > 0}
+    peak = torch.cuda.max_memory_allocated(dev)
+    # The forward and backward alone (path 15's remat measurement): the
+    # step's peak is the AdamW update's, which activations do not reach.
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    grads = value_and_grad(params, tokens, mesh)[2]
+    torch.cuda.synchronize()
+    fb_peak = torch.cuda.max_memory_allocated(dev)
+    del grads
+    calls = forward_collectives(torch, params, {"tokens": dp_rows(tokens, cfg, mesh)}, mesh)[1]
     out = {"losses": [float(x) for x in losses], "step_ms": step_s * 1e3,
-           "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
-           "busy_ms": busy / 1e3, "nccl_ms": nccl / 1e3}
+           "peak_gb": peak / 1e9, "fb_above_mb": (fb_peak - resident) / 1e6,
+           "busy_ms": busy / 1e3, "nccl_ms": nccl / 1e3,
+           "nccl_kinds": {k: [n, us / 1e3] for k, (n, us) in sorted(kinds.items())},
+           "nccl_annotations": notes,
+           "block_seq": sorted(block_seq), "forward_calls": calls}
     del params, state
     torch.cuda.empty_cache()
     return out
@@ -5734,9 +5837,42 @@ def path_train_meshes(torch, dev, layouts) -> None:
               f"(single card {ref:.5f}), losses " + ", ".join(f"{x:.5f}" for x in per[0]["losses"])
               + f" (steps 1-3 rel {rel} of the single card's); {step_ms:.1f} ms/step, {per_card:.0f} tokens/s per card "
               f"({per_card / ref_tok_s:.3f}x one card's), peak "
-              f"{max(p['peak_gb'] for p in per):.2f} GB; NCCL "
+              f"{max(p['peak_gb'] for p in per):.3f} GB (a forward and backward alone: "
+              f"{max(p['fb_above_mb'] for p in per):.1f} MB above the resident state); NCCL "
               f"{per[0]['nccl_ms']:.1f} ms of {per[0]['busy_ms']:.1f} ms device time in a profiled "
               f"step on rank 0 ({nccl})")
+        kinds = ", ".join(f"{k} x{n} {ms:.2f} ms" for k, (n, ms) in per[0]["nccl_kinds"].items())
+        calls = per[0]["forward_calls"]
+        tp_ar = sum(1 for _, on_tp in calls["all_reduce"] if on_tp)
+        print(f"training {mesh_label(dims, m)}: NCCL kernels of that step on rank 0: "
+              f"{kinds or 'none recorded'}; block inputs (B, s, D) by rank: s = "
+              + ", ".join(f"{p['block_seq']}" for p in per)
+              + "; GPU user annotations left out: "
+              + (", ".join(f"{k} x{n} {ms:.2f} ms" for k, (n, ms)
+                           in sorted(per[0]["nccl_annotations"].items())) or "none")
+              + f"; one forward on rank 0 posts {calls['reduce_scatter']} reduce-scatters, "
+              f"{calls['all_gather']} all-gathers, {len(calls['all_reduce'])} all-reduces "
+              f"({tp_ar} over tp, largest {max((n for n, _ in calls['all_reduce']), default=0)} "
+              f"elements)")
+    # Sequence parallelism, checked once every layout has printed its line.
+    for i, (dims, m) in enumerate(layouts):
+        dp, pp, cp, tp = dims
+        per = [rec[i] for rec in recs]
+        S_local = TRAIN_SEQ // cp
+        share = -(-S_local // tp)
+        for r, p in enumerate(per):
+            calls = p["forward_calls"]
+            check(p["block_seq"] == [share],
+                  f"{mesh_label(dims, m)}: rank {r}'s blocks took sequence lengths "
+                  f"{p['block_seq']}, not its share {share} of {S_local} over tp {tp}")
+            check(not any(on_tp for _, on_tp in calls["all_reduce"]),
+                  f"{mesh_label(dims, m)}: rank {r}'s training forward all-reduced over tp: "
+                  f"{calls['all_reduce']} (element counts, over tp)")
+            if tp > 1:
+                check(calls["reduce_scatter"] > 0
+                      and p["nccl_kinds"].get("ReduceScatter", [0])[0] > 0,
+                      f"{mesh_label(dims, m)}: rank {r} ran no reduce-scatter at tp {tp}: "
+                      f"{calls}, {p['nccl_kinds']}")
 
 
 def check_compile_ledger(sources, reports) -> dict:

@@ -58,23 +58,33 @@ aux loss / n_layers), and `loss_fn` the causal LM loss over it. Attention is
 cfg.context_parallel the ring over the mesh's cp group (ops/ring.py);
 cfg.remat recomputes each block in the backward
 (torch.utils.checkpoint, JAX's jax.checkpoint of _block). Under a mesh the
-collectives are parallel/collectives.py's autograd functions: `copy_to` at
-the column-parallel inputs (wq/wk/wv, the FFN, a rank's experts, the
-lm_head) and `psum` after wo, the FFN and the masked embedding (Megatron's
-pair), the lm_head's `all_gather`. So every rank's gradient of a parameter
-it holds is the whole gradient of what its data contributes: tp-replicated
-parameters (norms, the router) need no further sum over tp. With
-pp > 1 a `Llama` holds the L/pp layers of its stage (JAX's P("pp") layer
-shard): `forward` gathers the stack from every stage (the weight-gathered
-path, lws_tpu/models/pipeline.py:1-4), or with cfg.pipeline_microbatches
-runs GPipe (models/pipeline.py). With cfg.context_parallel rank r holds
-tokens [r * S/cp, (r + 1) * S/cp) of every row: RoPE positions start at r *
+collectives are parallel/collectives.py's autograd functions, with
+sequence parallelism (JAX's _seq_shard, lws_tpu/models/llama.py:354):
+between blocks each tp rank holds its share of the sequence,
+[B, ceil(S / tp), D], S padded up to a multiple of tp with zero positions
+that never reach attention, the MoE or the loss. The masked embedding is
+reduce-scattered along S (`seq_scatter`), the norms and residuals run on
+the share, `seq_gather` (an all-gather whose backward reduce-scatters)
+feeds wq/wk/wv, the FFN and the lm_head with the whole sequence, and wo's
+and the FFN's partial sums are reduce-scattered back to the share: the
+all-gather and reduce-scatter GSPMD puts in place of Megatron's `copy_to`
+and `psum`. So remat keeps 1/tp of each block's input, and every rank's
+gradient of a tp-split parameter is the whole gradient of what its data
+contributes; a norm's covers only the rank's positions, and the training
+step sums the norms' over tp (models/train.py). The router sees the whole
+gathered sequence on every tp rank and needs no such sum. The serving
+forwards keep the whole sequence on every rank (`copy_to`, `psum`), as
+JAX's call _block_core without seq_shard. With pp > 1 a `Llama` holds the
+L/pp layers of its stage (JAX's P("pp") layer shard): `forward` gathers
+the stack from every stage (the weight-gathered path,
+lws_tpu/models/pipeline.py:1-4), or with cfg.pipeline_microbatches runs
+GPipe (models/pipeline.py) on the tp shares. With cfg.context_parallel
+rank r holds tokens [r * S/cp, (r + 1) * S/cp) of every row, and its tp
+share of them (JAX's ("cp", "tp") split of S): RoPE positions start at r *
 S/cp, and the MoE routes over the gathered sequence (JAX's _moe_ffn sees
 the whole sequence: capacity and the expert queues are the sequence's). The
 aux loss is computed over the global batch (token counts summed over dp),
-each rank's share from its own tokens. JAX's _seq_shard (sequence
-parallelism between blocks) has no counterpart: it is a GSPMD layout hint
-that changes no number; sharding activations over tp is a later item.
+each rank's share from its own tokens.
 """
 
 from __future__ import annotations
@@ -91,7 +101,14 @@ from torch import nn
 from lws_tpu_torch._device import DeviceLike, resolve_device
 from lws_tpu_torch.models.quant import QuantizedWeight, embed_lookup, expert_einsum, matmul
 from lws_tpu_torch.ops.attention import attention, reference_attention
-from lws_tpu_torch.parallel.collectives import all_gather, all_gather_partial, copy_to, psum
+from lws_tpu_torch.parallel.collectives import (
+    all_gather,
+    all_gather_partial,
+    copy_to,
+    group_size,
+    psum,
+    reduce_scatter,
+)
 from lws_tpu_torch.ops.int8_attention import (
     int8_decode_attention,
     int8_decode_attention_reference,
@@ -115,7 +132,7 @@ __all__ = [
     "_quantize_kv", "_dequantize_kv", "LAYER_PRODUCTS", "LAYER_NORMS", "forward",
     "shard_params", "shard_dim", "tp_size",
     "gqa_attention", "loss_fn", "moe_route", "moe_aux", "local_param_name",
-    "global_param_name", "tp_shard",
+    "global_param_name", "tp_shard", "seq_gather", "seq_scatter",
 ]
 
 LAYER_PRODUCTS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
@@ -375,12 +392,38 @@ def moe_ffn(x: torch.Tensor, router: torch.Tensor, w_gate, w_up, w_down, top_k: 
     return _experts(x, dispatch[:, :, local], combine[:, :, local], w_gate, w_up, w_down, plain)
 
 
+def seq_gather(x: torch.Tensor, group, S: int, partial: bool = True) -> torch.Tensor:
+    """The n ranks' shares [B, ceil(S / n), D] of a sequence of S positions
+    split over `group`, gathered in rank order and cut to S (the padding
+    dropped). `partial`: the consumers are the ranks' parts of one
+    computation (column-parallel products), so the backward reduce-scatters;
+    else replicas, and it keeps the rank's slice (collectives.all_gather).
+    The identity over no group or one rank."""
+    if group_size(group) == 1:
+        return x
+    x = all_gather_partial(x, group, 1) if partial else all_gather(x, group, 1)
+    return x if x.shape[1] == S else x[:, :S]
+
+
+def seq_scatter(y: torch.Tensor, group) -> torch.Tensor:
+    """Partial sums y [B, S, D] of the n ranks of `group` -> the rank's share
+    [B, ceil(S / n), D] of their sum (reduce_scatter along the sequence, S
+    padded with zero positions to a multiple of n, as GSPMD pads an uneven
+    sharding constraint). The identity over no group or one rank."""
+    n = group_size(group)
+    if n == 1:
+        return y
+    pad = -y.shape[1] % n
+    return reduce_scatter(F.pad(y, (0, 0, 0, pad)) if pad else y, group, 1)
+
+
 class LlamaBlock(nn.Module):
     """One decoder layer: RMSNorm, GQA attention with RoPE, RMSNorm, SwiGLU
     FFN (dense, or cfg.n_experts experts behind a top-k router), both with
     residuals (lws_tpu/models/llama.py:_block_core). With a `mesh`, the
     rank's tp shard: H/tp and Hkv/tp heads, d_ff/tp FFN channels (or E/tp
-    experts), and an all-reduce after wo and after the FFN."""
+    experts), and an all-reduce after wo and after the FFN (serving) or a
+    reduce-scatter along the sequence (training, `forward(train=True)`)."""
 
     def __init__(self, cfg: LlamaConfig, device: torch.device, quantized: bool = False,
                  mesh=None):
@@ -421,47 +464,61 @@ class LlamaBlock(nn.Module):
         `plain` sends quantized products through int8_matmul's plain
         version. With `train` it returns (x, aux): the MoE aux loss share of
         the rank (moe_aux; 0 for a dense FFN), and with cfg.context_parallel
-        the MoE routes over the sequence gathered from the cp group."""
-        B, S, _ = x.shape
+        the MoE routes over the sequence gathered from the cp group.
+
+        With `train`, x is the rank's share of the sequence over tp
+        (sequence parallelism, JAX's _seq_shard): [B, ceil(S / tp), D],
+        where S = rope_cs's positions. The norms and residuals run on the
+        share; seq_gather feeds wq/wk/wv and the FFN with the whole S, and
+        wo's and the FFN's partial sums are reduce-scattered back to the
+        share (seq_scatter), in place of copy_to and psum."""
+        B = x.shape[0]
         hd, nh, nkv = self.head_dim, self.n_heads, self.n_kv_heads
         tp = self._group("tp")
-        h = copy_to(rms_norm(x, self.attn_norm, self.norm_eps), tp)
+        if train:
+            S = rope_cs[0].shape[1]
+            gather, reduce = (lambda t: seq_gather(t, tp, S)), (lambda t: seq_scatter(t, tp))
+        else:
+            S = x.shape[1]
+            gather, reduce = (lambda t: copy_to(t, tp)), (lambda t: psum(t, tp))
+        h = gather(rms_norm(x, self.attn_norm, self.norm_eps))
         q = matmul(h, self.wq.weight, plain=plain).reshape(B, S, nh, hd)
         k = matmul(h, self.wk.weight, plain=plain).reshape(B, S, nkv, hd)
         v = matmul(h, self.wv.weight, plain=plain).reshape(B, S, nkv, hd)
         q, k = apply_rope(q, *rope_cs), apply_rope(k, *rope_cs)
         attn = attn_fn(q, k, v).reshape(B, S, nh * hd)
-        x = x + psum(matmul(attn, self.wo.weight, plain=plain), tp)
+        x = x + reduce(matmul(attn, self.wo.weight, plain=plain))
         h = rms_norm(x, self.ffn_norm, self.norm_eps)
         aux = None
         if self.router is not None and train:
-            y, aux = self._moe_train(h)
+            y, aux = self._moe_train(h, S)
         elif self.router is not None:
             y = moe_ffn(h, self.router, self.w_gate.weight, self.w_up.weight, self.w_down.weight,
                         self.top_k, self.capacity_factor, plain, self.expert_offset)
         else:
-            h = copy_to(h, tp)
+            h = gather(h)
             y = matmul(F.silu(matmul(h, self.w_gate.weight, plain=plain))
                        * matmul(h, self.w_up.weight, plain=plain),
                        self.w_down.weight, plain=plain)
-        x = x + psum(y, tp)
+        x = x + reduce(y)
         if not train:
             return x
         return x, (aux if aux is not None else torch.zeros((), device=x.device))
 
-    def _moe_train(self, h: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-        """The training MoE: the rank's experts' share of the output for its
-        tokens, and its aux share. Routing sees the whole sequence (the cp
-        group's chunks gathered in order when the sequence is split, so
-        capacity and queues are JAX's); the combine weights and the experts'
-        input enter through copy_to over tp, since each tp rank's experts see
-        only part of their gradient, while the router's aux path is
-        replicated and counted once."""
+    def _moe_train(self, h: torch.Tensor, S: int) -> tuple[torch.Tensor, torch.Tensor]:
+        """The training MoE over h, the rank's share of its S positions
+        over tp: the rank's experts' partial output for those S positions
+        (the block reduce-scatters it over tp), and its aux share. Routing
+        sees the whole sequence (the tp shares, then the cp group's chunks
+        gathered in order, so capacity and queues are JAX's); the combine
+        weights and the experts' input enter through copy_to over tp, since
+        each tp rank's experts see only part of their gradient, while the
+        router's aux path is replicated and counted once (so the tp gather
+        is a replica's: its backward keeps the rank's slice)."""
         tp, cp = self._group("tp"), self._group("cp") if self.context_parallel else None
-        S = h.shape[1]
         own = slice(None) if cp is None else slice(self.mesh.cp_rank * S,
                                                     (self.mesh.cp_rank + 1) * S)
-        hg = all_gather_partial(h, cp, dim=1)
+        hg = all_gather_partial(seq_gather(h, tp, S, partial=False), cp, dim=1)
         probs, dispatch, gates = moe_route(hg, self.router, self.top_k, self.capacity_factor)
         combine = copy_to(gates, tp).to(h.dtype)[..., None] * dispatch
         local = slice(self.expert_offset, self.expert_offset + self.w_gate.weight.shape[0])
@@ -522,18 +579,25 @@ class Llama(nn.Module):
         """Final norm + lm_head in the compute dtype, returned as f32."""
         return self.head(rms_norm(x, self.final_norm, self.cfg.norm_eps), plain)
 
-    def head(self, h: torch.Tensor, plain: bool = False) -> torch.Tensor:
+    def head(self, h: torch.Tensor, plain: bool = False, seq: Optional[int] = None
+             ) -> torch.Tensor:
         """lm_head over already-normalized hidden states, returned as f32
-        (under a mesh, every rank's vocabulary shard gathered in rank order)."""
+        (under a mesh, every rank's vocabulary shard gathered in rank order).
+        With `seq` = S, h is the rank's share of S positions over tp
+        (training): the shares are gathered (seq_gather) in place of
+        copy_to, and the logits cover all S."""
         tp = None if self.mesh is None else self.mesh.tp_group
-        return all_gather(matmul(copy_to(h, tp), self.lm_head.weight, plain=plain), tp).float()
+        h = copy_to(h, tp) if seq is None else seq_gather(h, tp, seq)
+        return all_gather(matmul(h, self.lm_head.weight, plain=plain), tp).float()
 
-    def embed_tokens(self, tokens: torch.Tensor) -> torch.Tensor:
+    def embed_tokens(self, tokens: torch.Tensor, share: bool = False) -> torch.Tensor:
         """The embedding rows of `tokens` in the compute dtype. Under a mesh
         the rank holds vocabulary rows [r*V/tp, (r+1)*V/tp): it looks up the
         tokens it holds, zeroes the rest and all-reduces, so exactly one
-        rank contributes each row. A negative id counts from the end of the
-        vocabulary, as JAX's and torch's indexing of the whole table do."""
+        rank contributes each row; with `share` (training) it reduce-scatters
+        along the sequence instead and returns the rank's share over tp
+        (seq_scatter). A negative id counts from the end of the vocabulary,
+        as JAX's and torch's indexing of the whole table do."""
         dtype = self.cfg.dtype
         if self.mesh is None:
             return embed_lookup(self.embed.weight, tokens, dtype)
@@ -542,7 +606,8 @@ class Llama(nn.Module):
         local = torch.where(ids < 0, ids + self.cfg.vocab_size, ids) - self.mesh.tp_rank * n
         held = (local >= 0) & (local < n)
         x = embed_lookup(self.embed.weight, torch.where(held, local, 0), dtype)
-        return psum(x.masked_fill_(~held[..., None], 0), self.mesh.tp_group)
+        x = x.masked_fill_(~held[..., None], 0)
+        return seq_scatter(x, self.mesh.tp_group) if share else psum(x, self.mesh.tp_group)
 
 
 @torch.no_grad()
@@ -700,12 +765,18 @@ def forward(params: Llama, tokens: torch.Tensor) -> tuple[torch.Tensor, torch.Te
     global batch's (psum of the ranks' shares over the data group). With
     cfg.pipeline_microbatches the layers run as GPipe over pp
     (models/pipeline.py), which context_parallel refuses, as JAX does. Call
-    it under torch.no_grad to build no graph."""
+    it under torch.no_grad to build no graph.
+
+    Between the embedding and the final norm each tp rank holds its share
+    of those S positions, [B, ceil(S / tp), D] (JAX's _seq_shard: the
+    embedding reduce-scattered along S, the blocks fed and left so, the
+    final norm on the share, the shares gathered into the lm_head), so
+    remat keeps 1/tp of each block's input."""
     cfg, mesh = params.cfg, params.mesh
     B, S = tokens.shape
     offset = mesh.cp_rank * S if (mesh is not None and cfg.context_parallel) else 0
     positions = (offset + torch.arange(S, device=tokens.device)).expand(B, S)
-    x = params.embed_tokens(tokens)
+    x = params.embed_tokens(tokens, share=True)
     if cfg.pipeline_microbatches > 0:
         if cfg.context_parallel:
             raise NotImplementedError("pipeline_microbatches with context_parallel")
@@ -719,7 +790,7 @@ def forward(params: Llama, tokens: torch.Tensor) -> tuple[torch.Tensor, torch.Te
         for block, weights in _layer_stack(params):
             x, a = run_block(block, x, rope_cs, attn_fn, cfg.remat, weights)
             aux = aux + a
-    logits = params.logits(x)
+    logits = params.head(rms_norm(x, params.final_norm, cfg.norm_eps), seq=S)
     data = None if mesh is None else mesh.data_group(cfg.context_parallel)
     return logits, psum(aux / cfg.n_layers, data)
 

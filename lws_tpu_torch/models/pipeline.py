@@ -35,12 +35,16 @@ from lws_tpu_torch.parallel.collectives import copy_to, group_rank, group_size, 
 
 def pipeline_forward(params, x: torch.Tensor, positions: torch.Tensor
                      ) -> tuple[torch.Tensor, torch.Tensor]:
-    """x [B, S, D] embedded activations (the rank's dp rows; replicated
-    over pp), positions [B, S]; returns (x after every layer [B, S, D],
-    the layers' aux summed over stages, averaged over microbatches). Splits
-    B into cfg.pipeline_microbatches = M microbatches of B/M rows
+    """x [B, s, D] embedded activations (the rank's dp rows and its share
+    of the sequence over tp, s = ceil(S / tp); replicated over pp),
+    positions [B, S]; returns (x after every layer [B, s, D], the layers'
+    aux summed over stages, averaged over microbatches). Splits B into
+    cfg.pipeline_microbatches = M microbatches of B/M rows
     (lws_tpu/models/pipeline.py:41); a stage's layers are params.layers,
-    each run with cfg.remat as the weight-gathered path runs it."""
+    each run with cfg.remat as the weight-gathered path runs it. The
+    microbatch state and each ppermute carry the tp share, as JAX keeps the
+    pipeline's activations sharded over tp and never over cp
+    (_no_cp_activations), so a hop moves 1/tp of the bytes."""
     cfg, mesh = params.cfg, params.mesh
     M = cfg.pipeline_microbatches
     B, S, D = x.shape
@@ -50,7 +54,7 @@ def pipeline_forward(params, x: torch.Tensor, positions: torch.Tensor
     stage, n_stage = group_rank(group), group_size(group)
     attn_fn = _attention_fn(cfg, mesh)
     x_mb = copy_to(x, group).reshape(M, B // M, S, D)
-    pos_mb = positions.reshape(M, B // M, S)
+    pos_mb = positions.reshape(M, B // M, positions.shape[1])
     is_first = torch.tensor(stage == 0, device=x.device)
     is_last = torch.tensor(stage == n_stage - 1, device=x.device)
 

@@ -17,8 +17,9 @@ the moments of the parameter shards it holds (`state_shardings` names
 them). A step sums each gradient over the data group (dp, and cp with
 cfg.context_parallel: the ranks that saw different tokens; the loss was
 normalized by the global token count, so the sum is the gradient), and the
-norm for the clip counts every tp or pp shard once and every replicated
-tensor once. The parameters are updated in place: `run` returns the same
+norms' gradients over tp too (sequence parallelism: each tp rank
+normalizes its share of the positions); the norm for the clip counts every
+tp or pp shard once and every replicated tensor once. The parameters are updated in place: `run` returns the same
 `Llama` (JAX returns new, donated buffers).
 """
 
@@ -31,7 +32,14 @@ import torch
 import torch.distributed as dist
 
 from lws_tpu_torch._device import DeviceLike, resolve_device
-from lws_tpu_torch.models.llama import Llama, LlamaConfig, init_params, loss_fn, shard_dim
+from lws_tpu_torch.models.llama import (
+    LAYER_NORMS,
+    Llama,
+    LlamaConfig,
+    init_params,
+    loss_fn,
+    shard_dim,
+)
 
 __all__ = ["TrainState", "AdamW", "make_optimizer", "state_shardings", "init_train_state",
            "make_train_step", "dp_rows", "global_norm", "value_and_grad"]
@@ -175,11 +183,21 @@ def dp_rows(tokens: torch.Tensor, cfg: LlamaConfig, mesh) -> torch.Tensor:
     return mbs[:, d].reshape(M * per, *tokens.shape[1:])
 
 
+def _sequence_split(name: str) -> bool:
+    """Whether a parameter acts on the rank's sequence share over tp in
+    training: the norms (tp-replicated, applied between the sequence
+    all-gathers and reduce-scatters), whose gradient on a tp rank covers
+    only its positions."""
+    return name == "final_norm" or name.rpartition(".")[2] in LAYER_NORMS
+
+
 def value_and_grad(params: Llama, tokens: torch.Tensor, mesh=None) -> tuple:
     """(loss, {"ce", "aux"}, grads): loss_fn over the rank's rows of the
     global batch `tokens` and the gradient of every parameter the rank
     holds, summed over the data group (jax.value_and_grad(loss_fn) under
-    the mesh). Leaves no .grad behind."""
+    the mesh). The norms' gradients are also summed over tp, in one
+    all-reduce: with sequence parallelism each tp rank normalizes only its
+    share of the positions. Leaves no .grad behind."""
     cfg = params.cfg
     named = dict(params.named_parameters())
     for p in named.values():
@@ -194,6 +212,12 @@ def value_and_grad(params: Llama, tokens: torch.Tensor, mesh=None) -> tuple:
     if data is not None and dist.get_world_size(data) > 1:
         for g in grads.values():
             dist.all_reduce(g, group=data)
+    if mesh is not None and mesh.tp > 1:
+        norms = [g for n, g in grads.items() if _sequence_split(n)]
+        flat = torch.cat([g.reshape(-1) for g in norms])
+        dist.all_reduce(flat, group=mesh.tp_group)
+        for g, f in zip(norms, flat.split([g.numel() for g in norms])):
+            g.copy_(f.view_as(g))
     return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
 
 

@@ -17,10 +17,17 @@ param_shardings.
     `dim` in rank order; backward, the rank's own slice of the gradient
     (the lm_head's vocabulary shards, the weight-gathered layer stack: every
     rank's consumer is a replica of the same computation).
-  * `all_gather_partial(x, group, dim)`: the same forward; backward, the
-    gradient summed over the group, then the rank's slice (reduce-scatter):
-    the consumers are not replicas (the MoE's dispatch over a cp-split
+  * `all_gather_partial(x, group, dim)`: the same forward; backward, a
+    reduce-scatter (the gradient summed over the group, each rank keeping
+    its slice): the consumers are not replicas (the column-parallel
+    products a training block feeds from its sequence share, the lm_head
+    fed from the final norm's share, the MoE's dispatch over a cp-split
     sequence, where each rank keeps its own chunk of the output).
+  * `reduce_scatter(x, group, dim)`: the group's tensors summed and split
+    evenly along `dim`, rank r keeping part r; backward, an all-gather. It
+    ends a computation split over the group in place of `psum` when each
+    rank goes on with its share of the sequence (JAX's _seq_shard after
+    wo, the FFN and the masked embedding in training).
   * `ppermute(tensors, group, shift)`: rank r's tensors go to rank
     (r + shift) % n of the group, one batch of sends and receives; backward,
     the gradients travel the other way.
@@ -43,13 +50,16 @@ They run over NCCL on CUDA tensors and over gloo on the CPU.
 
 `group=None` means no group: every function returns its input. A group of
 one rank still runs its collective (a copy), except `ppermute`, whose
-one-rank shift is the identity. Peers of a point-to-point are named by
+one-rank shift is the identity, and `reduce_scatter` and
+`all_gather_partial`, whose one-rank forms are the identity (so sequence
+parallelism at tp = 1 runs no collective). Peers of a point-to-point are named by
 their global rank (dist.get_global_rank), as batch_isend_irecv requires
 over a subgroup.
 
 Under torch.no_grad (serving) `psum` all-reduces its argument in place and
-returns it, and `all_gather` gathers without the autograd Function's host
-cost: no autograd node is built.
+returns it, and `all_gather`, `all_gather_partial` and `reduce_scatter` run
+their collective without the autograd Function's host cost: no autograd
+node is built.
 """
 
 from __future__ import annotations
@@ -61,6 +71,9 @@ import torch.distributed as dist
 
 # all_gather_into_tensor was renamed all_gather_single (torch 2.13).
 _all_gather_single = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
+# reduce_scatter_tensor likewise became reduce_scatter_single.
+_reduce_scatter_single = (getattr(dist, "reduce_scatter_single", None)
+                          or dist.reduce_scatter_tensor)
 
 
 def group_size(group) -> int:
@@ -89,6 +102,19 @@ def _gather(x: torch.Tensor, group, dim: int) -> torch.Tensor:
 def _own_slice(g: torch.Tensor, group, dim: int) -> torch.Tensor:
     n = group_size(group)
     return g.chunk(n, dim=dim)[group_rank(group)].contiguous()
+
+
+def _reduce_scatter(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """x summed over the group, rank r keeping part r of n equal parts
+    along `dim` (the size at `dim` must divide by n)."""
+    n = group_size(group)
+    if x.shape[dim] % n:
+        raise ValueError(f"reduce_scatter: size {x.shape[dim]} at dim {dim} "
+                         f"not divisible by the group's {n} ranks")
+    front = x.movedim(dim, 0).contiguous()
+    out = front.new_empty((front.shape[0] // n, *front.shape[1:]))
+    _reduce_scatter_single(out, front, group=group)
+    return out.movedim(0, dim)
 
 
 def _shift(tensors: Sequence[torch.Tensor], group, shift: int) -> list[torch.Tensor]:
@@ -136,8 +162,19 @@ class _AllGather(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         if ctx.partial:
-            g = _all_reduce(g, ctx.group)
+            return _reduce_scatter(g, ctx.group, ctx.dim), None, None, None
         return _own_slice(g, ctx.group, ctx.dim), None, None, None
+
+
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return _reduce_scatter(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather(g, ctx.group, ctx.dim), None, None
 
 
 class _Ppermute(torch.autograd.Function):
@@ -177,9 +214,19 @@ def all_gather(x: torch.Tensor, group, dim: int = -1) -> torch.Tensor:
 
 
 def all_gather_partial(x: torch.Tensor, group, dim: int = -1) -> torch.Tensor:
-    if group is None:
+    if group_size(group) == 1:
         return x
+    if not torch.is_grad_enabled():
+        return _gather(x, group, dim % x.dim())
     return _AllGather.apply(x, group, dim % x.dim(), True)
+
+
+def reduce_scatter(x: torch.Tensor, group, dim: int = -1) -> torch.Tensor:
+    if group_size(group) == 1:
+        return x
+    if not torch.is_grad_enabled():
+        return _reduce_scatter(x, group, dim % x.dim())
+    return _ReduceScatter.apply(x, group, dim % x.dim())
 
 
 def ppermute(tensors: Sequence[torch.Tensor], group: Optional[object],

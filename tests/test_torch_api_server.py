@@ -246,8 +246,11 @@ def test_deferred_options_fail_naming_their_roadmap_item(tmp_path):
 # The commands, against the same state.
 
 
-# A normalized field in the JSON and the YAML that `get` prints.
-UID = re.compile(r'("?)(uid|resourceVersion|last_transition_time)("?): ("[^"]*"|[0-9a-f.]+)')
+# A normalized field in the JSON and the YAML that `get` prints, in either
+# quoting: YAML single-quotes a uid whose 12 hex digits read as a number
+# (all decimal digits: about 1 in 280 uuid4 draws).
+UID = re.compile(r'("?)(uid|resourceVersion|last_transition_time)("?): '
+                 r'''("[^"]*"|'[^']*'|[0-9a-f.]+)''')
 
 
 # The age `events` prints in front of each line, from the normalized timestamp.

@@ -32,10 +32,12 @@ from lws_tpu.core import trace as jtrace
 from lws_tpu.obs import decisions as jdecisions
 from lws_tpu.obs import device as jdevice
 from lws_tpu.obs import history as jhistory
+from lws_tpu.obs import journey as jjourney
 from lws_tpu.obs import recommend as jrecommend
 from lws_tpu.obs import rollout as jrollout
 from lws_tpu_torch import cli, loadgen
 from lws_tpu_torch.core import flightrecorder, metrics, slo, trace
+from lws_tpu_torch.obs import journey
 
 REPO = Path(__file__).resolve().parents[1]
 
@@ -59,12 +61,17 @@ def fresh_process_defaults(monkeypatch):
     (the engines report into them, `install_class_targets` writes class
     targets there), the JAX compile ledger's listener kept out, and each
     CLI's token and TLS context unset: the in-process runs leave no state
-    for a later test."""
-    for m, s, t, fr in ((metrics, slo, trace, flightrecorder), (jmetrics, jslo, jtrace, jfr)):
+    for a later test. Each package's `journey._INSTALLED` is put back too:
+    an ApiServer started here wires the journey feeds onto the fresh
+    objects and sets it, and left set it makes a later `journey.install()`
+    in the same process a no-op while the real tracer has no feed."""
+    for m, s, t, fr, j in ((metrics, slo, trace, flightrecorder, journey),
+                           (jmetrics, jslo, jtrace, jfr, jjourney)):
         monkeypatch.setattr(m, "REGISTRY", m.MetricsRegistry())
         monkeypatch.setattr(s, "RECORDER", s.SLORecorder())
         monkeypatch.setattr(t, "TRACER", t.Tracer())
         monkeypatch.setattr(fr, "RECORDER", fr.FlightRecorder())
+        monkeypatch.setattr(j, "_INSTALLED", j._INSTALLED)
     monkeypatch.setattr(jdevice.LEDGER, "_enabled", False)
     for c in (cli, jcli):
         monkeypatch.setattr(c, "_TOKEN", None)

@@ -833,7 +833,11 @@ def worker_feeds(monkeypatch):
     runs (`journey.install()`, `_force_tracing`); each package's feeds, its
     VAULT and its fault INJECTOR put back afterwards. The default SLO
     targets are out of reach, so that no journey is flagged breached by
-    how fast this machine decodes."""
+    how fast this machine decodes. `_INSTALLED` is cleared before each
+    `install()`, so the feeds land on the process defaults as they are
+    now, even where an earlier test in the process left it set after
+    wiring them onto objects it had swapped in (`install()` is idempotent
+    per feed); `restore_journey_feeds` puts the flag back."""
     from tests.test_torch_fleet import journey_feeds, restore_journey_feeds
 
     planes = {id(pkg): (pkg["journey"], pkg["trace"], pkg["fr"], pkg["slo"])
@@ -845,6 +849,7 @@ def worker_feeds(monkeypatch):
         monkeypatch.setattr(pkg["slo"].RECORDER, "targets", pkg["slo"].SLOTargets(
             ttft_s=1e9, itl_s=1e9, queue_wait_s=1e9))
         pkg["journey"].VAULT.clear()
+        pkg["journey"]._INSTALLED = False
         pkg["journey"].install()
     yield
     for pkg in (PORT, JAX):
@@ -921,6 +926,14 @@ def jax_decode_process(engine, server, steps: int):
     return process
 
 
+def wait_for_requeue(server, timeout_s: float = 30.0) -> None:
+    """Until `server` (either package's KVServer) holds a bundle again."""
+    deadline = time.monotonic() + timeout_s
+    while server._bundles.qsize() == 0:
+        assert time.monotonic() < deadline, "the bundle was not re-queued"
+        time.sleep(0.01)
+
+
 def journey_digest(j):
     """What a journey says about its request, without ids, clocks or the
     packages' own decode spans' timings."""
@@ -956,6 +969,7 @@ def test_the_decode_fault_drill_with_worker_feeds_installed_matches_jax(worker_f
         process = (dw.decode_processor(eng, server, steps=3) if name == "port"
                    else jax_decode_process(eng, server, 3))
         sides[name] = (pkg, wire, server, ("127.0.0.1", server.port), process)
+    server_of = {id(pkg): server for pkg, _, server, _, _ in sides.values()}
     try:
         def step(fn) -> dict:
             got = {}
@@ -977,6 +991,10 @@ def test_the_decode_fault_drill_with_worker_feeds_installed_matches_jax(worker_f
             pkg["faults"].INJECTOR.arm("disagg.decode.process", "fail_n_times:1")
             with pytest.raises(OSError):
                 wire.pull_bundle(ep, timeout=1.0, process=process)
+            # The server's handler thread records `kv_requeue` (which opens
+            # the journey) and then re-queues the bundle once it sees the
+            # dropped connection, after the puller has raised: wait for it.
+            wait_for_requeue(server_of[id(pkg)])
             return wire.pull_result(ep, "r")
 
         out, opened, _ = step(failed_pull)

@@ -3,9 +3,11 @@ package's on the same mesh shapes (the 8-device virtual CPU mesh of
 tests/conftest.py), f32 tiny configs. The four-rank meshes are in
 tests/test_torch_train_mesh4.py, which shares this module's members.
 
-For each mesh (tp 2; GPipe over pp 2 with 2 microbatches; the ring over
-cp 2; MoE at tp 2 and on the ring at cp 2) every rank starts from JAX's
-initial weights landed as its shard (params_from_jax(..., mesh=...)) and:
+For each mesh (tp 2, and tp 2 at an odd sequence, where the sequence
+shares over tp are padded; GPipe over pp 2 with 2 microbatches; the ring
+over cp 2; MoE at tp 2 and on the ring at cp 2) every rank starts from
+JAX's initial weights landed as its shard (params_from_jax(..., mesh=...))
+and:
   * its gradient of every parameter it holds (after the sum over the data
     group) equals the single device's: jax.grad(loss_fn) on one device,
     placed with JAX's NamedSharding of the mesh and read at the rank's
@@ -15,7 +17,17 @@ initial weights landed as its shard (params_from_jax(..., mesh=...)) and:
     shards equal JAX's NamedSharding shards at its device (parameters
     within PARAM_ATOL, with test_torch_train's exemption for elements whose
     gradient was tiny; moments within 1e-4 of their largest).
-A factor of pp, cp or dp in any gradient fails the first check.
+A factor of pp, cp, dp or tp in any gradient fails the first check (the
+norms' gradients, each tp rank's from its share of the sequence, are
+summed over tp once).
+
+The layout check (`run_layout`, at tp 2 here and at (cp 2, tp 2) in the
+four-rank file) holds the training forward to sequence parallelism: every
+block receives the rank's share [B, ceil(S / (cp tp)), D]; the tensors
+saved for backward (saved_tensors_hooks, remat on) take fewer bytes than
+the same model's with no mesh, the blocks' saved inputs exactly 1/(cp tp)
+of them; and the forward runs reduce-scatters and no all-reduce over tp
+(none of a [B, S, D] tensor over any group).
 
 Each world size is one spawn whose members run every case of that world in
 order; JAX's oracles are computed once in the parent. The members'
@@ -80,7 +92,53 @@ def run_train(case, mesh) -> dict:
             "count": int(state["count"])}
 
 
-RUNNERS = {"train": run_train}
+def run_layout(case, mesh) -> dict:
+    """One forward and backward of loss_fn with remat, on `mesh` and with no
+    mesh, from the same seeded weights and rows: the sequence length of
+    every training block's input, the bytes of the tensors saved for
+    backward (and of those among them that are block inputs), and the
+    collectives the forward ran (chip_smoke.forward_collectives, the
+    four-card run's own count)."""
+    import dataclasses
+
+    import torch
+
+    import chip_smoke
+    from lws_tpu_torch.models.llama import init_params
+
+    cfg = case["cfg"]
+    tokens = torch.from_numpy(case["tokens"])
+    out = {"coords": dict(mesh.coords)}
+    for name, m, c in (("mesh", mesh, cfg),
+                       ("none", None, dataclasses.replace(cfg, context_parallel=False))):
+        model = init_params(c, torch.Generator().manual_seed(0), "cpu", mesh=m)
+        for p in model.parameters():
+            p.requires_grad_(True)
+        inputs, ptrs, saved = [], set(), []
+
+        def block_input(mod, args):
+            inputs.append(tuple(args[0].shape))
+            ptrs.add(args[0].data_ptr())
+
+        def pack(t):
+            saved.append((t.numel() * t.element_size(), t.data_ptr()))
+            return t
+
+        hooks = [blk.register_forward_pre_hook(block_input) for blk in model.layers]
+        with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+            loss, calls = chip_smoke.forward_collectives(torch, model, {"tokens": tokens}, m)
+        n_forward = len(inputs)
+        loss.backward()  # remat reruns every block from its saved input
+        for h in hooks:
+            h.remove()
+        out[name] = {"inputs": inputs, "n_forward": n_forward,
+                     "saved": sum(b for b, _ in saved),
+                     "saved_inputs": sum(b for b, p in saved if p in ptrs),
+                     "calls": calls, "loss": float(loss)}
+    return out
+
+
+RUNNERS = {"train": run_train, "layout": run_layout}
 
 
 def member(rank: int, cases: list, out_dir: str, runners_module: str) -> None:
@@ -130,7 +188,10 @@ def jax_cfg(moe: bool = False, **kw):
     return LlamaConfig(**base)
 
 
-def batch_tokens(B: int = 4, S: int = 17) -> np.ndarray:
+SEQ = 17  # token columns: 16 inputs and their shifted targets
+
+
+def batch_tokens(B: int = 4, S: int = SEQ) -> np.ndarray:
     """Rows 0 and 1 (dp rank 0's under dp 2) carry -1 padding, so the masks
     are uneven over dp: rank 0 has fewer targets than rank 1."""
     toks = np.random.default_rng(5).integers(0, 128, (B, S)).astype(np.int32)
@@ -143,11 +204,19 @@ def _local(a, dev):
     return next(np.asarray(s.data) for s in a.addressable_shards if s.device == dev)
 
 
-def jax_case(name: str, mesh: dict, jcfg, single: dict) -> tuple[dict, dict]:
+def jax_case(name: str, mesh: dict, jcfg, single: dict, seq: int = SEQ,
+             params_ref: str = "sharded") -> tuple[dict, dict]:
     """(the members' case, the parent's oracle): JAX's sharded training run
-    on `mesh` (init_train_state, STEPS make_train_step steps), with the
-    single-device gradients at the start and at each step placed on the
-    mesh. `single` caches the jitted single-device gradient per config."""
+    on `mesh` (init_train_state, STEPS make_train_step steps) over
+    batch_tokens(S=seq), with the single-device gradients at the start and
+    at each step placed on the mesh. `single` caches the jitted
+    single-device gradient per config. With params_ref="single" the
+    parameters are held to JAX's STEPS steps on one device (placed on the
+    mesh) instead of its sharded run's: over a sequence that tp does not
+    divide, GSPMD's padded layout moves JAX's own sharded parameters past
+    PARAM_ATOL from its single-device ones within three steps (tp 2 at 15
+    positions: one element of w_gate whose gradient is not small), while
+    the port stays within it of the single device."""
     import jax
     import jax.numpy as jnp
 
@@ -168,7 +237,7 @@ def jax_case(name: str, mesh: dict, jcfg, single: dict) -> tuple[dict, dict]:
         single[key] = jax.jit(jax.grad(lambda p, b: loss_fn(p, b, plain)[0]))
     grad_fn = single[key]
     shardings = jax.tree.map(lambda s: NamedSharding(jmesh, s), param_shardings(jcfg))
-    toks = batch_tokens()
+    toks = batch_tokens(S=seq)
     batch = {"tokens": jnp.asarray(toks)}
     step = make_train_step(jcfg, jmesh, opt)
     params, opt_state, losses, grads = state.params, state.opt_state, [], []
@@ -178,6 +247,14 @@ def jax_case(name: str, mesh: dict, jcfg, single: dict) -> tuple[dict, dict]:
         params, opt_state, loss, _ = step(params, opt_state, batch)
         losses.append(float(loss))
     adam = opt_state[1][0]
+    if params_ref == "single":
+        one = build_mesh(MeshSpec(), jax.devices()[:1])
+        ref = init_train_state(plain, one, opt)
+        one_step = make_train_step(plain, one, opt)
+        ref_params, ref_opt = ref.params, ref.opt_state
+        for _ in range(STEPS):
+            ref_params, ref_opt, _, _ = one_step(ref_params, ref_opt, batch)
+        params = jax.device_put(jax.tree.map(np.asarray, ref_params), shardings)
 
     def at(coords):
         dev = jmesh.devices[coords["dp"], coords["pp"], coords["cp"], coords["tp"]]
@@ -235,17 +312,32 @@ def check_rank(name: str, got: dict, oracle: dict) -> None:
                 f"{name} {kind} {leaf}"
 
 
-def run_world(world: int, specs: list, out_dir) -> tuple[list, dict]:
+def layout_case(name: str, mesh: dict, seq: int, **kw) -> dict:
+    """A member case for run_layout: the port's config of jax_cfg(**kw)
+    with remat, over batch_tokens(S=seq)."""
+    from lws_tpu_torch.models.convert import config_from_jax
+
+    return {"name": name, "run": "layout", "mesh": mesh,
+            "cfg": config_from_jax(jax_cfg(remat=True, **kw)), "tokens": batch_tokens(S=seq)}
+
+
+def run_world(world: int, specs: list, out_dir, extra: tuple = ()) -> tuple[list, dict]:
+    """JAX's oracles for `specs` ((name, mesh, jax config, jax_case's
+    keyword options)),
+    then one spawn of `world` ranks running their cases and the `extra`
+    member cases in order."""
     single, cases, oracles = {}, [], {}
-    for name, mesh, jcfg in specs:
-        case, oracle = jax_case(name, mesh, jcfg, single)
+    for name, mesh, jcfg, opts in specs:
+        case, oracle = jax_case(name, mesh, jcfg, single, **opts)
         cases.append(case)
         oracles[name] = oracle
-    return spawn_cases(world, cases, out_dir, __name__), oracles
+    return spawn_cases(world, cases + list(extra), out_dir, __name__), oracles
 
 
 WORLD2 = [
     ("tp2", {"tp": 2}, {}),
+    # 15 positions: shares of 8, one padded (parameters: jax_case's params_ref)
+    ("tp2_odd_seq", {"tp": 2}, {"seq": 16, "params_ref": "single"}),
     ("gpipe_pp2", {"pp": 2}, {"pipeline_microbatches": 2}),
     ("ring_cp2", {"cp": 2}, {"context_parallel": True}),
     ("moe_tp2", {"tp": 2}, {"moe": True}),
@@ -254,12 +346,46 @@ WORLD2 = [
 
 
 def specs_of(table):
-    return [(name, mesh, jax_cfg(**kw)) for name, mesh, kw in table]
+    """(name, mesh, jax_cfg(**kw), jax_case options) for each row; a row's
+    kw may hold jax_case's "seq" (the token columns) and "params_ref"."""
+    out = []
+    for name, mesh, kw in table:
+        opts = {k: kw[k] for k in ("seq", "params_ref") if k in kw}
+        cfg = jax_cfg(**{k: v for k, v in kw.items() if k not in opts})
+        out.append((name, mesh, cfg, opts))
+    return out
+
+
+def check_layout(name: str, results: list, B: int, S: int, cp: int, tp: int, D: int) -> None:
+    """run_layout's record on every rank: the blocks' inputs are the
+    rank's share, remat saves 1/(cp tp) of the no-mesh run's block-input
+    bytes and fewer bytes in all, and the forward reduce-scatters where it
+    all-reduced over tp."""
+    share = -(-S // (cp * tp))
+    for rank, res in enumerate(results):
+        got, none = res[name]["mesh"], res[name]["none"]
+        where = f"{name} rank {rank}"
+        L = got["n_forward"]
+        assert L > 0 and got["n_forward"] == none["n_forward"], where
+        # Every block call, in the forward and in remat's reruns.
+        assert set(got["inputs"]) == {(B, share, D)}, (where, set(got["inputs"]))
+        assert set(none["inputs"]) == {(B, S, D)}, (where, set(none["inputs"]))
+        assert len(got["inputs"]) == 2 * L, where
+        assert got["saved_inputs"] * S == none["saved_inputs"] * share and got["saved_inputs"], \
+            (where, got["saved_inputs"], none["saved_inputs"])
+        assert got["saved"] < none["saved"], (where, got["saved"], none["saved"])
+        calls = got["calls"]
+        assert calls["reduce_scatter"] >= 2 * L + 1, (where, calls)
+        assert not any(tp_group for _, tp_group in calls["all_reduce"]), (where, calls)
+        assert all(n < B * S * D for n, _ in calls["all_reduce"]), (where, calls)
+        assert none["calls"] == {"all_reduce": [], "reduce_scatter": 0, "all_gather": 0}, where
+        assert abs(got["loss"] - none["loss"]) <= 1e-5 * abs(none["loss"]), where
 
 
 @pytest.fixture(scope="module")
 def world2(tmp_path_factory):
-    return run_world(2, specs_of(WORLD2), tmp_path_factory.mktemp("train2"))
+    return run_world(2, specs_of(WORLD2), tmp_path_factory.mktemp("train2"),
+                     extra=(layout_case("layout_tp2", {"tp": 2}, seq=16),))
 
 
 @pytest.mark.parametrize("name", [n for n, _, _ in WORLD2])
@@ -268,3 +394,9 @@ def test_two_rank_mesh_trains_like_jax(world2, name):
     for rank, res in enumerate(results):
         check_rank(f"{name} rank {rank}", res[name], oracles[name])
     assert len({tuple(r[name]["losses"]) for r in results}) == 1, "ranks disagree"
+
+
+def test_training_blocks_hold_the_sequence_share_at_tp2(world2):
+    """tp 2 at 15 positions: every block receives [4, 8, 64]."""
+    results, _ = world2
+    check_layout("layout_tp2", results, B=4, S=15, cp=1, tp=2, D=64)
