@@ -1547,9 +1547,9 @@ def check_engine_routes(torch, dev, cfg, engine, prompts) -> None:
              ("suffix hit", prompts[3], (len(prompts[3]) - 1) // BLOCK),
              ("chunked hit", np.concatenate([prefix, fresh(620)]), SHARED_PREFIX // BLOCK),
              ("chunked miss", fresh(SHARED_PREFIX + 40), 0)]
-    # Each admission's route logits (the return of _insert_with_prefix or
-    # _chunk_logits) and the pool blocks _scatter_dense writes.
-    wrapped = ("_insert_with_prefix", "_chunk_logits", "_scatter_dense")
+    # Each admission's route logits (the first return of _prefill_suffix, or
+    # _chunk_logits's) and the pool blocks _scatter_dense writes.
+    wrapped = ("_prefill_suffix", "_chunk_logits", "_scatter_dense")
     captured = {}
     for name in wrapped:
         method = getattr(engine, name)
@@ -1571,7 +1571,8 @@ def check_engine_routes(torch, dev, cfg, engine, prompts) -> None:
             check(rid is not None and engine.stats_prefix["hit_blocks"] - before == hit,
                   f"prefix engine: {what} check: {engine.stats_prefix['hit_blocks'] - before} "
                   f"blocks hit, expected {hit}")
-            logits = captured.get("_insert_with_prefix", []) + captured.get("_chunk_logits", [])
+            logits = [(out[0], a) for out, a in captured.get("_prefill_suffix", [])] \
+                + captured.get("_chunk_logits", [])
             check(len(logits) == 1 and len(captured["_scatter_dense"]) == 1,
                   f"prefix engine: {what} check: {len(logits)} route logits, "
                   f"{len(captured['_scatter_dense'])} scatters")

@@ -14,7 +14,12 @@ which no port process turns on.
     and join this ring through `record`;
   * a no-op fast path: with tracing disabled (LWS_TPU_TRACE=0) or a root
     sampled out, `span()` returns one shared singleton — no allocation, no
-    clock reads — so the paged decode loop keeps its throughput.
+    clock reads — so the paged decode loop keeps its throughput;
+  * sections (port only): `section(name)` times a block on the host and
+    adds `<name>_s` and `<name>_n` to the innermost live span, an
+    accumulated attribute rather than a span of its own, so a block run
+    once per layer costs two clock reads and a dict update. With no live
+    span it is the shared no-op.
 
 The module-level TRACER is the process default (one trace surface per
 worker, like the process-global metrics REGISTRY); tests build private
@@ -69,6 +74,32 @@ class _NoopSpan:
 
 
 NOOP = _NoopSpan()
+
+
+class _Section:
+    """Host seconds of one block, accumulated on a live span as
+    `<name>_s`, with `<name>_n` counting the blocks; `add` accumulates
+    further numeric attributes on the same span."""
+
+    __slots__ = ("_span", "_keys", "_t0")
+
+    def __init__(self, span: "Span", keys: tuple) -> None:
+        self._span = span
+        self._keys = keys
+
+    def __enter__(self) -> "_Section":
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        dt = time.perf_counter() - self._t0
+        attrs, (key_s, key_n) = self._span.attrs, self._keys
+        attrs[key_s] = attrs.get(key_s, 0.0) + dt
+        attrs[key_n] = attrs.get(key_n, 0) + 1
+        return False
+
+    def add(self, **attrs) -> None:
+        self._span.add(**attrs)
 
 
 class _SuppressedSpan(_NoopSpan):
@@ -186,6 +217,7 @@ class Tracer:
         # push/pop racing the copy (one sample mis-tagged by one frame).
         self._thread_stacks: dict[int, list] = {}
         self._prune_pending: set = set()  # idents absent from ONE live set
+        self._section_keys: dict[str, tuple] = {}  # name -> (name_s, name_n)
         # Finish listeners: called with every finished span's record dict.
         # An empty list costs one truthiness check on the hot path.
         self._finish_listeners: list = []
@@ -296,6 +328,21 @@ class Tracer:
             parent_id = None
         return Span(self, name, trace_id, parent_id, attrs)
 
+    def section(self, name: str):
+        """Time the enclosed block on the host into the innermost live span
+        of this thread (`<name>_s` seconds and `<name>_n` blocks, summed).
+        Returns the shared NOOP, reading no clock, when tracing is off, the
+        root was sampled out, or no span is live."""
+        if not self.enabled:
+            return NOOP
+        state = getattr(self._tls, "state", None)
+        if state is None or not state.stack or state.suppressed:
+            return NOOP
+        keys = self._section_keys.get(name)
+        if keys is None:
+            keys = self._section_keys[name] = (f"{name}_s", f"{name}_n")
+        return _Section(state.stack[-1], keys)
+
     def trace(self, name: Optional[str] = None, **attrs) -> Callable:
         """Decorator form: the wrapped call runs inside a span named after
         the function (or `name`)."""
@@ -384,6 +431,10 @@ TRACER = Tracer()
 
 def span(name: str, parent: Optional[dict] = None, **attrs):
     return TRACER.span(name, parent=parent, **attrs)
+
+
+def section(name: str):
+    return TRACER.section(name)
 
 
 def traced(name: Optional[str] = None, **attrs) -> Callable:

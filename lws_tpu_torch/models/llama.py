@@ -99,6 +99,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from lws_tpu_torch._device import DeviceLike, resolve_device
+from lws_tpu_torch.core import trace
 from lws_tpu_torch.models.quant import QuantizedWeight, embed_lookup, expert_einsum, matmul
 from lws_tpu_torch.ops.attention import attention, reference_attention
 from lws_tpu_torch.parallel.collectives import (
@@ -344,12 +345,17 @@ def moe_route(x: torch.Tensor, router: torch.Tensor, top_k: int, capacity_factor
 def _experts(x: torch.Tensor, dispatch: torch.Tensor, combine: torch.Tensor, w_gate, w_up,
              w_down, plain: bool) -> torch.Tensor:
     """The experts' SwiGLU over their [B, C] slots and the combine:
-    dispatch/combine [B, S, E_local, C] for the experts the weights hold."""
-    expert_in = torch.einsum("bsec,bsd->ebcd", dispatch, x)
-    h = F.silu(expert_einsum(expert_in, w_gate, plain=plain)) \
-        * expert_einsum(expert_in, w_up, plain=plain)
-    expert_out = expert_einsum(h, w_down, plain=plain)  # [E, B, C, D]
-    return torch.einsum("bsec,ebcd->bsd", combine, expert_out)
+    dispatch/combine [B, S, E_local, C] for the experts the weights hold.
+    Its three phases are the live span's `moe_dispatch`, `moe_experts` and
+    `moe_combine` sections (core/trace.py)."""
+    with trace.section("moe_dispatch"):
+        expert_in = torch.einsum("bsec,bsd->ebcd", dispatch, x)
+    with trace.section("moe_experts"):
+        h = F.silu(expert_einsum(expert_in, w_gate, plain=plain)) \
+            * expert_einsum(expert_in, w_up, plain=plain)
+        expert_out = expert_einsum(h, w_down, plain=plain)  # [E, B, C, D]
+    with trace.section("moe_combine"):
+        return torch.einsum("bsec,ebcd->bsd", combine, expert_out)
 
 
 def moe_aux(probs: torch.Tensor, own: slice, dp_group=None) -> torch.Tensor:
@@ -386,8 +392,9 @@ def moe_ffn(x: torch.Tensor, router: torch.Tensor, w_gate, w_up, w_down, top_k: 
     expert_offset + E_local) of the router's E; routing and capacity are
     still computed over all E, and the result is those experts' share of
     the combined output (the caller sums the shares over the tp group)."""
-    _, dispatch, gates = moe_route(x, router, top_k, capacity_factor)
-    combine = gates.to(x.dtype)[..., None] * dispatch  # [B, S, E, C]
+    with trace.section("moe_route"):
+        _, dispatch, gates = moe_route(x, router, top_k, capacity_factor)
+        combine = gates.to(x.dtype)[..., None] * dispatch  # [B, S, E, C]
     local = slice(expert_offset, expert_offset + w_gate.shape[0])
     return _experts(x, dispatch[:, :, local], combine[:, :, local], w_gate, w_up, w_down, plain)
 
@@ -471,7 +478,11 @@ class LlamaBlock(nn.Module):
         where S = rope_cs's positions. The norms and residuals run on the
         share; seq_gather feeds wq/wk/wv and the FFN with the whole S, and
         wo's and the FFN's partial sums are reduce-scattered back to the
-        share (seq_scatter), in place of copy_to and psum."""
+        share (seq_scatter), in place of copy_to and psum.
+
+        The attention half and the dense FFN are the live span's `attn` and
+        `ffn` sections (core/trace.py); an MoE FFN times its own phases
+        (moe_ffn)."""
         B = x.shape[0]
         hd, nh, nkv = self.head_dim, self.n_heads, self.n_kv_heads
         tp = self._group("tp")
@@ -481,13 +492,14 @@ class LlamaBlock(nn.Module):
         else:
             S = x.shape[1]
             gather, reduce = (lambda t: copy_to(t, tp)), (lambda t: psum(t, tp))
-        h = gather(rms_norm(x, self.attn_norm, self.norm_eps))
-        q = matmul(h, self.wq.weight, plain=plain).reshape(B, S, nh, hd)
-        k = matmul(h, self.wk.weight, plain=plain).reshape(B, S, nkv, hd)
-        v = matmul(h, self.wv.weight, plain=plain).reshape(B, S, nkv, hd)
-        q, k = apply_rope(q, *rope_cs), apply_rope(k, *rope_cs)
-        attn = attn_fn(q, k, v).reshape(B, S, nh * hd)
-        x = x + reduce(matmul(attn, self.wo.weight, plain=plain))
+        with trace.section("attn"):
+            h = gather(rms_norm(x, self.attn_norm, self.norm_eps))
+            q = matmul(h, self.wq.weight, plain=plain).reshape(B, S, nh, hd)
+            k = matmul(h, self.wk.weight, plain=plain).reshape(B, S, nkv, hd)
+            v = matmul(h, self.wv.weight, plain=plain).reshape(B, S, nkv, hd)
+            q, k = apply_rope(q, *rope_cs), apply_rope(k, *rope_cs)
+            attn = attn_fn(q, k, v).reshape(B, S, nh * hd)
+            x = x + reduce(matmul(attn, self.wo.weight, plain=plain))
         h = rms_norm(x, self.ffn_norm, self.norm_eps)
         aux = None
         if self.router is not None and train:
@@ -496,10 +508,11 @@ class LlamaBlock(nn.Module):
             y = moe_ffn(h, self.router, self.w_gate.weight, self.w_up.weight, self.w_down.weight,
                         self.top_k, self.capacity_factor, plain, self.expert_offset)
         else:
-            h = gather(h)
-            y = matmul(F.silu(matmul(h, self.w_gate.weight, plain=plain))
-                       * matmul(h, self.w_up.weight, plain=plain),
-                       self.w_down.weight, plain=plain)
+            with trace.section("ffn"):
+                h = gather(h)
+                y = matmul(F.silu(matmul(h, self.w_gate.weight, plain=plain))
+                           * matmul(h, self.w_up.weight, plain=plain),
+                           self.w_down.weight, plain=plain)
         x = x + reduce(y)
         if not train:
             return x
@@ -585,10 +598,12 @@ class Llama(nn.Module):
         (under a mesh, every rank's vocabulary shard gathered in rank order).
         With `seq` = S, h is the rank's share of S positions over tp
         (training): the shares are gathered (seq_gather) in place of
-        copy_to, and the logits cover all S."""
+        copy_to, and the logits cover all S. Timed as the live span's
+        `lm_head` section (core/trace.py)."""
         tp = None if self.mesh is None else self.mesh.tp_group
-        h = copy_to(h, tp) if seq is None else seq_gather(h, tp, seq)
-        return all_gather(matmul(h, self.lm_head.weight, plain=plain), tp).float()
+        with trace.section("lm_head"):
+            h = copy_to(h, tp) if seq is None else seq_gather(h, tp, seq)
+            return all_gather(matmul(h, self.lm_head.weight, plain=plain), tp).float()
 
     def embed_tokens(self, tokens: torch.Tensor, share: bool = False) -> torch.Tensor:
         """The embedding rows of `tokens` in the compute dtype. Under a mesh

@@ -17,7 +17,9 @@ kernel; on CUDA with more rows (prefill buckets 512 and up) the product JAX
 leaves to XLA, `(x @ q) * scale` in the compute dtype (quant.py:117); on the
 CPU, and with `plain=True`, the kernel's plain version. `expert_einsum`
 applies the same rule to each expert's rows: one int8_matmul launch per
-expert when the rows fit, else that expert's dequantized product.
+expert when the rows fit, else that expert's dequantized product. Each
+dequantizing copy is timed as the `dequant` section of the live span
+(core/trace.py), with the bf16 bytes it writes as `dequant_bytes`.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from lws_tpu_torch.core import trace
 from lws_tpu_torch.ops.int8_matmul import MAX_ROWS, int8_matmul, int8_matmul_reference
 
 
@@ -82,6 +85,16 @@ def dequantize_array(w: QuantizedArray, dtype: torch.dtype, contract_axis: int =
     return (w.q.float() * w.scale.unsqueeze(contract_axis)).to(dtype)
 
 
+def dequant_copy(q: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """The `dtype` copy of int8 weight values that a product over MAX_ROWS
+    multiplies, timed as the live span's `dequant` section, with the bytes
+    it writes added as `dequant_bytes`."""
+    with trace.section("dequant") as sec:
+        out = q.to(dtype)
+        sec.add(dequant_bytes=out.numel() * out.element_size())
+    return out
+
+
 def matmul(x: torch.Tensor, w: Weight, dtype: Optional[torch.dtype] = None,
            plain: bool = False) -> torch.Tensor:
     """x [..., in] @ w.T (w [out, in], plain or quantized) in `dtype`
@@ -92,7 +105,7 @@ def matmul(x: torch.Tensor, w: Weight, dtype: Optional[torch.dtype] = None,
         if plain:
             return int8_matmul_reference(x, w.q, w.scale)
         if x.is_cuda and x.numel() // x.shape[-1] > MAX_ROWS:
-            return F.linear(x, w.q.to(dtype)) * w.scale.to(dtype)
+            return F.linear(x, dequant_copy(w.q, dtype)) * w.scale.to(dtype)
         return int8_matmul(x, w.q, w.scale)
     return F.linear(x, w.to(dtype))
 
@@ -118,7 +131,7 @@ def expert_einsum(x: torch.Tensor, w: Weight, plain: bool = False) -> torch.Tens
         x3 = x3.contiguous()
         y = torch.stack([int8_matmul(x3[e], w.q[e], w.scale[e]) for e in range(E)])
     else:
-        y = torch.stack([F.linear(x3[e], w.q[e].to(dtype)) * w.scale[e].to(dtype)
+        y = torch.stack([F.linear(x3[e], dequant_copy(w.q[e], dtype)) * w.scale[e].to(dtype)
                          for e in range(E)])
     return y.reshape(E, *lead, y.shape[-1])
 

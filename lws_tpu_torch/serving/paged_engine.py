@@ -77,6 +77,19 @@ state, prefix-cache hits by tier, misses and evictions, restored bytes,
 speculative tokens), `compile_site`s around every dispatch seam, the
 weights and kv pool bytes, and the bytes of each dirty dispatch-input
 upload. Telemetry is per dispatch, never per token.
+
+The port traces further than the JAX engine, with the spans PORT_SPANS
+names: under `serve.admission`, `serve.prefix_walk` (the digest chain and
+tier walk; `hit_blocks`, `blocks`), `serve.prefill`, `serve.insert` (the
+scatter into the pool) and `serve.first_token` (the host's wait for the
+first token; `device_wait_s`); under `serve.decode_dispatch`,
+`serve.decode_launch` (the loop of forward_decode_paged and the sampler;
+`steps`) beside the ring's `serve.decode_consume`; and `serve.decode_flush`
+wherever the engine flushes the ring, naming its `cause` (bound, slots,
+blocks, result, drain or spec), with the consumes it runs as children.
+The model step's host seconds by section (core/trace.py `section`: attn,
+ffn or moe_*, lm_head, sample, dequant) accumulate on `serve.decode_launch`
+and `serve.prefill`.
 """
 
 from __future__ import annotations
@@ -122,6 +135,10 @@ from lws_tpu_torch.serving.engine import (
 )
 from lws_tpu_torch.serving.kv_transport import host_array, to_tensor
 from lws_tpu_torch.serving.pipeline import DecodePipeline, remaining_steps
+
+# Span names the port's paged engine opens and the JAX engine does not.
+PORT_SPANS = ("serve.prefix_walk", "serve.insert", "serve.first_token", "serve.decode_launch",
+              "serve.decode_flush")
 
 
 def pow2_rows(n: int, floor: int) -> int:
@@ -444,11 +461,11 @@ class PagedBatchEngine:
         """Allocate n pool blocks, evicting LRU-parked prefix blocks on
         demand (unmapping their digests). Returns None when the pool cannot
         supply n, checked up front so a refused request evicts nothing."""
-        if self._pipeline and n > len(self._free_blocks):
+        if n > len(self._free_blocks):
             # Consume the ring before evicting: retires may return enough
             # private blocks, and no dispatch still in flight can then touch
             # a block this allocation hands out again.
-            self._pipeline.flush()
+            self._flush("blocks")
         if n > len(self._free_blocks) + len(self._lru):
             return None
         out: list[int] = []
@@ -539,16 +556,15 @@ class PagedBatchEngine:
                      *scales)
         self.pos_b[slot] = plen
 
-    def _insert_with_prefix(self, suffix: torch.Tensor, block_ids: torch.Tensor, hit_len: int,
-                            last_off: int, slot: int, plen: int) -> torch.Tensor:
+    def _prefill_suffix(self, suffix: torch.Tensor, block_ids: torch.Tensor, hit_len: int,
+                        last_off: int) -> tuple[torch.Tensor, KVCache]:
         """Prefix-hit admission: the suffix [1, s] through forward_with_cache
-        over the slot's gathered blocks at pos = hit_len, scattered back.
-        Returns the last true token's logits [1, V]. The hit blocks are
-        rewritten with the bytes they hold."""
+        over the slot's gathered blocks at pos = hit_len. Returns the last
+        true token's logits [1, V] and the filled dense view, which the
+        caller scatters back (_scatter_dense: the hit blocks are rewritten
+        with the bytes they hold)."""
         dense = self._dense_view(block_ids, suffix.shape[1], hit_len)
-        logits, dense = forward_with_cache(self.params, suffix, dense, last_offset=last_off)
-        self._scatter_dense(dense, block_ids, slot, plen)
-        return logits
+        return forward_with_cache(self.params, suffix, dense, last_offset=last_off)
 
     def _chunk_logits(self, hidden: torch.Tensor, last_off: int) -> torch.Tensor:
         """lm_head logits [1, V] f32 of row `last_off` of a chunk's
@@ -592,17 +608,21 @@ class PagedBatchEngine:
         """Sample the post-prefill token from the request's stream and park
         the stream on the slot. Returns a 0-d int32 device tensor."""
         dev = self.device
-        first = sample_logits_per_slot(
-            logits, [gen],
-            torch.tensor([req.temperature], dtype=torch.float32, device=dev),
-            torch.tensor([req.top_k], dtype=torch.int32, device=dev),
-            torch.tensor([req.top_p], dtype=torch.float32, device=dev),
-        )[0]
+        with trace.section("sample"):
+            first = sample_logits_per_slot(
+                logits, [gen],
+                torch.tensor([req.temperature], dtype=torch.float32, device=dev),
+                torch.tensor([req.top_k], dtype=torch.int32, device=dev),
+                torch.tensor([req.top_p], dtype=torch.float32, device=dev),
+            )[0]
         self._gens[req.slot] = gen
         return first
 
     def _finish_admission(self, req: PagedRequest, first) -> int:
-        req.tokens.append(int(first))
+        with trace.span("serve.first_token") as sp:
+            t0 = time.perf_counter()
+            req.tokens.append(int(first))  # the host waits for the prefill here
+            sp.set(device_wait_s=round(time.perf_counter() - t0, 6))
         if req.slo is not None:
             # The prefill token in hand marks TTFT on the arrival clock
             # (queue wait was recorded at slot acquisition).
@@ -660,7 +680,7 @@ class PagedBatchEngine:
         open-loop admission delay shows up as queue wait."""
         t0 = time.perf_counter()
         timeline = slo.request("paged", arrival_t, klass=klass)
-        with trace.span("serve.admission", engine="paged", prompt_len=len(prompt)) as sp:
+        with trace.span("serve.admission") as sp:
             rid = self._submit(prompt, max_new_tokens, (temperature, top_k, top_p, seed),
                                timeline)
             sp.set(admitted=rid is not None)
@@ -676,9 +696,8 @@ class PagedBatchEngine:
 
     def _submit(self, prompt: np.ndarray, max_new_tokens: int, sampling: tuple,
                 timeline: "slo.RequestTimeline") -> Optional[int]:
-        if not self._free_slots and self._pipeline:
-            # In-flight completions may be about to free a slot.
-            self._pipeline.flush()
+        if not self._free_slots:
+            self._flush("slots")  # in-flight completions may be about to free a slot
         if not self._free_slots:
             return None
         prompt = np.asarray(prompt)
@@ -693,8 +712,8 @@ class PagedBatchEngine:
         if self.prefix_cache:
             return self._submit_prefix(prompt, max_new_tokens, sampling, bucket, n_blocks,
                                        timeline)
-        if n_blocks > len(self._free_blocks) and self._pipeline:
-            self._pipeline.flush()  # in-flight completions may free blocks
+        if n_blocks > len(self._free_blocks):
+            self._flush("blocks")  # in-flight completions may free blocks
         if n_blocks > len(self._free_blocks):
             return None
         blocks = [self._free_blocks.popleft() for _ in range(n_blocks)]
@@ -726,33 +745,30 @@ class PagedBatchEngine:
         self._set_table(slot, req.blocks)
         padded = np.zeros((1, bucket), np.int64)
         padded[0, :plen] = req.prompt
-        with trace.span("serve.prefill", chunked=False, prompt_len=plen), \
-                devicemod.compile_site("paged.prefill", engine="paged", shape=f"b{bucket}",
-                                       request_id=req.slo.request_id if req.slo else ""):
-            logits, slot_cache = self._prefill_one(torch.tensor(padded, device=self.device),
-                                                   plen - 1)
-            first = self._sample_first_token(logits, gen, req)
-            prefill_ids = torch.tensor(req.blocks[: bucket // self.block_size],
-                                       device=self.device)
-            scales = ((slot_cache.k_scale[:, 0], slot_cache.v_scale[:, 0])
-                      if self.cfg.kv_quant else ())
-            self._insert(slot_cache.k[:, 0], slot_cache.v[:, 0], prefill_ids, slot, plen, first,
-                         *scales)
+        with devicemod.compile_site("paged.prefill", engine="paged", shape=f"b{bucket}",
+                                    request_id=req.slo.request_id if req.slo else ""):
+            with trace.span("serve.prefill"):
+                logits, slot_cache = self._prefill_one(torch.tensor(padded, device=self.device),
+                                                       plen - 1)
+                first = self._sample_first_token(logits, gen, req)
+            with trace.span("serve.insert"):
+                prefill_ids = torch.tensor(req.blocks[: bucket // self.block_size],
+                                           device=self.device)
+                scales = ((slot_cache.k_scale[:, 0], slot_cache.v_scale[:, 0])
+                          if self.cfg.kv_quant else ())
+                self._insert(slot_cache.k[:, 0], slot_cache.v[:, 0], prefill_ids, slot, plen,
+                             first, *scales)
         return first
 
-    def _submit_prefix(self, prompt, max_new_tokens, sampling, bucket: int,
-                       n_blocks: int, timeline: "slo.RequestTimeline") -> Optional[int]:
-        bs = self.block_size
-        plen = len(prompt)
-        # Never cache the whole prompt: at least one token is computed, so
-        # the first-token logits exist.
-        shareable_n = (plen - 1) // bs
+    def _prefix_walk(self, prompt, shareable_n: int) -> tuple[list[int], list[str], list[bytes]]:
+        """The tiered hit walk over the prompt's first `shareable_n` blocks,
+        in digest-chain order: the pool (hbm), then the host arena, then a
+        sibling (remote); the first digest no tier holds ends the chain.
+        Each hit is pinned as the walk reaches it, so a restore's allocation
+        (which may evict) or the admission's own allocation cannot take it;
+        a failed allocation rolls every pin back. Returns the hit blocks,
+        their tiers and the digests."""
         digests = self._block_digests(prompt, shareable_n)
-        # The tiered hit walk, in digest-chain order: the pool (hbm), then the
-        # host arena, then a sibling (remote); the first digest no tier holds
-        # ends the chain. Each hit is pinned as the walk reaches it, so a
-        # restore's allocation (which may evict) or the allocation below
-        # cannot take it; a failed allocation rolls every pin back.
         hits: list[int] = []
         tiers: list[str] = []
         remote_found: Optional[dict] = None
@@ -779,6 +795,18 @@ class PagedBatchEngine:
                 break  # the pool is exhausted: the chain ends here
             tiers.append(tier)
             hits.append(blk)
+        return hits, tiers, digests
+
+    def _submit_prefix(self, prompt, max_new_tokens, sampling, bucket: int,
+                       n_blocks: int, timeline: "slo.RequestTimeline") -> Optional[int]:
+        bs = self.block_size
+        plen = len(prompt)
+        # Never cache the whole prompt: at least one token is computed, so
+        # the first-token logits exist.
+        shareable_n = (plen - 1) // bs
+        with trace.span("serve.prefix_walk") as walk:
+            hits, tiers, digests = self._prefix_walk(prompt, shareable_n)
+            walk.set(hit_blocks=len(hits), blocks=shareable_n)
         hit_len = len(hits) * bs
         new_blocks = self._alloc_blocks(n_blocks - len(hits))
         if new_blocks is None:
@@ -806,17 +834,17 @@ class PagedBatchEngine:
             s_true = plen - hit_len
             suffix = np.zeros((1, s_suf), np.int64)
             suffix[0, :s_true] = prompt[hit_len:]
-            with trace.span("serve.prefill", chunked=False, prompt_len=plen,
-                            prefix_hit_tokens=hit_len), \
-                    devicemod.compile_site("paged.prefill_suffix", engine="paged",
-                                           shape=f"b{bucket}/s{s_suf}",
-                                           request_id=timeline.request_id):
-                logits = self._insert_with_prefix(
-                    torch.tensor(suffix, device=self.device),
-                    torch.tensor(blocks[: bucket // bs], device=self.device),
-                    hit_len, s_true - 1, req.slot, plen)
-                first = self._sample_first_token(logits, gen, req)
-                self.tokens[req.slot] = first
+            ids = torch.tensor(blocks[: bucket // bs], device=self.device)
+            with devicemod.compile_site("paged.prefill_suffix", engine="paged",
+                                        shape=f"b{bucket}/s{s_suf}",
+                                        request_id=timeline.request_id):
+                with trace.span("serve.prefill"):
+                    logits, dense = self._prefill_suffix(
+                        torch.tensor(suffix, device=self.device), ids, hit_len, s_true - 1)
+                    first = self._sample_first_token(logits, gen, req)
+                with trace.span("serve.insert"):
+                    self._scatter_dense(dense, ids, req.slot, plen)
+                    self.tokens[req.slot] = first
         # Register the newly computed shareable blocks (this request holds a
         # ref on each until it completes). A digest already mapped keeps
         # its block; this copy stays private.
@@ -869,23 +897,24 @@ class PagedBatchEngine:
                 dense = init_cache(self.cfg, 1, max(bucket, n_chunks * C), self.device,
                                    self.mesh)
             hidden = None
-            with trace.span("serve.prefill", chunked=True, chunks=n_chunks, prompt_len=plen,
-                            prefix_hit_tokens=hit_len), \
-                    devicemod.compile_site("paged.chunk_prefill", engine="paged",
-                                           shape=f"b{bucket}/c{C}",
-                                           request_id=req.slo.request_id if req.slo else ""):
-                for i in range(n_chunks):
-                    chunk = torch.tensor(padded[None, i * C:(i + 1) * C], device=self.device)
-                    hidden, dense = forward_prefill_chunk(self.params, chunk, dense)
-                    if self._active and self.interleave_steps > 0 and i < n_chunks - 1:
-                        self.stats["interleaved_decode_steps"] += self.step_n(
-                            self.interleave_steps)
-                logits = self._chunk_logits(hidden, (s_true - 1) % C)
-                first = self._sample_first_token(logits, gen, req)
+            with devicemod.compile_site("paged.chunk_prefill", engine="paged",
+                                        shape=f"b{bucket}/c{C}",
+                                        request_id=req.slo.request_id if req.slo else ""):
+                with trace.span("serve.prefill"):
+                    for i in range(n_chunks):
+                        chunk = torch.tensor(padded[None, i * C:(i + 1) * C], device=self.device)
+                        hidden, dense = forward_prefill_chunk(self.params, chunk, dense)
+                        if self._active and self.interleave_steps > 0 and i < n_chunks - 1:
+                            self.stats["interleaved_decode_steps"] += self.step_n(
+                                self.interleave_steps)
+                    logits = self._chunk_logits(hidden, (s_true - 1) % C)
+                    first = self._sample_first_token(logits, gen, req)
                 self._set_table(slot, req.blocks)
-                ids = torch.tensor(req.blocks[: bucket // self.block_size], device=self.device)
-                self._scatter_dense(dense, ids, slot, plen)
-                self.tokens[slot] = first
+                with trace.span("serve.insert"):
+                    ids = torch.tensor(req.blocks[: bucket // self.block_size],
+                                       device=self.device)
+                    self._scatter_dense(dense, ids, slot, plen)
+                    self.tokens[slot] = first
         finally:
             self._admitting = None
         self.stats["chunked_admissions"] += 1
@@ -917,6 +946,13 @@ class PagedBatchEngine:
         self._update_pool_gauges()
 
     # ---- decode -------------------------------------------------------
+    def _flush(self, cause: str) -> None:
+        """Consume every chunk in flight, inside a `serve.decode_flush` span
+        that names why; an empty ring opens no span."""
+        if self._pipeline:
+            with trace.span("serve.decode_flush", cause=cause):
+                self._pipeline.flush()
+
     def step(self) -> None:
         """One decode step across every active slot."""
         self.step_n(1)
@@ -936,11 +972,11 @@ class PagedBatchEngine:
         if n <= 0:
             return 0
         if not self._active:
-            self._pipeline.flush()
+            self._flush("drain")
             return 0
         bound = self._completion_bound() - self._pipeline.inflight_steps()
         if bound < 1:
-            self._pipeline.flush()  # consume; retires re-clamp the bound
+            self._flush("bound")  # consume; retires re-clamp the bound
             if not self._active:
                 return 0
             bound = self._completion_bound()
@@ -948,8 +984,7 @@ class PagedBatchEngine:
         n = 1 << (n.bit_length() - 1)
         # Span + histogram per dispatch, never per token.
         t0 = time.perf_counter()
-        with trace.span("serve.decode_dispatch", engine="paged", steps=n,
-                        active=len(self._active), inflight=len(self._pipeline)):
+        with trace.span("serve.decode_dispatch"):
             # Host-side scheduling window: with chunks in flight it overlaps
             # device compute; with an empty ring it counts as host-blocked.
             with self._pipeline.host_section():
@@ -958,17 +993,20 @@ class PagedBatchEngine:
                 tokens, pos_b, cache = self.tokens, self.pos_b, self.cache
                 toks = []
                 with devicemod.compile_site("paged.step_n", engine="paged",
-                                            shape=f"n{n}/sample={sample}"):
+                                            shape=f"n{n}/sample={sample}"), \
+                        trace.span("serve.decode_launch", steps=n):
                     for _ in range(n):
                         logits, cache = forward_decode_paged(self.params, tokens, cache, table,
                                                              pos_b)
-                        if sample:
-                            # Each slot advances its own stream; inactive slots
-                            # too (harmless: a new occupant brings its own
-                            # generator).
-                            nxt = sample_logits_per_slot(logits, self._gens, temp, top_k, top_p)
-                        else:  # all-greedy batch: plain argmax
-                            nxt = torch.argmax(logits, dim=-1).to(torch.int32)
+                        with trace.section("sample"):
+                            if sample:
+                                # Each slot advances its own stream; inactive
+                                # slots too (harmless: a new occupant brings
+                                # its own generator).
+                                nxt = sample_logits_per_slot(logits, self._gens, temp, top_k,
+                                                             top_p)
+                            else:  # all-greedy batch: plain argmax
+                                nxt = torch.argmax(logits, dim=-1).to(torch.int32)
                         tokens = torch.where(active, nxt, tokens)
                         pos_b = torch.where(active, pos_b + 1, pos_b)
                         toks.append(tokens)
@@ -999,7 +1037,7 @@ class PagedBatchEngine:
         chunks are flushed."""
         for _ in range(max_steps):
             if not self._active:
-                self._pipeline.flush()
+                self._flush("drain")
                 return
             self.step_n(32)  # step_n clamps to the completion bound itself
         raise RuntimeError("engine did not drain")
@@ -1029,7 +1067,7 @@ class PagedBatchEngine:
         """Rebuild every slot's device speculative state from host truth,
         which needs (and performs) a ring flush: entry into speculation
         after plain step_n dispatches, or after a rollback."""
-        self._pipeline.flush()
+        self._flush("spec")
         H = self.spec_history
         hist = np.zeros((self.slots, H), np.int32)
         hlen = np.zeros((self.slots,), np.int32)
@@ -1107,7 +1145,7 @@ class PagedBatchEngine:
         inapplicable: no active slot, no greedy slot, or a slot too close to
         max_len for a full run; the caller then steps plainly."""
         if not self._active:
-            self._pipeline.flush()
+            self._flush("drain")
             return False
         if len(self._active) <= self._sampled_active:
             # No greedy slot to draft for: a (gamma + 1)-wide verify would
@@ -1124,7 +1162,7 @@ class PagedBatchEngine:
         if self._completion_bound() - inflight < 1 or not self._spec_fits(S, inflight):
             # The soonest completion is already in flight, or a verify row
             # could cross max_len in the worst case: consume, then recheck.
-            self._pipeline.flush()
+            self._flush("spec")
             if not self._active or len(self._active) <= self._sampled_active:
                 return False
             if not self._spec_fits(S, 0):
@@ -1195,7 +1233,7 @@ class PagedBatchEngine:
         drafts on the host (Engine._draft_ngram), waits for the verify
         pass, accepts on the host and re-uploads positions and tokens. Its
         streams equal step_speculative's token for token."""
-        self._pipeline.flush()
+        self._flush("spec")
         self._spec_fresh = False  # the host commit below bypasses hist/rem
         if not self._active:
             return False
@@ -1260,7 +1298,7 @@ class PagedBatchEngine:
         step = self.step_speculative_sync if sync else self.step_speculative
         for _ in range(max_dispatches):
             if not self._active:
-                self._pipeline.flush()
+                self._flush("drain")
                 return
             if not step(gamma, ngram):
                 greedy_alive = any(r.temperature <= 0 for r in self._active.values())
@@ -1279,6 +1317,6 @@ class PagedBatchEngine:
             if live is None or (
                 remaining_steps(live, self.max_len) <= self._pipeline.inflight_steps()
             ):
-                self._pipeline.flush()
+                self._flush("result")
                 req = self._completed.get(request_id)
         return list(req.tokens) if req is not None else None

@@ -14,11 +14,14 @@ wait) while chunk N+1 runs on the card. `depth=0` is the synchronous loop.
   * `flush()` consumes everything in flight; `discard()` drops it
     uncommitted (the rollback after a failed dispatch).
   * `host_section()` times a host scheduling window; time spent there with
-    an empty ring is time the device waited on the host (`host_blocked_s`,
-    and the `serving_host_blocked_seconds{engine}` counter).
+    an empty ring is time the device waited on the host (the live span's
+    `host_blocked_s`, and the `serving_host_blocked_seconds{engine}`
+    counter).
   * `serving_inflight_dispatches{engine}` gauges the ring depth live; each
     consume runs in a `serve.decode_consume` span carrying its
-    `device_wait_s`; the `decode_ring:{engine}` heartbeat feeds the stall
+    `device_wait_s`, the host's wait for the chunk's tokens, and the
+    `host_blocked_s` of its commit; the `decode_ring:{engine}` heartbeat
+    feeds the stall
     watchdog; `discard()` leaves a `pipeline_discard` flight-recorder
     event; `push` carries the `pipeline.dispatch` fault point.
 """
@@ -68,8 +71,6 @@ class _HostSection:
     def __exit__(self, *exc) -> bool:
         if self._blocked:
             dt = time.perf_counter() - self._t0
-            with self._pipe._lock:
-                self._pipe.stats["host_blocked_s"] += dt
             metrics.inc(
                 "serving_host_blocked_seconds",
                 {"engine": self._pipe.engine_label}, value=dt,
@@ -88,8 +89,7 @@ class DecodePipeline:
         self._lock = threading.RLock()
         self._ring: "deque[tuple[int, object, Callable]]" = deque()  # guarded-by: _lock
         self.stats = {  # guarded-by: _lock
-            "dispatched": 0, "consumed": 0, "flushes": 0, "discarded": 0,
-            "host_blocked_s": 0.0, "device_wait_s": 0.0, "max_inflight": 0,
+            "dispatched": 0, "consumed": 0, "flushes": 0, "discarded": 0, "max_inflight": 0,
         }
 
     def __len__(self) -> int:
@@ -147,16 +147,11 @@ class DecodePipeline:
             self._heartbeat()
 
     def _consume_oldest(self) -> None:  # holds-lock: _lock
-        steps, payload, commit = self._ring.popleft()
-        with trace.span(
-            "serve.decode_consume", engine=self.engine_label, steps=steps,
-            inflight=len(self._ring),
-        ) as sp:
+        _, payload, commit = self._ring.popleft()
+        with trace.span("serve.decode_consume") as sp:
             t0 = time.perf_counter()
             host = _to_host(payload)
-            wait = time.perf_counter() - t0
-            self.stats["device_wait_s"] += wait
-            sp.set(device_wait_s=round(wait, 6))
+            sp.set(device_wait_s=round(time.perf_counter() - t0, 6))
             with self.host_section():
                 commit(host)
         self.stats["consumed"] += 1

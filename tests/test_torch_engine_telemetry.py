@@ -7,8 +7,11 @@ reporting into fresh registries, recorders and tracers of its own package.
 Metric family names, types and label sets, every counter value but
 durations, every histogram's `_count` and every slot, block, ring and
 attainment gauge must be equal; durations need only be present and >= 0.
-The multiset of span names and of flight-recorder event kinds must be
-equal, and the greedy streams too.
+The multiset of span names the JAX package emits and of flight-recorder
+event kinds must be equal, and the greedy streams too. The port's paged
+engine traces further than its reference (the spans of
+paged_engine.PORT_SPANS: prefix walk, insert, first token, decode launch,
+ring flush), a recorded divergence: each case names their exact counts.
 
 Then the port's cases of tests/test_telemetry_plane.py (the decode-ring
 stall watchdog end to end, the rollback event, resolvable SLO exemplars),
@@ -41,7 +44,7 @@ from lws_tpu_torch.core import faults, flightrecorder, metrics, slo, trace
 from lws_tpu_torch.models.convert import config_from_jax, params_from_jax
 from lws_tpu_torch.serving.batch_engine import BatchEngine
 from lws_tpu_torch.serving.engine import Engine
-from lws_tpu_torch.serving.paged_engine import PagedBatchEngine
+from lws_tpu_torch.serving.paged_engine import PORT_SPANS, PagedBatchEngine
 from lws_tpu_torch.serving.pipeline import DecodePipeline
 
 # Counters that accumulate seconds: only their presence is compared.
@@ -103,7 +106,9 @@ def _by_series(fam):
     return {(name, tuple(sorted(labels.items()))): v for name, labels, v, _ in fam["samples"]}
 
 
-def assert_same_telemetry(jsnap, psnap):
+def assert_same_telemetry(jsnap, psnap, port_spans=None):
+    """`port_spans`: the exact count of each name of PORT_SPANS the port
+    emits (none when omitted)."""
     jf, pf = jsnap["families"], psnap["families"]
     assert sorted(pf) == sorted(jf)
     for name, jfam in jf.items():
@@ -119,7 +124,9 @@ def assert_same_telemetry(jsnap, psnap):
                 assert got >= 0, (key, got)
             else:
                 assert got == v, (key, got, v)
-    assert psnap["spans"] == jsnap["spans"]
+    assert Counter({n: c for n, c in psnap["spans"].items() if n not in PORT_SPANS}) \
+        == jsnap["spans"]
+    assert {n: psnap["spans"][n] for n in PORT_SPANS if psnap["spans"][n]} == (port_spans or {})
     assert psnap["events"] == jsnap["events"]
     assert psnap["beats"] == jsnap["beats"]
 
@@ -136,9 +143,10 @@ def paged_pair(model, **kw):
             PagedBatchEngine(tcfg, tparams, device="cpu", **kw))
 
 
-def run_both(sides, engines, drive):
+def run_both(sides, engines, drive, port_spans=None):
     """`drive(engine)` on the JAX engine reporting into the JAX side, then
-    on the port's into the port's; returns both snapshots and outputs."""
+    on the port's into the port's; returns both snapshots and outputs.
+    `port_spans` as assert_same_telemetry takes it."""
     out = []
     for side, eng in zip(sides, engines):
         side.reset()
@@ -146,7 +154,13 @@ def run_both(sides, engines, drive):
         out.append((side.snapshot(), got))
     (jsnap, jout), (psnap, pout) = out
     assert pout == jout
-    assert_same_telemetry(jsnap, psnap)
+    assert_same_telemetry(jsnap, psnap, port_spans)
+    if port_spans is not None:
+        # One flush span for each flush of a non-empty ring, which JAX's
+        # ring counts too; one first token and one insert per admission.
+        assert port_spans.get("serve.decode_flush", 0) == engines[0]._pipeline.stats["flushes"]
+        admitted = sum(v for _, _, v, _ in psnap["families"]["serving_requests_total"]["samples"])
+        assert port_spans["serve.first_token"] == port_spans["serve.insert"] == admitted
     return jsnap, psnap
 
 
@@ -163,7 +177,11 @@ def test_paged_plain_telemetry_matches_jax(model, sides):
         eng.step_n(1)
         return [ids[3]] + [eng.result(i) for i in ids if i is not None]
 
-    jsnap, psnap = run_both(sides, paged_pair(model, slots=3, max_len=64, block_size=8), drive)
+    # Four admissions, three step_n dispatches; flushes: the refused
+    # admission's (slots) and two at the completion bound.
+    jsnap, psnap = run_both(sides, paged_pair(model, slots=3, max_len=64, block_size=8), drive,
+                            {"serve.first_token": 4, "serve.insert": 4,
+                             "serve.decode_launch": 3, "serve.decode_flush": 3})
     fam = psnap["families"]
     assert _by_series(fam["serving_requests_total"]) == {
         ("serving_requests_total", (("engine", "paged"),)): 4.0}
@@ -187,8 +205,16 @@ def test_paged_prefix_telemetry_matches_jax(model, sides, pipeline_depth):
         eng.run_until_drained()
         return out + [eng.result(i) for i in out if i is not None] + [eng.stats_prefix]
 
+    # Five prefix walks, three admitted (the last two are refused for
+    # blocks after their walks); the drains' dispatches; with the ring, its
+    # flushes at the completion bound.
+    port_spans = {"serve.prefix_walk": 5, "serve.first_token": 3, "serve.insert": 3,
+                  "serve.decode_launch": 10}
+    if pipeline_depth:
+        port_spans["serve.decode_flush"] = 3
     run_both(sides, paged_pair(model, slots=3, max_len=64, block_size=8, num_blocks=12,
-                               prefix_cache=True, pipeline_depth=pipeline_depth), drive)
+                               prefix_cache=True, pipeline_depth=pipeline_depth), drive,
+             port_spans)
 
 
 def test_paged_chunked_telemetry_matches_jax(model, sides):
@@ -200,9 +226,12 @@ def test_paged_chunked_telemetry_matches_jax(model, sides):
         eng.run_until_drained()
         return [eng.result(i) for i in ids] + [eng.stats["chunked_admissions"]]
 
+    # The interleaved steps between chunks are dispatches of their own.
     _, psnap = run_both(sides, paged_pair(model, slots=4, max_len=128, block_size=8,
                                           prefill_chunk=16, interleave_steps=2, prefix_cache=True),
-                        drive)
+                        drive, {"serve.prefix_walk": 4, "serve.first_token": 4,
+                                "serve.insert": 4, "serve.decode_launch": 9,
+                                "serve.decode_flush": 2})
     assert psnap["spans"]["serve.prefill"] == 4
 
 
@@ -218,7 +247,13 @@ def test_paged_speculative_telemetry_matches_jax(model, sides, sync):
         eng.run_until_drained_speculative(gamma=4, ngram=3, sync=sync)
         return [eng.result(i) for i in ids]
 
-    _, psnap = run_both(sides, paged_pair(model, slots=2, max_len=128, block_size=16), drive)
+    # One plain dispatch (step_n(1)); speculative dispatches open no launch
+    # span. The device loop flushes at its entry and its budget and tail
+    # boundaries, the host loop once on entry (its later steps find the
+    # ring empty).
+    _, psnap = run_both(sides, paged_pair(model, slots=2, max_len=128, block_size=16), drive,
+                        {"serve.first_token": 2, "serve.insert": 2, "serve.decode_launch": 1,
+                         "serve.decode_flush": 1 if sync else 3})
     assert psnap["spans"]["serve.spec_verify"] > 0
 
 
